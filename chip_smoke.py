@@ -9,27 +9,43 @@ Phases, in order; any failure exits non-zero:
 
 1. print the card's name and power limit (``nvidia-smi``), build the
    CUDA kernels from ``src/repro_torch/csrc`` and print the build time;
-2. kernels: each kernel against its plain PyTorch version on the card,
-   at llama3-8b serving shapes, over ragged lengths (0, 15, 16, 17 and
-   long), shared pool blocks and a ragged prefill length.  Inputs are
-   bf16 with q and k of std ``QK_STD``, so the softmax is peaked and
-   the outputs are O(1); the tolerance is ``ATOL`` absolute plus
-   ``RTOL`` relative (at least two bf16 units in the last place), so a kernel
-   that drops one tile of keys or mis-scales its running sums fails.
-   Each kernel, its plain version and one PyTorch library call of the
-   same function are timed with CUDA events, each call after a write
-   that evicts the L2 (the regime of the bytes bound);
-3. small reference: a small dense model with head_dim 128, served on
-   the card (kernels) and on the CPU (plain versions) from the same
-   weights — the greedy tokens must agree, up to near ties;
-4. serve, staged: llama3-8b at full width and depth, random weights from
-   a seeded generator on the card; 8 requests (prompts of 512 and 256
-   tokens, 32 new tokens each), block_tokens 16, max_batch 4, policy
-   tiering08, slow kind pinned_host;
-5. serve, fused (``fused_gather``): the same requests; greedy tokens must
-   equal the staged phase's, except where the first differing step is a
-   near tie (top-2 logit margin below ``NEAR_TIE``);
-6. print the ``kernels`` JSON line, then the device line last.
+2. kernels: each kernel against its plain PyTorch version on the card.
+   The three attention kernels run at the serving shapes of llama3-8b
+   (32 heads, 8 KV heads) and of qwen3-moe-30b-a3b (32 heads, 4 KV
+   heads), over ragged lengths (0, 15, 16, 17 and long), shared pool
+   blocks and a ragged prefill length; q and k have std ``QK_STD``, so
+   the softmax is peaked and the outputs are O(1).  ``fused_expert_ffn``
+   runs at qwen3-moe-30b-a3b's decode shapes (batch 4, d_model 2048,
+   expert d_ff 768, 128 experts, top-8) on router-like ids, with one
+   duplicated expert and one padded row, x of std 1 and weights at their
+   init scales.  The tolerance is ``ATOL`` absolute plus ``RTOL``
+   relative (at least two bf16 units in the last place), so a kernel
+   that drops a tile of keys, a slot or a column tile fails.  Each
+   kernel, its plain version and, where one exists, one PyTorch library
+   call of the same function are timed with CUDA events, each call
+   after a write that evicts the L2 (the regime of the bytes bound);
+3. small references: a small dense model and a small MoE model with
+   head_dim 128, each served on the card (kernels) and on the CPU (plain
+   versions) from the same weights — the greedy tokens must agree, up
+   to near ties;
+4. serve llama3-8b, staged then fused (``fused_gather``): full width
+   and depth, random weights from a seeded generator on the card; 8
+   requests (prompts of 512 and 256 tokens, 32 new tokens each),
+   block_tokens 16, max_batch 4, policy tiering08, slow kind
+   pinned_host.  Fused tokens must equal staged ones, except where the
+   first differing step is a near tie (top-2 logit margin below
+   ``NEAR_TIE``);
+5. serve qwen3-moe-30b-a3b the same way, once llama3-8b's weights are
+   freed: staged (``moe_fwd``) then fused (``fused_expert_ffn`` on every
+   MoE layer of every decode step), the same requests and the same
+   agreement rule; at a mismatch the fused path's smallest top-8 /
+   top-9 router margin of that step is printed beside the logit margin;
+6. print the ``kernels`` JSON line, then the device line last.  The
+   line has one row per kernel build the serve phases launch: each
+   attention kernel at each model's KV geometry (``decode_attention@KV8``
+   for llama3-8b, ``...@KV4`` for qwen3-moe-30b-a3b) and
+   ``fused_expert_ffn``; each row's times, bound and error come from its
+   own build, and its launches from its own model's serve phases.
 
 Launch counters are set to 0 just before each serve phase and read just
 after it; a kernel of the path that did not launch fails the run.
@@ -39,6 +55,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import gc
 import json
 import math
 import statistics
@@ -61,7 +79,9 @@ L2_FLUSH_BYTES = 256 << 20     # written before each timed call (L2: 50 MB)
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 SEED = 0
 
-B, H, KV, HD, BT = 4, 32, 8, 128, 16
+B, H, HD, BT = 4, 32, 128, 16
+MODELS = {"llama3-8b": 8, "qwen3-moe-30b-a3b": 4}   # served, and KV heads
+D_MOE, F_MOE, E_MOE, K_MOE = 2048, 768, 128, 8   # qwen3-moe-30b-a3b
 PROMPTS, NEW_TOKENS, N_REQ = (512, 256), 32, 8
 MAX_CONTEXT = max(PROMPTS) + NEW_TOKENS + BT
 NB = math.ceil(MAX_CONTEXT / BT)          # table slots per sequence
@@ -70,17 +90,22 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:85",
     "paged_decode_attention": "src/repro/kernels/tiered_gather.py:157",
     "flash_attention": "src/repro/kernels/flash_attention.py:87",
+    "fused_expert_ffn": "src/repro/kernels/tiered_gather.py:219",
 }
 SOURCES = {
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "paged_decode_attention":
         "src/repro_torch/csrc/paged_decode_attention.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "fused_expert_ffn": "src/repro_torch/csrc/fused_expert_ffn.cu",
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -154,6 +179,12 @@ def sdpa(q, k, v, **kw):
         return lambda: F.scaled_dot_product_attention(q, k2, v2, **kw)
 
 
+def randn_bf16(gen: torch.Generator, *shape, std: float = 1.0):
+    """bf16 N(0, std^2) draws on ``gen``'s device."""
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * std).to(torch.bfloat16)
+
+
 def bound(nbytes: float, flops: float):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / BF16_FLOP_PER_S * 1e3
@@ -163,17 +194,17 @@ def bound(nbytes: float, flops: float):
 # ---------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions                           #
 # ---------------------------------------------------------------------- #
-def kernel_phase(dev, gen) -> dict:
+def attention_kernels(dev, gen, KV: int) -> dict:
+    """The three attention kernels at H heads and ``KV`` KV heads."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.tiered_gather import paged_decode_attention
 
-    def rnd(*shape, std=1.0):
-        return (torch.randn(shape, generator=gen, device=dev)
-                * std).to(torch.bfloat16)
+    rnd = functools.partial(randn_bf16, gen)
 
     out = {}
+    tag = f"KV={KV}"
     # cached lengths per decode row (the engine's ``lengths``): block
     # edges, an empty row, and the main path's longest contexts
     ragged = [[0, 15, 16, 17], [543, 287, 16, 1], [543, 543, 542, 0]]
@@ -186,7 +217,7 @@ def kernel_phase(dev, gen) -> dict:
     for lens in ragged + [timed]:
         kv_len = torch.tensor(lens, dtype=torch.int32, device=dev) + 1
         err = max(err, compare(
-            f"decode_attention lens={lens}",
+            f"decode_attention {tag} lens={lens}",
             decode_attention(q, kc, vc, kv_len),
             ref.decode_attention(q, kc, vc, kv_len)))
     kv_len = torch.tensor(timed, dtype=torch.int32, device=dev) + 1
@@ -226,7 +257,7 @@ def kernel_phase(dev, gen) -> dict:
         t = padded(lens)
         kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
         err = max(err, compare(
-            f"paged_decode_attention lens={lens}",
+            f"paged_decode_attention {tag} lens={lens}",
             paged_decode_attention(q, kp, vp, t, kv_len, kn, vn,
                                    block_tokens=BT),
             ref.paged_decode_attention(q, kp, vp, t, kv_len, kn, vn)))
@@ -258,7 +289,7 @@ def kernel_phase(dev, gen) -> dict:
     for L in (max(PROMPTS), min(PROMPTS), 300, 17):
         qq, kk = rnd(1, L, H, HD, std=QK_STD), rnd(1, L, KV, HD, std=QK_STD)
         vv = rnd(1, L, KV, HD)
-        err = max(err, compare(f"flash_attention L={L}",
+        err = max(err, compare(f"flash_attention {tag} L={L}",
                                flash_attention(qq, kk, vv, causal=True),
                                ref.flash_attention(qq, kk, vv,
                                                    causal=True)))
@@ -277,13 +308,81 @@ def kernel_phase(dev, gen) -> dict:
                                                      causal=True)),
         library_ms=time_ms(sdpa(qt, ktt, vtt, is_causal=True)),
         bound_ms=t_b, bound_by=by)
-    for name, row in out.items():
+    return out
+
+
+def expert_kernel(dev, gen) -> dict:
+    """``fused_expert_ffn`` at qwen3-moe-30b-a3b's decode shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tiered_gather import fused_expert_ffn
+
+    rnd = functools.partial(randn_bf16, gen)
+
+    D, F, E, K = D_MOE, F_MOE, E_MOE, K_MOE
+    x = rnd(B, D)
+    x[3] = x[0]           # a padded row: token 0 again, routed the same
+    wg, wu = rnd(E, D, F, std=D ** -0.5), rnd(E, D, F, std=D ** -0.5)
+    wd = rnd(E, F, D, std=F ** -0.5)
+    router = torch.randn(D, E, generator=gen, device=dev) * D ** -0.5
+    wts, ids = torch.topk(torch.softmax(x.float() @ router, -1), K)
+    wts = wts / wts.sum(-1, keepdim=True)
+    ids = ids.to(torch.int32)
+    ids[1, K - 1] = ids[1, 0]          # one duplicated expert id
+    got = fused_expert_ffn(x, wg, wu, wd, ids, wts)
+    err = compare("fused_expert_ffn B=4 D=2048 F=768 E=128 K=8", got,
+                  ref.expert_ffn(x, wg, wu, wd, ids, wts))
+    if not torch.equal(got[3], got[0]):
+        fail("fused_expert_ffn: the padded row differs from row 0")
+    distinct = int(torch.unique(ids).numel())
+    # bytes: the distinct routed experts' weights once, x, out, ids, wts
+    t_b, by = bound(distinct * 3 * D * F * 2 + 2 * B * D * 2 + 8 * B * K,
+                    B * K * 6 * D * F)
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fused_expert_ffn(x, wg, wu, wd, ids, wts)),
+        warm_ms=time_ms(lambda: fused_expert_ffn(x, wg, wu, wd, ids, wts),
+                        cold=False),
+        plain_ms=time_ms(lambda: ref.expert_ffn(x, wg, wu, wd, ids, wts)),
+        library_ms=None,       # no single PyTorch call routes top-k
+        bound_ms=t_b, bound_by=by, distinct_experts=distinct)
+
+
+def kernel_phase(dev, gen) -> dict:
+    """Rows of the ``kernels`` line, one per kernel build the serve
+    phases launch: each attention kernel at both models' KV geometry
+    (``decode_attention@KV8``, ``...@KV4``) and the expert kernel.  Each
+    row names its ``kernel`` and the ``model`` whose serve runs it."""
+    rows = {}
+    for arch, KV in MODELS.items():
+        for name, row in attention_kernels(dev, gen, KV).items():
+            rows[f"{name}@KV{KV}"] = dict(row, kernel=name, model=arch)
+    rows["fused_expert_ffn"] = dict(expert_kernel(dev, gen),
+                                    kernel="fused_expert_ffn",
+                                    model="qwen3-moe-30b-a3b")
+    for name, row in rows.items():
+        lib = row["library_ms"]
         log(f"kernel {name}: max_abs_err={row['max_abs_err']:.3g} "
             f"ms={row['ms']:.4f} (warm L2 {row['warm_ms']:.4f}) "
-            f"plain_ms={row['plain_ms']:.4f} "
-            f"library_ms={row['library_ms']:.4f} "
-            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
-    return out
+            f"plain_ms={row['plain_ms']:.4f} library_ms="
+            + ("none" if lib is None else f"{lib:.4f}")
+            + f" bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+    return rows
+
+
+def kernels_line(kernels: dict, serve: dict) -> list:
+    """The ``kernels`` line's rows.  Each row's launches are those of
+    its own model's serve phases (staged and fused), the only runs that
+    launch its build."""
+    return [{"name": name, "route": "cuda",
+             "source": SOURCES[row["kernel"]],
+             "replaces": REPLACES[row["kernel"]],
+             "launches": sum(phase["launches"][row["kernel"]]
+                             for key, phase in serve[row["model"]].items()
+                             if key != "profile"),
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+            for name, row in kernels.items()]
 
 
 # ---------------------------------------------------------------------- #
@@ -323,9 +422,13 @@ def run_engine(eng):
     return rep, wall, launches, tokens
 
 
-def agree(name: str, a: dict, b: dict, margins: dict) -> list:
+def agree(name: str, a: dict, b: dict, margins: dict,
+          route_margins: dict = None) -> list:
     """Tokens of two runs must match; a mismatch passes only if its
-    first differing step is a near tie in run ``b``."""
+    first differing step is a near tie in run ``b``.  ``route_margins``
+    (run ``b``'s, MoE fused path): the step's smallest top-K / top-(K+1)
+    router margin is logged beside the logit margin; it decides
+    nothing."""
     ties = []
     for rid in sorted(a):
         if a[rid] == b.get(rid):
@@ -333,22 +436,38 @@ def agree(name: str, a: dict, b: dict, margins: dict) -> list:
         step = next(i for i, (x, y) in enumerate(zip(a[rid], b[rid]))
                     if x != y)
         margin = margins[rid][step]
+        tie = {"rid": rid, "step": step, "margin": margin}
+        route = ""
+        if route_margins:
+            tie["route_margin"] = route_margins[rid][step]
+            route = f", smallest router top-K/top-(K+1) margin " \
+                f"{tie['route_margin']:.3g}"
         log(f"{name}: req{rid} differs from step {step}, top-2 margin "
-            f"{margin:.4g} (near tie below {NEAR_TIE})")
+            f"{margin:.4g} (near tie below {NEAR_TIE}){route}")
         if margin >= NEAR_TIE:
             fail(f"{name}: req{rid} tokens differ at step {step} with a "
                  f"top-2 margin of {margin:.4g}")
-        ties.append({"rid": rid, "step": step, "margin": margin})
+        ties.append(tie)
     return ties
 
 
-def small_reference_phase() -> dict:
-    """Kernels (card) against plain versions (CPU) end to end, on a
-    small dense model with the full model's head geometry."""
+def path_kernels(cfg, fused: bool) -> tuple:
+    """The kernels a serve run of ``cfg`` launches on one decode path."""
+    if not fused:
+        return ("decode_attention", "flash_attention")
+    if any(spec.moe for spec in cfg.pattern):
+        return ("paged_decode_attention", "flash_attention",
+                "fused_expert_ffn")
+    return ("paged_decode_attention", "flash_attention")
+
+
+def small_reference_phase(arch: str, **widen) -> dict:
+    """Kernels (card) against plain versions (CPU) end to end, on
+    ``arch``'s smoke config widened (``widen``) to the full model's head
+    geometry."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import lm
-    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), d_model=512,
-                              n_heads=4, n_kv=2, head_dim=128, d_ff=1024)
+    cfg = dataclasses.replace(get_smoke_config(arch), **widen)
     cpu = lm.init_params(cfg, seed=SEED, device="cpu")
     gpu = lm.tree_map(lambda t: t.cuda(), cpu)
     prompts = prompts_for(cfg, 3, (40, 23))
@@ -356,24 +475,29 @@ def small_reference_phase() -> dict:
     for name, params, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
         for fused in (False, True):
             eng = serve(cfg, params, prompts, 8, dev, fused_gather=fused)
-            _, _, _, t = run_engine(eng)
-            toks[(name, fused)] = (t, eng.margins)
+            _, _, launches, t = run_engine(eng)
+            if dev == "cuda":
+                missing = [k for k in path_kernels(cfg, fused)
+                           if not launches[k]]
+                if missing:
+                    fail(f"small reference {arch}: {missing} never "
+                         "launched")
+            toks[(name, fused)] = (t, eng.margins, eng.route_margins)
     ties = []
     for fused in (False, True):
-        ties += agree(f"small reference (fused={fused})",
+        ties += agree(f"small reference {arch} (fused={fused})",
                       toks[("cpu", fused)][0], *toks[("cuda", fused)])
-    log(f"small reference: card and CPU tokens agree on both paths "
+    log(f"small reference {arch}: card and CPU tokens agree on both paths "
         f"({len(ties)} near tie(s))")
     return {"ties": ties}
 
 
-def serve_phase(label: str, cfg, params, prompts, need: tuple,
-                fused: bool) -> dict:
+def serve_phase(label: str, cfg, params, prompts, fused: bool) -> dict:
     eng = serve(cfg, params, prompts, NEW_TOKENS, "cuda",
                 fused_gather=fused)
     rep, wall, launches, tokens = run_engine(eng)
     s = rep.summary
-    for name in need:
+    for name in path_kernels(cfg, fused):
         if launches[name] <= 0:
             fail(f"{label}: kernel {name} was never launched")
     n_units = cfg.n_units * len(cfg.pattern)
@@ -381,6 +505,14 @@ def serve_phase(label: str, cfg, params, prompts, need: tuple,
     if launches[dec] % n_units:
         fail(f"{label}: {launches[dec]} {dec} launches is not a multiple "
              f"of {n_units} layers")
+    n_moe = cfg.n_units * sum(spec.moe for spec in cfg.pattern)
+    experts = launches["fused_expert_ffn"]
+    if (fused and n_moe) and experts % n_moe:
+        fail(f"{label}: {experts} fused_expert_ffn launches is not a "
+             f"multiple of {n_moe} MoE layers")
+    if not (fused and n_moe) and experts:
+        fail(f"{label}: fused_expert_ffn launched {experts} times off "
+             "the fused MoE path")
     if s["finished"] != len(prompts) or any(
             len(t) != NEW_TOKENS for t in tokens.values()):
         fail(f"{label}: not every request finished with {NEW_TOKENS} "
@@ -392,13 +524,14 @@ def serve_phase(label: str, cfg, params, prompts, need: tuple,
         f"throughput={s['throughput_tok_s']:.1f} tok/s "
         f"mean_ttft={s['mean_ttft_s'] * 1e3:.1f} ms "
         f"p95_ttft={s['p95_ttft_s'] * 1e3:.1f} ms "
+        f"p95_decode_gap={s['p95_decode_gap_s'] * 1e3:.1f} ms "
         f"iterations={int(s['iterations'])} "
         f"promoted={rep.tiering['promoted']} "
         f"demoted={rep.tiering['demoted']} launches={launches} "
         f"(decode launches per iteration: {n_units})")
     return {"summary": s, "wall_s": wall, "launches": launches,
             "tokens": tokens, "margins": eng.margins,
-            "tiering": rep.tiering}
+            "route_margins": eng.route_margins, "tiering": rep.tiering}
 
 
 def profile_phase(cfg, params) -> dict:
@@ -408,7 +541,8 @@ def profile_phase(cfg, params) -> dict:
     share of the run's wall time."""
     from torch.profiler import profile, ProfilerActivity
     groups = (("port kernels", ("decode_attention_kernel",
-                                "flash_attention_kernel")),
+                                "flash_attention_kernel",
+                                "expert_up_kernel", "expert_down_kernel")),
               ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                           "cublas")),
               ("copy", ("memcpy", "copy")))
@@ -432,7 +566,7 @@ def profile_phase(cfg, params) -> dict:
                 and e.self_device_time_total > 0]
         busy = sum(r[1] for r in rows)
         if busy <= 0:
-            log(f"profile {label}: the profiler saw no device time")
+            log(f"profile {cfg.name} {label}: the profiler saw no device time")
             continue
         cats = {name: 0.0 for name, _ in groups}
         cats["other"] = 0.0
@@ -446,13 +580,51 @@ def profile_phase(cfg, params) -> dict:
                       "device_idle_share": 1.0 - busy / wall,
                       "iterations": eng._step,
                       "categories_s": cats, "top": rows[:15]}
-        log(f"profile {label}: wall={wall:.3f} s device_busy={busy:.3f} s "
+        log(f"profile {cfg.name} {label}: wall={wall:.3f} s "
+            f"device_busy={busy:.3f} s "
             f"idle_share={1.0 - busy / wall:.3f} "
             f"iterations={eng._step} "
             + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in cats.items()))
         for key, sec, n in rows[:8]:
             log(f"  {sec * 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
     return out
+
+
+def serve_model(arch: str, profile: bool) -> dict:
+    """Serve ``arch`` at full width and depth on both paths; fused tokens
+    must equal staged ones up to near ties.  The weights are freed when
+    this returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"{arch} params ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}): {time.perf_counter() - t0:.1f} s, "
+        f"{memory()}")
+    prompts = prompts_for(cfg, N_REQ, PROMPTS)
+    out = {}
+    for fused in (False, True):
+        label = f"{arch} {'fused' if fused else 'staged'}"
+        out["fused" if fused else "staged"] = serve_phase(
+            label, cfg, params, prompts, fused=fused)
+        log(f"after serve {label}: {memory()}")
+    staged, fused = out["staged"], out["fused"]
+    fused["ties"] = agree(f"{arch} fused vs staged", staged["tokens"],
+                          fused["tokens"], fused["margins"],
+                          fused["route_margins"])
+    log(f"{arch} fused vs staged: {N_REQ - len(fused['ties'])}/{N_REQ} "
+        "requests give identical tokens")
+    if profile:
+        out["profile"] = profile_phase(cfg, params)
+    return out
+
+
+def memory() -> str:
+    return (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device "
+            f"(peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
 
 
 def main() -> int:
@@ -463,9 +635,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU")
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.models import lm
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -490,50 +660,28 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
 
-    kernels = kernel_phase(dev, gen)
-    record["kernels"] = kernels
-    record["small_reference"] = small_reference_phase()
-    cfg = get_config("llama3-8b")
-    t0 = time.perf_counter()
-    params = lm.init_params(cfg, seed=SEED, device="cuda")
-    torch.cuda.synchronize()
-    log(f"llama3-8b params ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, vocab {cfg.vocab}): "
-        f"{time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on device")
-    prompts = prompts_for(cfg, N_REQ, PROMPTS)
-    staged = serve_phase("staged", cfg, params, prompts,
-                         ("decode_attention", "flash_attention"),
-                         fused=False)
-    fused = serve_phase("fused", cfg, params, prompts,
-                        ("paged_decode_attention", "flash_attention"),
-                        fused=True)
-    fused["ties"] = agree("fused vs staged", staged["tokens"],
-                          fused["tokens"], fused["margins"])
-    log(f"fused vs staged: {N_REQ - len(fused['ties'])}/{N_REQ} "
-        "requests give identical tokens")
-    record["serve"] = {"staged": staged, "fused": fused}
-    if args.profile:
-        record["profile"] = profile_phase(cfg, params)
-    for name in kernels:
-        kernels[name]["launches"] = (staged["launches"][name]
-                                     + fused["launches"][name])
-    rows = [{"name": name, "route": "cuda", "source": SOURCES[name],
-             "replaces": REPLACES[name],
-             "launches": row["launches"],
-             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-            for name, row in kernels.items()]
+    record["kernels"] = kernels = kernel_phase(dev, gen)
+    record["small_reference"] = small_reference_phase(
+        "llama3-8b", d_model=512, n_heads=4, n_kv=2, head_dim=128,
+        d_ff=1024)
+    record["small_moe_reference"] = small_reference_phase(
+        "qwen3-moe-30b-a3b", d_model=512, n_kv=2, head_dim=128)
+    record["serve"] = {}
+    for arch in MODELS:              # one model's weights on the card
+        record["serve"][arch] = serve_model(arch, args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = kernels_line(kernels, record["serve"])
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(
         json.dumps(record, indent=1, default=str))
-    log(card)
-    log(json.dumps({"kernels": rows}))
-    log(json.dumps({"ok": True, "device": {
+    # the result lines, unprefixed: card, kernels, and the device line last
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -26,7 +26,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("decode_attention", "paged_decode_attention", "flash_attention")
+KERNELS = ("decode_attention", "paged_decode_attention", "flash_attention",
+           "fused_expert_ffn")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +44,10 @@ _ARGTYPES = {
     # q, k, v, out, B, Sq, Sk, H, KV, HD, causal, scale, stream
     "flash_attention_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
+    # x, w_gate, w_up, w_down, ids, wts, h scratch, out, B, K, D, F, E,
+    # stream
+    "fused_expert_ffn_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

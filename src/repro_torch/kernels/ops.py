@@ -14,6 +14,7 @@ from . import ref
 from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import check_args as _flash_check
 from .flash_attention import flash_attention as _flash_kernel
+from .tiered_gather import fused_expert_ffn as _expert_kernel
 from .tiered_gather import paged_decode_attention as _paged_kernel
 
 
@@ -41,3 +42,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, kv_len, k_new,
                              v_new, block_tokens=block_tokens)
     return ref.paged_decode_attention(q, k_pool, v_pool, block_tbl, kv_len,
                                       k_new, v_new)
+
+
+def fused_expert_ffn(x, w_gate, w_up, w_down, expert_ids,
+                     expert_wts) -> torch.Tensor:
+    if _on_cuda(x):
+        return _expert_kernel(x, w_gate, w_up, w_down, expert_ids,
+                              expert_wts)
+    return ref.expert_ffn(x, w_gate, w_up, w_down, expert_ids, expert_wts)

@@ -85,3 +85,22 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     return decode_attention(q, staged(k_pool, k_new),
                             staged(v_pool, v_new), lens + 1)
+
+
+def expert_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor, expert_ids: torch.Tensor,
+               expert_wts: torch.Tensor) -> torch.Tensor:
+    """Gather-then-compute version of the fused expert FFN.
+
+    x (B, D); w_gate/w_up (E, D, F); w_down (E, F, D); expert_ids (B, K);
+    expert_wts (B, K).  Copies the routed experts' weights out of the
+    stacked store as fp32 (B, K, D, F) selections — the staging the
+    kernel skips — and returns sum_k wts * ffn_silu(x; expert) in
+    ``x.dtype``, (B, D)."""
+    idx = expert_ids.to(torch.int64)
+    xf = x.float()
+    wg, wu, wd = (w[idx].float() for w in (w_gate, w_up, w_down))
+    h = torch.nn.functional.silu(torch.einsum("bd,bkdf->bkf", xf, wg)) \
+        * torch.einsum("bd,bkdf->bkf", xf, wu)
+    out = torch.einsum("bkf,bkfd->bkd", h, wd)
+    return torch.einsum("bk,bkd->bd", expert_wts.float(), out).to(x.dtype)

@@ -1,21 +1,35 @@
-"""Paged decode attention straight over the KV pool: the CUDA kernel
-``csrc/paged_decode_attention.cu`` and its wrapper.
+"""The two kernels of the reference's ``tiered_gather`` module, each a
+CUDA kernel with its wrapper.
 
-Replaces ``repro/kernels/tiered_gather.py`` (``paged_decode_attention``
-/ ``_paged_decode_kernel``), the fused decode's attention
-(``serving/engine.py::_fused_unit_fwd``).  The reference module's other
-kernel, ``fused_expert_ffn``, belongs to the MoE slice and is not
-ported yet.
+``paged_decode_attention``: paged decode attention straight over the KV
+pool (``csrc/paged_decode_attention.cu``).  Replaces
+``repro/kernels/tiered_gather.py`` (``paged_decode_attention`` /
+``_paged_decode_kernel``), the fused decode's attention
+(``serving/engine.py::_fused_unit_fwd``).  Bound on the H100:
+device-memory bytes, as for ``decode_attention``: the live K/V rows of
+every sequence, read once through the block table, plus the table
+itself.  Design: the same (KV head, sequence) thread blocks; where the
+TPU kernel took the block table by scalar prefetch, each block reads
+its own table row and offsets the pool pointer by
+``tbl[b, j] * bt * KV * hd``, so no staging copy exists.  The step's new
+token is folded in after the cached ones; pad table slots (block 0) are
+never read, and a ``kv_len = 0`` row attends to its new token only.
+Same weakness as ``decode_attention``: ``B * KV`` blocks.
 
-Bound on the H100: device-memory bytes, as for ``decode_attention``:
-the live K/V rows of every sequence, read once through the block table,
-plus the table itself.  Design: the same (KV head, sequence) thread
-blocks; where the TPU kernel took the block table by scalar prefetch,
-each block reads its own table row and offsets the pool pointer by
-``tbl[b, j] * bt * KV * hd``, so no staging copy exists.  The step's
-new token is folded in after the cached ones; pad table slots (block
-0) are never read, and a ``kv_len = 0`` row attends to its new token
-only.  Same weakness as ``decode_attention``: ``B * KV`` blocks.
+``fused_expert_ffn``: the top-k silu expert FFN read straight from the
+stacked expert store (``csrc/fused_expert_ffn.cu``).  Replaces
+``repro/kernels/tiered_gather.py`` (``fused_expert_ffn`` /
+``_expert_ffn_kernel``), the fused decode's MoE sublayer.  Bound on the
+H100: device-memory bytes, ``3 * D * F * 2`` per distinct routed expert
+(9.4 MB at qwen3-moe-30b-a3b) against about ``6 * D * F`` FLOP per
+(token, slot).  Design: where Pallas carried the sum over the K slots in
+VMEM along a sequential grid axis, two passes behind one C call: pass 1
+(blocks over F tiles and (token, slot)) forms ``silu(x Wg) * (x Wu)``
+into an fp32 scratch, pass 2 (blocks over narrow D tiles and tokens)
+sums ``wts * h Wd`` over the slots in order and stores bf16; threads own
+8 columns each and read weight rows with 16-byte loads.  Known weakness,
+left for a later version: each (token, slot) reads its expert on its
+own, so an expert two tokens route to is read twice.
 """
 from __future__ import annotations
 
@@ -58,4 +72,38 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             1.0 / math.sqrt(hd), stream_of(q))
     build.check(rc, "paged_decode_attention")
     build.LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def fused_expert_ffn(x: torch.Tensor, w_gate: torch.Tensor,
+                     w_up: torch.Tensor, w_down: torch.Tensor,
+                     expert_ids: torch.Tensor,
+                     expert_wts: torch.Tensor) -> torch.Tensor:
+    """x (B, D); w_gate/w_up (E, D, F); w_down (E, F, D): bf16 on CUDA;
+    expert_ids (B, K) routed experts (cast to int32), expert_wts (B, K)
+    their weights (cast to fp32).  Returns (B, D) bf16:
+    ``sum_k wts[b, k] * ffn_silu(x[b]; expert ids[b, k])``, accumulated
+    in fp32.  Takes D and F multiples of 8; raises on any other input,
+    and on CPU tensors (``kernels.ops`` routes those to
+    ``ref.expert_ffn``).  An id outside [0, E) gives NaN for its token."""
+    B, D = x.shape
+    E, _, F = w_gate.shape
+    K = expert_ids.shape[1]
+    require(x, "x", torch.bfloat16, (B, D))
+    require(w_gate, "w_gate", torch.bfloat16, (E, D, F))
+    require(w_up, "w_up", torch.bfloat16, (E, D, F))
+    require(w_down, "w_down", torch.bfloat16, (E, F, D))
+    ids = expert_ids.to(torch.int32).contiguous()
+    wts = expert_wts.to(torch.float32).contiguous()
+    require(ids, "expert_ids", torch.int32, (B, K))
+    require(wts, "expert_wts", torch.float32, (B, K))
+    h = torch.empty((B, K, F), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = build.load("fused_expert_ffn").fused_expert_ffn_bf16(
+            x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr(), ids.data_ptr(), wts.data_ptr(), h.data_ptr(),
+            out.data_ptr(), B, K, D, F, E, stream_of(x))
+    build.check(rc, "fused_expert_ffn")
+    build.LAUNCHES["fused_expert_ffn"] += 1
     return out

@@ -1,6 +1,6 @@
 """Pattern language model in PyTorch (counterpart of ``repro.models.lm``)
-for attention-only families: parameters, prefill, and the conversion
-of the reference's parameters.
+for attention-only families, dense or MoE: parameters, prefill, and the
+conversion of the reference's parameters.
 
 Parameters keep the reference's pytree layout — nested dicts and
 tuples, with the repeating unit's layers stacked on a leading ``units``
@@ -31,8 +31,6 @@ def _unsupported(cfg: ModelConfig) -> Optional[str]:
         if spec.kind != "attn" or spec.cross_attn:
             return f"layer kind {spec.kind!r}" + (
                 "+cross" if spec.cross_attn else "")
-        if spec.moe:
-            return "MoE layers (ROADMAP queue 1, the MoE slice)"
     if cfg.encoder_layers:
         return "encoder-decoder models"
     if cfg.pos_emb not in ("rope", "learned", "none"):
@@ -44,7 +42,7 @@ def check_supported(cfg: ModelConfig) -> None:
     why = _unsupported(cfg)
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention-only models; "
+            f"{cfg.name}: the port runs attention-only models; "
             f"{why} are not ported yet")
 
 
@@ -81,20 +79,35 @@ def params_from_numpy(tree, device: DeviceLike = None) -> Params:
 
 
 def _normal(shape, std: float, g: torch.Generator, device,
-            units: int = 0) -> torch.Tensor:
-    """bf16 N(0, std^2) draws; with ``units`` > 0 a (units, *shape)
-    stack drawn one unit at a time, so the fp32 transient stays one
-    layer in size."""
+            units: int = 0, dtype: torch.dtype = torch.bfloat16
+            ) -> torch.Tensor:
+    """N(0, std^2) draws in ``dtype``; with ``units`` > 0 a (units,
+    *shape) stack drawn one unit at a time, so the fp32 transient stays
+    one layer in size."""
     if not units:
-        return (torch.randn(shape, generator=g, device=device) * std
-                ).to(torch.bfloat16)
-    out = torch.empty((units, *shape), dtype=torch.bfloat16, device=device)
+        return torch.randn(shape, generator=g, device=device).mul_(
+            std).to(dtype)
+    out = torch.empty((units, *shape), dtype=dtype, device=device)
     for u in range(units):
-        out[u] = _normal(shape, std, g, device)
+        out[u] = _normal(shape, std, g, device, dtype=dtype)
     return out
 
 
-def _init_layer(cfg: ModelConfig, g: torch.Generator, device) -> Params:
+def _init_moe(cfg: ModelConfig, g: torch.Generator, device) -> Params:
+    """The reference's ``init_moe`` layout, stacked over the U units: an
+    fp32 router (D, E) and bf16 experts (E, D, F) / (E, F, D)."""
+    U, D, F, E = cfg.n_units, cfg.d_model, cfg.d_ff, cfg.n_experts
+    s, sf = 1.0 / math.sqrt(D), 1.0 / math.sqrt(F)
+    p = {"router": _normal((D, E), s, g, device, U, torch.float32),
+         "w_up": _normal((E, D, F), s, g, device, U),
+         "w_down": _normal((E, F, D), sf, g, device, U)}
+    if cfg.act == "silu":
+        p["w_gate"] = _normal((E, D, F), s, g, device, U)
+    return p
+
+
+def _init_layer(cfg: ModelConfig, spec, g: torch.Generator,
+                device) -> Params:
     """One layer of the unit, every leaf stacked over the U units."""
     U, D, F, hd = cfg.n_units, cfg.d_model, cfg.d_ff, cfg.head_dim
     H, KV = cfg.n_heads, cfg.n_kv
@@ -115,11 +128,15 @@ def _init_layer(cfg: ModelConfig, g: torch.Generator, device) -> Params:
             "wo": _normal((H * hd, D), s, g, device, U)}
     if cfg.qkv_bias:
         attn.update(bq=zeros(H * hd), bk=zeros(KV * hd), bv=zeros(KV * hd))
-    mlp = {"w_up": _normal((D, F), s, g, device, U),
-           "w_down": _normal((F, D), sf, g, device, U)}
+    p = {"norm1": norm(), "attn": attn, "norm2": norm()}
+    if spec.moe:
+        p["moe"] = _init_moe(cfg, g, device)
+        return p
+    p["mlp"] = {"w_up": _normal((D, F), s, g, device, U),
+                "w_down": _normal((F, D), sf, g, device, U)}
     if cfg.act == "silu":
-        mlp["w_gate"] = _normal((D, F), s, g, device, U)
-    return {"norm1": norm(), "attn": attn, "norm2": norm(), "mlp": mlp}
+        p["mlp"]["w_gate"] = _normal((D, F), s, g, device, U)
+    return p
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -139,8 +156,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     p: Params = {
         "embed": _normal((cfg.vocab, D), 0.02, g, dev),
         "final_norm": norm,
-        "units": {"layers": tuple(_init_layer(cfg, g, dev)
-                                  for _ in cfg.pattern)},
+        "units": {"layers": tuple(_init_layer(cfg, spec, g, dev)
+                                  for spec in cfg.pattern)},
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = _normal((cfg.vocab, D), 0.02, g, dev)
@@ -185,13 +202,23 @@ def project_qkv(cfg: ModelConfig, ap: Params, h: torch.Tensor):
             v.reshape(B, S, cfg.n_kv, cfg.head_dim))
 
 
+def ffn(cfg: ModelConfig, spec, lp: Params, h: torch.Tensor) -> torch.Tensor:
+    """The layer's MLP, or its MoE (``moe_fwd``, capacity and drop as
+    the config sets them) where the layer spec says so."""
+    if spec.moe:
+        return M.moe_fwd(lp["moe"], h, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor,
+                         n_groups=cfg.moe_groups, act=cfg.act)[0]
+    return M.mlp_fwd(lp["mlp"], h, cfg.act)
+
+
 def _unit_prefill(cfg: ModelConfig, up: Params, x: torch.Tensor,
                   positions: torch.Tensor):
     """One unit over the whole prompt; returns (x, [k], [v]) with the
     post-rotary bf16 K/V of each attention layer."""
     B, S, _ = x.shape
     ks, vs = [], []
-    for li in range(len(cfg.pattern)):
+    for li, spec in enumerate(cfg.pattern):
         lp = up["layers"][li]
         h = M.apply_norm(cfg.norm, lp["norm1"], x)
         q, k, v = project_qkv(cfg, lp["attn"], h)
@@ -203,7 +230,7 @@ def _unit_prefill(cfg: ModelConfig, up: Params, x: torch.Tensor,
         x = x + att.reshape(B, S, cfg.n_heads * cfg.head_dim) \
             @ lp["attn"]["wo"]
         h = M.apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + M.mlp_fwd(lp["mlp"], h, cfg.act)
+        x = x + ffn(cfg, spec, lp, h)
         ks.append(k.to(torch.bfloat16))
         vs.append(v.to(torch.bfloat16))
     return x, ks, vs

@@ -1,5 +1,5 @@
 """Model building blocks in PyTorch (counterpart of
-``repro.models.modules``, attention-only families).
+``repro.models.modules``, attention-only families, dense or MoE).
 
 Plain functions over explicit parameter dictionaries, in the reference's
 layouts: activations (B, S, D), heads (B, S, H, hd), weights stored
@@ -136,3 +136,71 @@ def mlp_fwd(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ p["w_up"], approximate="tanh")
     return h @ p["w_down"]
+
+
+# ====================================================================== #
+# Mixture of Experts (group-local capacity dispatch)                      #
+# ====================================================================== #
+def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
+            capacity_factor: float, n_groups: int, act: str = "silu"):
+    """Token-choice top-k MoE with group-local capacity and drop, the
+    reference's function step for step.
+
+    The N = B*S tokens split into G groups (the largest divisor of N not
+    above ``n_groups``) of T tokens.  The router runs in fp32; each
+    (token, slot) takes the next free position of its expert's bucket in
+    token-major order, and positions past the capacity C go to a dump
+    slot and are dropped (weight 0: the residual alone carries them).
+    Dispatch and combine run in ``x.dtype``, the combine adding slot by
+    slot in order.  The expert products are batched matmuls over E, as
+    the reference leaves them to XLA's einsum.
+
+    Returns (out (B, S, D), aux_loss): the Switch load-balancing loss."""
+    B, S, D = x.shape
+    E = p["router"].shape[1]
+    N = B * S
+    G = min(n_groups, N)
+    while N % G:
+        G -= 1
+    T = N // G
+    xt = x.reshape(G, T, D)
+
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)   # (G,T,E)
+    topw, topi = torch.topk(probs, top_k, dim=-1)             # (G,T,k)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+
+    me = probs.mean(dim=(0, 1))
+    flat = topi.reshape(-1)
+    ce = torch.zeros(E, device=x.device).index_add_(
+        0, flat, torch.full(flat.shape, 1.0 / (N * top_k), device=x.device))
+    aux = E * torch.sum(me * ce)
+
+    C = max(int(T * top_k * capacity_factor / E), 4)
+    # position of each (token, slot) within its expert bucket, per group
+    ids = topi.reshape(G, T * top_k)
+    pos_all = torch.cumsum(F.one_hot(ids, E), dim=1) - 1      # (G,T*k,E)
+    pos = pos_all.gather(-1, ids[..., None])[..., 0].reshape(G, T, top_k)
+    keep = pos < C
+    safe_pos = torch.where(keep, pos, torch.full_like(pos, C))
+
+    g = torch.arange(G, device=x.device)[:, None]
+    buf = torch.zeros(G, E, C + 1, D, dtype=x.dtype, device=x.device)
+    for j in range(top_k):
+        buf.index_put_((g, topi[..., j], safe_pos[..., j]), xt,
+                       accumulate=True)
+    # (E, G*C, D): one batched product over the experts
+    be = buf[:, :, :C].permute(1, 0, 2, 3).reshape(E, G * C, D)
+    if act == "silu":
+        h = F.silu(torch.bmm(be, p["w_gate"])) * torch.bmm(be, p["w_up"])
+    else:
+        h = F.gelu(torch.bmm(be, p["w_up"]), approximate="tanh")
+    out_buf = torch.bmm(h, p["w_down"]).reshape(E, G, C, D).permute(
+        1, 0, 2, 3)                                           # (G,E,C,D)
+
+    w_comb = (topw * keep).to(x.dtype)
+    last = torch.clamp(safe_pos, max=C - 1)
+    acc = torch.zeros(G, T, D, dtype=x.dtype, device=x.device)
+    for j in range(top_k):
+        gat = out_buf[g, topi[..., j], last[..., j]]          # (G,T,D)
+        acc = acc + gat * w_comb[..., j, None]
+    return acc.reshape(B, S, D), aux

@@ -1,5 +1,6 @@
 """ServingEngine: continuous batching over the paged, tiered KV pool
-(counterpart of ``repro.serving.engine``, dense attention-only models).
+(counterpart of ``repro.serving.engine``, attention-only models, dense
+or MoE).
 
 Each iteration admits requests (prefill through the flash kernel, K/V
 written into the pool), then decodes one token for every running
@@ -13,6 +14,11 @@ request in one batch, on one of two paths:
   * **fused** (``fused_gather=True``): the pool keeps its pooled
     layout and the ``paged_decode_attention`` kernel reads blocks
     straight from it through a block table, folding the new token in.
+
+MoE layers run ``moe_fwd`` (capacity and drop) in prefill and on the
+staged path; on the fused path they route top-k without drop and run
+the ``fused_expert_ffn`` kernel over the routed experts only, as the
+reference does.
 
 Then greedy argmax, ``append_token``, and one ``KVBlockTierer`` epoch.
 Padded batch rows carry ``lens = 0`` and a zero block table, exactly as
@@ -51,7 +57,8 @@ _NOT_PORTED = {
     "calibrate": "item 8 (engine control planes)",
     "topology": "item 8 (engine control planes)",
     "qos": "item 8 (engine control planes)",
-    "expert_policy": "item 8 (serving/expert_pool.py, with the MoE slice)",
+    "expert_policy": "item 5 (serving/expert_pool.py, with the telemetry "
+                     "slice)",
     "cluster": "item 13 (cluster)",
 }
 
@@ -91,12 +98,43 @@ def _qkv_tok(cfg: ModelConfig, lp, x: torch.Tensor, lengths: torch.Tensor):
     return q, k, v
 
 
-def _finish_layer(cfg: ModelConfig, lp, x: torch.Tensor,
-                  att: torch.Tensor) -> torch.Tensor:
+def _attn_out(cfg: ModelConfig, lp, x: torch.Tensor,
+              att: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Output projection and residual; returns (x, the second norm of
+    x), the MLP's or MoE's input."""
     B = x.shape[0]
     x = x + att.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ lp["attn"]["wo"]
-    h = M.apply_norm(cfg.norm, lp["norm2"], x)
-    return x + M.mlp_fwd(lp["mlp"], h, cfg.act)
+    return x, M.apply_norm(cfg.norm, lp["norm2"], x)
+
+
+def _finish_layer(cfg: ModelConfig, spec, lp, x: torch.Tensor,
+                  att: torch.Tensor) -> torch.Tensor:
+    """Staged path: the layer after attention, MoE layers through
+    ``moe_fwd``."""
+    x, h = _attn_out(cfg, lp, x, att)
+    return x + lm.ffn(cfg, spec, lp, h)
+
+
+def _routed_experts(cfg: ModelConfig, mp, h: torch.Tensor):
+    """Fused path's MoE sublayer for h (B, 1, D): token-choice top-k in
+    fp32, weights renormalised over the chosen experts, no capacity or
+    drop (the reference's fused routing), then the ``fused_expert_ffn``
+    kernel over the routed experts.
+
+    Returns (out (B, 1, D), ids (B, K) int32, near (B, 2)): near holds
+    the router probabilities of each token's K-th and (K+1)-th experts
+    (0 where there is no (K+1)-th), whose difference says how near the
+    routing came to a tie."""
+    K = cfg.top_k
+    probs = torch.softmax(h[:, 0].float() @ mp["router"], dim=-1)
+    vals, idx = torch.topk(probs, min(K + 1, probs.shape[-1]), dim=-1)
+    topw, topi = vals[:, :K], idx[:, :K].to(torch.int32)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    if vals.shape[-1] == K:
+        vals = torch.nn.functional.pad(vals, (0, 1))
+    out = ops.fused_expert_ffn(h[:, 0].contiguous(), mp["w_gate"],
+                               mp["w_up"], mp["w_down"], topi, topw)
+    return out[:, None], topi, vals[:, K - 1:]
 
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
@@ -122,7 +160,7 @@ def _paged_unit_fwd(cfg: ModelConfig, up, x, kv_k, kv_v, lengths):
     rows = torch.arange(B, device=x.device)
     pos = lengths.long()
     new_ks, new_vs = [], []
-    for li in range(len(cfg.pattern)):
+    for li, spec in enumerate(cfg.pattern):
         lp = up["layers"][li]
         q, k, v = _qkv_tok(cfg, lp, x, lengths)
         ck, cv = kv_k[li], kv_v[li]                # (B, S_pad, KV, hd)
@@ -134,7 +172,7 @@ def _paged_unit_fwd(cfg: ModelConfig, up, x, kv_k, kv_v, lengths):
         cv[rows, pos] = v_tok
         att = ops.decode_attention(q[:, 0].contiguous(), ck, cv,
                                    lengths + 1)    # (B, H, hd)
-        x = _finish_layer(cfg, lp, x, att)
+        x = _finish_layer(cfg, spec, lp, x, att)
         new_ks.append(k_tok)
         new_vs.append(v_tok)
     return x, torch.stack(new_ks), torch.stack(new_vs)
@@ -161,9 +199,11 @@ def _fused_unit_fwd(cfg: ModelConfig, up, x, k_pool, v_pool, block_tbl,
     """One unit on the fused path: k_pool/v_pool (n_attn, num_blocks,
     bt, KV, hd) are the pool's resident stores; block_tbl (B, nb)
     int32.  The kernel reads blocks through the table and folds the
-    step's K/V in, so no gather or scatter happens."""
-    new_ks, new_vs = [], []
-    for li in range(len(cfg.pattern)):
+    step's K/V in, so no gather or scatter happens.  Returns (x, new_k,
+    new_v, routed ids (n_moe, B, K) or None without MoE layers, nears:
+    one (B, 2) ``_routed_experts`` pair per MoE layer)."""
+    new_ks, new_vs, routed, nears = [], [], [], []
+    for li, spec in enumerate(cfg.pattern):
         lp = up["layers"][li]
         q, k, v = _qkv_tok(cfg, lp, x, lengths)
         k_tok = k[:, 0].to(k_pool.dtype).contiguous()
@@ -171,27 +211,47 @@ def _fused_unit_fwd(cfg: ModelConfig, up, x, k_pool, v_pool, block_tbl,
         att = ops.paged_decode_attention(
             q[:, 0].contiguous(), k_pool[li], v_pool[li], block_tbl,
             lengths, k_tok, v_tok, block_tokens=block_tokens)
-        x = _finish_layer(cfg, lp, x, att)
+        x, h = _attn_out(cfg, lp, x, att)
+        if spec.moe:
+            out, ids, near = _routed_experts(cfg, lp["moe"], h)
+            routed.append(ids)
+            nears.append(near)
+        else:
+            out = M.mlp_fwd(lp["mlp"], h, cfg.act)
+        x = x + out
         new_ks.append(k_tok)
         new_vs.append(v_tok)
-    return x, torch.stack(new_ks), torch.stack(new_vs)
+    ids = torch.stack(routed) if routed else None
+    return x, torch.stack(new_ks), torch.stack(new_vs), ids, nears
 
 
 @torch.no_grad()
 def _fused_paged_decode(cfg: ModelConfig, block_tokens: int, units, params,
-                        tokens, k_store, v_store, block_tbl, lengths):
+                        tokens, k_store, v_store, block_tbl, lengths,
+                        route_margins: Optional[list] = None):
     """tokens (B, 1); k_store/v_store (U, n_attn, num_blocks, bt, KV,
     hd) — the pooled layout itself; block_tbl (B, nb) int32; lengths
     (B,) int32.  Returns (logits (B, V), new_k, new_v (U, n_attn, B,
-    KV, hd))."""
+    KV, hd), routed expert ids (U, n_moe, B, K) int32).  Where
+    ``route_margins`` is a list, every MoE layer's (B, 2) K-th and
+    (K+1)-th router probabilities (``_routed_experts``) are appended to
+    it."""
     x = _embed(cfg, params, tokens, lengths)
-    new_k, new_v = [], []
+    new_k, new_v, routed = [], [], []
     for u, up in enumerate(units):
-        x, nk, nv = _fused_unit_fwd(cfg, up, x, k_store[u], v_store[u],
-                                    block_tbl, lengths, block_tokens)
+        x, nk, nv, ids, nears = _fused_unit_fwd(
+            cfg, up, x, k_store[u], v_store[u], block_tbl, lengths,
+            block_tokens)
         new_k.append(nk)
         new_v.append(nv)
-    return _logits(cfg, params, x), torch.stack(new_k), torch.stack(new_v)
+        routed.append(ids)
+        if route_margins is not None:
+            route_margins.extend(nears)
+    routed = (torch.stack(routed) if routed[0] is not None else torch.empty(
+        (len(units), 0, x.shape[0], max(cfg.top_k, 1)), dtype=torch.int32,
+        device=x.device))
+    return (_logits(cfg, params, x), torch.stack(new_k),
+            torch.stack(new_v), routed)
 
 
 # ---------------------------------------------------------------------- #
@@ -292,6 +352,10 @@ class ServingEngine:
                            else max(1, num_blocks // 2))
             max_batch = sv.max_batch
         self.max_batch = max_batch
+        self._moe = any(spec.moe for spec in cfg.pattern)
+        if sv.fused_gather and self._moe and cfg.act != "silu":
+            raise ValueError(f"{cfg.name}: fused MoE decode needs silu "
+                             "(gated) experts")
         self._static_split = sv.policy in ("static", "none", "no_balance")
         self.pool = PagedKVPool(
             num_blocks, bt, spec=spec_from_config(cfg, bt),
@@ -316,12 +380,37 @@ class ServingEngine:
         # request: tells a near tie from a real disagreement when two
         # decode paths are compared
         self.margins: Dict[int, List[float]] = {}
+        # MoE models on the fused path: each generated token's smallest
+        # top-K minus top-(K+1) router probability over the MoE layers
+        # (NaN for a token from prefill), per request — tells a routing
+        # near tie where two decode paths' tokens part.  Filled when
+        # run() ends from ``_route_log``: per step (rids, the MoE layers'
+        # (n_moe, B, 2) K-th and (K+1)-th router probabilities on the
+        # device, or None for a prefill token), so no step waits on it.
+        self.route_margins: Dict[int, List[float]] = {}
+        self._track_routes = self._moe and sv.fused_gather
+        self._route_log: List[Tuple[List[int], Optional[torch.Tensor]]] = []
 
     def _record_margins(self, rids: Sequence[int],
                         logits: torch.Tensor) -> None:
         top2 = torch.topk(logits[:len(rids)], 2, dim=-1).values
         for rid, m in zip(rids, (top2[:, 0] - top2[:, 1]).tolist()):
             self.margins.setdefault(rid, []).append(m)
+
+    def _flush_route_margins(self) -> None:
+        """Reduce the logged router probabilities to each token's smallest
+        margin over the MoE layers and move them into ``route_margins``
+        with one device-to-host copy."""
+        steps = [t for _, t in self._route_log if t is not None]
+        if steps:
+            near = torch.stack(steps)             # (steps, n_moe, B, 2)
+            steps = (near[..., 0] - near[..., 1]).amin(1).tolist()
+        rows = iter(steps)
+        for rids, t in self._route_log:
+            vals = next(rows) if t is not None else [math.nan]
+            for rid, m in zip(rids, vals):
+                self.route_margins.setdefault(rid, []).append(m)
+        self._route_log.clear()
 
     # ------------------------------------------------------------------ #
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
@@ -382,6 +471,8 @@ class ServingEngine:
                                 kind=self._alloc_kind)
         self.metrics.on_admit(req.rid, now)
         self._record_margins([req.rid], logits)
+        if self._track_routes:
+            self._route_log.append(([req.rid], None))
         req.out_tokens.append(int(torch.argmax(logits[0])))
         self.metrics.on_token(req.rid, self._now())
         if req.done:
@@ -436,7 +527,9 @@ class ServingEngine:
 
     def _fused_decode_batch(self, batch):
         """Fused decode: no staging copy — the kernel reads the pooled
-        stores through each sequence's block table."""
+        stores through each sequence's block table.  Returns (logits,
+        new_k, new_v); routed expert ids are dropped (no expert
+        residency plane yet), router margins logged."""
         tbl, _ = self.pool.gather_tables([r.rid for r in batch],
                                          self.max_seq_blocks)
         n_pad = self.max_batch - len(batch)
@@ -444,10 +537,16 @@ class ServingEngine:
             tbl = np.concatenate(
                 [tbl, np.zeros((n_pad, tbl.shape[1]), np.int32)])
         tokens, lengths = self._batch_inputs(batch)
-        return _fused_paged_decode(
+        nears = [] if self._track_routes else None
+        logits, new_k, new_v, _ = _fused_paged_decode(
             self.cfg, self.sv.block_tokens, self._units, self.params,
             tokens, self.pool.k_store, self.pool.v_store,
-            torch.as_tensor(tbl, device=self.device), lengths)
+            torch.as_tensor(tbl, device=self.device), lengths,
+            route_margins=nears)
+        if nears:
+            self._route_log.append(([r.rid for r in batch],
+                                    torch.stack(nears)))
+        return logits, new_k, new_v
 
     def _decode_iteration(self, now: float) -> None:
         batch = list(self.sched.running)
@@ -507,6 +606,7 @@ class ServingEngine:
                 self.pool.fast_used(), len(self.sched.running),
                 len(self.sched.waiting))
             self._step += 1
+        self._flush_route_margins()
         tstats = self.tierer.stats.as_dict()
         tstats["migrated_bytes"] = self.pool.counters.migrated_bytes
         return ServingReport(

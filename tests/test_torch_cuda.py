@@ -16,7 +16,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
-    paged_decode_attention)
+    fused_expert_ffn, paged_decode_attention)
 
 pytestmark = pytest.mark.cuda
 # q and k of std 1.5 peak the softmax, so outputs are O(1); the
@@ -81,6 +81,29 @@ def test_flash_attention_kernel(gen, Sq, Sk, H, KV, hd):
                                **TOL)
 
 
+def test_fused_expert_ffn_kernel(gen):
+    """qwen3-moe-30b-a3b's decode shapes: top-8 of a router softmax, one
+    row with a duplicated expert, one padded row that repeats row 0; x
+    of std 1 and weights at their init scales."""
+    B, D, F, E, K = 4, 2048, 768, 128, 8
+    x = _rnd(gen, B, D)
+    x[3] = x[0]
+    wg, wu = _rnd(gen, E, D, F, std=D ** -0.5), _rnd(gen, E, D, F,
+                                                     std=D ** -0.5)
+    wd = _rnd(gen, E, F, D, std=F ** -0.5)
+    router = torch.randn(D, E, generator=gen, device="cuda") * D ** -0.5
+    wts, ids = torch.topk(torch.softmax(x.float() @ router, -1), K)
+    wts = wts / wts.sum(-1, keepdim=True)
+    ids = ids.to(torch.int32)
+    ids[1, K - 1] = ids[1, 0]
+    n = build.LAUNCHES["fused_expert_ffn"]
+    got = fused_expert_ffn(x, wg, wu, wd, ids, wts)
+    assert build.LAUNCHES["fused_expert_ffn"] == n + 1
+    torch.testing.assert_close(got, ref.expert_ffn(x, wg, wu, wd, ids, wts),
+                               **TOL)
+    assert torch.equal(got[3], got[0])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _rnd(gen, 2, 8, 32)                  # head_dim 32: not compiled
     cache = _rnd(gen, 2, 16, 2, 32)
@@ -89,3 +112,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         decode_attention(q, cache, cache, lens)
     with pytest.raises(ValueError, match="dtype"):
         decode_attention(q.float(), cache, cache, lens)
+    w = _rnd(gen, 2, 20, 12)                  # D = 20: not a multiple of 8
+    ids = torch.zeros(2, 1, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_expert_ffn(_rnd(gen, 2, 20), w, w, w.transpose(1, 2)
+                         .contiguous(), ids, ids.float())

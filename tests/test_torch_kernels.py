@@ -11,12 +11,15 @@ from _torch_parity import (assert_close, BF16, FP32, normal,  # noqa: E402
                            to_torch)
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention as decode_kernel)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention as flash_kernel)
+from repro_torch.kernels.tiered_gather import (  # noqa: E402
+    fused_expert_ffn as expert_kernel)
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
     paged_decode_attention as paged_kernel)
 
@@ -172,6 +175,70 @@ def test_paged_decode_attention_shared_blocks_and_bf16():
     assert_close(got, want, BF16)
 
 
+# -------------------------- fused expert FFN --------------------------- #
+def _expert_inputs(seed, E, D, F, B, K, dtype=np.float32):
+    """x, w_gate, w_up, w_down, ids, wts at the reference test's scales;
+    distinct ids per token unless a test overrides them."""
+    rs = np.random.RandomState(seed)
+    x = normal(rs, (B, D), 0.3, dtype)
+    wg, wu = normal(rs, (E, D, F), 0.1, dtype), normal(rs, (E, D, F), 0.1,
+                                                       dtype)
+    wd = normal(rs, (E, F, D), 0.1, dtype)
+    ids = np.stack([rs.permutation(E)[:K] for _ in range(B)]).astype(
+        np.int32)
+    z = rs.standard_normal((B, K))
+    wts = (np.exp(z) / np.exp(z).sum(-1, keepdims=True)).astype(dtype)
+    return x, wg, wu, wd, ids, wts
+
+
+def _expert_both(*args):
+    """(port, JAX kernel in interpret mode, JAX gather oracle)."""
+    j = list(map(jnp.asarray, args))
+    return (ops.fused_expert_ffn(*map(to_torch, args)),
+            jops.fused_expert_ffn(*j), jref.expert_ffn(*j))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, BF16_NP],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("E,D,F,B,K", [
+    (4, 16, 32, 1, 1),
+    (8, 64, 128, 6, 2),
+    (16, 32, 64, 5, 4),
+])
+def test_expert_ffn_sweep(E, D, F, B, K, dtype):
+    args = _expert_inputs(0, E, D, F, B, K, dtype)
+    got, kern, oracle = _expert_both(*args)
+    assert got.shape == (B, D) and got.dtype == to_torch(args[0]).dtype
+    tol = FP32 if dtype is np.float32 else BF16
+    assert_close(got, kern, tol)
+    assert_close(got, oracle, tol)
+
+
+def test_expert_ffn_duplicate_experts():
+    """A token routed twice to one expert adds both weighted
+    contributions, as the reference kernel does."""
+    x, wg, wu, wd, _, _ = _expert_inputs(1, 4, 32, 64, 3, 2)
+    ids = np.asarray([[2, 2], [0, 3], [1, 1]], np.int32)
+    wts = np.asarray([[0.7, 0.3], [0.5, 0.5], [1.0, 0.0]], np.float32)
+    got, kern, oracle = _expert_both(x, wg, wu, wd, ids, wts)
+    assert_close(got, kern, FP32)
+    assert_close(got, oracle, FP32)
+
+
+def test_expert_ffn_identical_experts_closed_form():
+    """With every expert identical the routed sum is the plain FFN
+    times the sum of the weights, whatever the routing."""
+    x, wg, wu, wd, ids, wts = _expert_inputs(2, 4, 32, 64, 5, 2)
+    wg, wu, wd = (np.broadcast_to(w[:1], w.shape).copy()
+                  for w in (wg, wu, wd))
+    got, kern, _ = _expert_both(x, wg, wu, wd, ids, wts)
+    h = x @ wg[0]
+    h = h / (1.0 + np.exp(-h)) * (x @ wu[0])
+    want = (h @ wd[0]) * wts.sum(-1, keepdims=True)
+    assert_close(got, want, FP32)
+    assert_close(got, kern, FP32)
+
+
 # ---------------------------- dispatch --------------------------------- #
 def test_cpu_tensors_never_touch_launch_counters():
     before = dict(build.LAUNCHES)
@@ -185,6 +252,8 @@ def test_cpu_tensors_never_touch_launch_counters():
     ops.decode_attention(tq, cache, cache, lens)
     ops.flash_attention(cache[:, :, None, 0].repeat(1, 1, 4, 1), cache,
                         cache, causal=True)
+    ops.fused_expert_ffn(*map(to_torch, _expert_inputs(4, 4, 16, 32, 2, 2,
+                                                       BF16_NP)))
     assert build.LAUNCHES == before
 
 
@@ -202,6 +271,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         paged_kernel(q, pool, pool, tbl, lens, new, new, block_tokens=16)
     with pytest.raises(ValueError, match="CUDA"):
         flash_kernel(cache.repeat(1, 1, 4, 1), cache, cache)
+    with pytest.raises(ValueError, match="CUDA"):
+        expert_kernel(*map(to_torch, _expert_inputs(4, 4, 16, 32, 2, 2,
+                                                    BF16_NP)))
     assert build.LAUNCHES == before
 
 

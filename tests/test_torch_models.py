@@ -1,6 +1,8 @@
 """Port model blocks and prefill against the JAX reference on the
-llama3-8b smoke config, with the reference's weights carried across by
-``params_from_numpy``."""
+llama3-8b and qwen3-moe-30b-a3b smoke configs, with the reference's
+weights carried across by ``params_from_numpy``."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -19,26 +21,36 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import modules as M  # noqa: E402
 
 
+ARCHS = ("llama3-8b", "qwen3-moe-30b-a3b")
+
+
+def _smoke(arch):
+    jcfg = jsmoke(arch)
+    jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    return jcfg, jparams, get_smoke_config(arch), tree_to_torch(jparams)
+
+
 @pytest.fixture(scope="module")
 def smoke():
-    jcfg = jsmoke("llama3-8b")
-    jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
-    return jcfg, jparams, get_smoke_config("llama3-8b"), \
-        tree_to_torch(jparams)
+    return _smoke("llama3-8b")
 
 
-def test_config_copy_matches_reference(smoke):
-    import dataclasses
-    jcfg, _, cfg, _ = smoke
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+@pytest.fixture(scope="module")
+def moe_smoke():
+    return _smoke("qwen3-moe-30b-a3b")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_copy_matches_reference(arch):
     from repro.configs import get_config
     from repro_torch.configs import get_config as tget
-    assert tget("llama3-8b").param_count() == \
-        get_config("llama3-8b").param_count()
+    for ours, ref in ((get_smoke_config(arch), jsmoke(arch)),
+                      (tget(arch), get_config(arch))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert tget(arch).param_count() == get_config(arch).param_count()
 
 
-def test_params_cross_bit_exact(smoke):
-    _, jparams, _, params = smoke
+def _check_params_cross_bit_exact(jparams, params):
     flat = jax.tree_util.tree_leaves_with_path(jparams)
     for path, leaf in flat:
         t = params
@@ -49,14 +61,35 @@ def test_params_cross_bit_exact(smoke):
                                       t.float().numpy())
 
 
-def test_init_params_has_reference_layout(smoke):
-    _, jparams, cfg, _ = smoke
+def test_params_cross_bit_exact(smoke):
+    _, jparams, _, params = smoke
+    _check_params_cross_bit_exact(jparams, params)
+
+
+def test_moe_params_cross_bit_exact(moe_smoke):
+    _, jparams, _, params = moe_smoke
+    assert params["units"]["layers"][0]["moe"]["router"].dtype == \
+        torch.float32
+    _check_params_cross_bit_exact(jparams, params)
+
+
+def _check_reference_layout(jparams, cfg):
     mine = lm.init_params(cfg, seed=0, device="cpu")
     def desc(shape, dtype):
         return f"{tuple(shape)}:{str(dtype).replace('torch.', '')}"
 
     assert jax.tree.map(lambda a: desc(a.shape, a.dtype), jparams) == \
         lm.tree_map(lambda t: desc(t.shape, t.dtype), mine)
+
+
+def test_init_params_has_reference_layout(smoke):
+    _, jparams, cfg, _ = smoke
+    _check_reference_layout(jparams, cfg)
+
+
+def test_moe_init_params_has_reference_layout(moe_smoke):
+    _, jparams, cfg, _ = moe_smoke
+    _check_reference_layout(jparams, cfg)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
@@ -115,9 +148,7 @@ def test_mlp_fwd(smoke):
                  JM.mlp_fwd(jp, jnp.asarray(x)), BF16)
 
 
-@pytest.mark.parametrize("B,S", [(1, 12), (2, 37)])
-def test_prefill_matches_reference(smoke, B, S):
-    jcfg, jparams, cfg, params = smoke
+def _check_prefill(jcfg, jparams, cfg, params, B, S):
     rs = np.random.RandomState(5)
     toks = rs.randint(0, cfg.vocab, (B, S)).astype(np.int32)
     want_logits, want_cache = jlm.prefill(jparams, jcfg, jnp.asarray(toks))
@@ -132,8 +163,64 @@ def test_prefill_matches_reference(smoke, B, S):
         logits.argmax(-1).numpy(), np.asarray(want_logits).argmax(-1))
 
 
+@pytest.mark.parametrize("B,S", [(1, 12), (2, 37)])
+def test_prefill_matches_reference(smoke, B, S):
+    _check_prefill(*smoke, B, S)
+
+
+# MoE shapes whose reference top-2 logits are not tied, so the argmax
+# check has a margin (at B=2, S=37 the reference ties in bf16)
+@pytest.mark.parametrize("B,S", [(1, 12), (2, 40)])
+def test_moe_prefill_matches_reference(moe_smoke, B, S):
+    _check_prefill(*moe_smoke, B, S)
+
+
 def test_unported_families_raise():
     from repro.configs import get_smoke_config as jget
-    cfg = jget("qwen3-moe-30b-a3b")
-    with pytest.raises(NotImplementedError, match="MoE"):
+    cfg = jget("rwkv6-7b")
+    with pytest.raises(NotImplementedError, match="rwkv"):
         lm.check_supported(cfg)
+
+
+def test_moe_init_scales_and_dtypes(moe_smoke):
+    """Router fp32 with std 1/sqrt(D); experts bf16, w_down with std
+    1/sqrt(F) (the reference's init_moe)."""
+    _, _, cfg, _ = moe_smoke
+    cfg = dataclasses.replace(cfg, d_model=256, d_ff=512)
+    mp = lm.init_params(cfg, seed=0, device="cpu")["units"]["layers"][0][
+        "moe"]
+    assert mp["router"].dtype == torch.float32
+    for name, fan_in in (("router", 256), ("w_gate", 256), ("w_up", 256),
+                         ("w_down", 512)):
+        std = mp[name].float().std().item()
+        assert abs(std * fan_in ** 0.5 - 1.0) < 0.02, name
+    assert all(mp[n].dtype == torch.bfloat16
+               for n in ("w_gate", "w_up", "w_down"))
+
+
+def _moe_layer(jparams, params, u=0):
+    jp = jax.tree.map(lambda a: a[u], jparams["units"]["layers"][0]["moe"])
+    tp = lm.tree_map(lambda t: t[u], params["units"]["layers"][0]["moe"])
+    return jp, tp
+
+
+@pytest.mark.parametrize("capacity_factor,n_groups", [(8.0, 4), (0.25, 2)],
+                         ids=["no-drop", "drop"])
+def test_moe_fwd_matches_reference(moe_smoke, capacity_factor, n_groups):
+    """Output and aux loss, with capacity to spare and with a capacity
+    that drops (token, slot) pairs: the port drops the same ones."""
+    _, jparams, cfg, params = moe_smoke
+    jp, tp = _moe_layer(jparams, params)
+    rs = np.random.RandomState(7)
+    x = normal(rs, (2, 24, cfg.d_model)).astype(jnp.bfloat16)
+    kw = dict(top_k=cfg.top_k, capacity_factor=capacity_factor,
+              n_groups=n_groups, act=cfg.act)
+    want, want_aux = JM.moe_fwd(jp, jnp.asarray(x), **kw)
+    got, aux = M.moe_fwd(tp, to_torch(x), **kw)
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert_close(got, want, BF16)
+    assert_close(aux, want_aux, FP32)
+    if capacity_factor < 1:
+        full, _ = M.moe_fwd(tp, to_torch(x), **dict(kw, capacity_factor=8.0))
+        dropped = (full.float() - got.float()).abs().amax(-1) > 1e-3
+        assert 0 < int(dropped.sum()) < 48   # some tokens lost a slot

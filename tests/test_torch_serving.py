@@ -183,6 +183,126 @@ def test_engine_preempts_on_a_tight_pool(tiny):
     assert eng.pool.used_block_count() == 0
 
 
+# ---------------------------- MoE engine ------------------------------ #
+@pytest.fixture(scope="module")
+def tiny_moe():
+    jcfg = jsmoke("qwen3-moe-30b-a3b")
+    jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    # the smoke MoE's logits are flat (top-2 gaps of one bf16 ulp are
+    # common), so token equality checks rounding as much as semantics;
+    # these prompts keep every top-2 gap of the first 10 tokens at four
+    # ulps or more (held below), where equality checks the function
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(0, jcfg.vocab, (n,)).astype(np.int32)
+               for n in (10, 6, 13)]
+    return jcfg, jparams, get_smoke_config("qwen3-moe-30b-a3b"), \
+        tree_to_torch(jparams), prompts
+
+
+@pytest.fixture(scope="module")
+def moe_reference_tokens(tiny_moe):
+    jcfg, jparams, _, _, prompts = tiny_moe
+    return {fused: _tokens(_run(JServingEngine, JServingConfig, jcfg,
+                                jparams, prompts, fused_gather=fused))
+            for fused in (False, True)}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_moe_engine_tokens_match_reference(tiny_moe, moe_reference_tokens,
+                                           fused):
+    """Staged (moe_fwd) and fused (routed fused_expert_ffn) decode give
+    the JAX engine's greedy tokens."""
+    _, _, cfg, params, prompts = tiny_moe
+    eng = _run(ServingEngine, ServingConfig, cfg, params, prompts,
+               fused_gather=fused)
+    assert _tokens(eng) == moe_reference_tokens[fused]
+    assert eng.pool.used_block_count() == 0
+    # router margins: one per generated token on the fused path only
+    if fused:
+        assert {r: len(m) for r, m in eng.route_margins.items()} == \
+            {r: len(t) for r, t in _tokens(eng).items()}
+        assert all(0.0 <= m <= 1.0 for ms in eng.route_margins.values()
+                   for m in ms[1:])
+    else:
+        assert eng.route_margins == {}
+
+
+def test_moe_fused_matches_staged_in_port(tiny_moe):
+    _, _, cfg, params, prompts = tiny_moe
+    staged = _run(ServingEngine, ServingConfig, cfg, params, prompts,
+                  new_tokens=10)
+    fused = _run(ServingEngine, ServingConfig, cfg, params, prompts,
+                 new_tokens=10, fused_gather=True)
+    assert min(min(m) for m in staged.margins.values()) >= 0.005
+    assert _tokens(fused) == _tokens(staged)
+
+
+def test_moe_fused_decode_routes_like_reference(tiny_moe):
+    """One fused decode step on the same pool contents: logits close to
+    the reference's and the same routed ids, (U, n_moe, B, K)."""
+    from repro.serving.engine import _fused_paged_decode as jdecode
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import _fused_paged_decode
+    jcfg, jparams, cfg, params, _ = tiny_moe
+    rs = np.random.RandomState(4)
+    B, bt, nb, nblk = 3, 8, 3, 8
+    shape = (cfg.n_units, 1, nblk, bt, cfg.n_kv, cfg.head_dim)
+    ks = normal(rs, shape).astype(jnp.bfloat16)
+    vs = normal(rs, shape).astype(jnp.bfloat16)
+    tbl = rs.randint(0, nblk, (B, nb)).astype(np.int32)
+    lens = np.asarray([5, 17, 0], np.int32)
+    toks = rs.randint(0, cfg.vocab, (B, 1)).astype(np.int32)
+    want = jdecode(jcfg, bt, jparams, *map(jnp.asarray,
+                                           (toks, ks, vs, tbl, lens)))
+    margins = []
+    got = _fused_paged_decode(
+        cfg, bt, lm.unit_views(params, cfg), params,
+        to_torch(toks).long(), *map(to_torch, (ks, vs, tbl, lens)),
+        route_margins=margins)
+    assert got[3].shape == (cfg.n_units, 1, B, cfg.top_k)
+    assert got[3].dtype == torch.int32
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    assert_close(got[0], want[0], dict(rtol=3e-2, atol=3e-2))
+    assert len(margins) == cfg.n_units and margins[0].shape == (B, 2)
+    assert all(bool((m[:, 0] >= m[:, 1]).all()) for m in margins)
+
+
+def test_dense_fused_decode_routes_nothing_like_reference(tiny):
+    """A dense model's fused decode step: logits close to the
+    reference's and an empty routed-ids tensor of the reference's
+    shape, (U, 0, B, max(top_k, 1))."""
+    from repro.serving.engine import _fused_paged_decode as jdecode
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import _fused_paged_decode
+    jcfg, jparams, cfg, params, _ = tiny
+    rs = np.random.RandomState(5)
+    B, bt, nb, nblk = 2, 8, 3, 6
+    shape = (cfg.n_units, 1, nblk, bt, cfg.n_kv, cfg.head_dim)
+    ks = normal(rs, shape).astype(jnp.bfloat16)
+    vs = normal(rs, shape).astype(jnp.bfloat16)
+    tbl = rs.randint(0, nblk, (B, nb)).astype(np.int32)
+    lens = np.asarray([9, 0], np.int32)
+    toks = rs.randint(0, cfg.vocab, (B, 1)).astype(np.int32)
+    want = jdecode(jcfg, bt, jparams, *map(jnp.asarray,
+                                           (toks, ks, vs, tbl, lens)))
+    margins = []
+    got = _fused_paged_decode(
+        cfg, bt, lm.unit_views(params, cfg), params,
+        to_torch(toks).long(), *map(to_torch, (ks, vs, tbl, lens)),
+        route_margins=margins)
+    assert tuple(got[3].shape) == tuple(want[3].shape)
+    assert got[3].dtype == torch.int32 and margins == []
+    assert_close(got[0], want[0], dict(rtol=3e-2, atol=3e-2))
+
+
+def test_moe_fused_needs_silu_experts(tiny_moe):
+    import dataclasses
+    _, _, cfg, params, _ = tiny_moe
+    with pytest.raises(ValueError, match="silu"):
+        ServingEngine(dataclasses.replace(cfg, act="gelu"), params,
+                      ServingConfig(fused_gather=True), device="cpu")
+
+
 def test_staged_prefill_kv_matches_reference_pool(tiny):
     """After one prefill, the pooled payloads hold the reference's K/V."""
     jcfg, jparams, cfg, params, prompts = tiny
@@ -238,6 +358,13 @@ def test_cli_continuous_cpu():
     assert res.returncode == 0, res.stderr
     assert "policy=tiering08 requests=3 finished=3" in res.stdout
     assert "kv-pool: blocks=" in res.stdout
+
+
+def test_cli_moe_fused_cpu():
+    res = _cli("--arch", "qwen3-moe-30b-a3b", "--smoke", "--fused-gather",
+               "--device", "cpu", "--num-requests", "3", "--new-tokens", "4")
+    assert res.returncode == 0, res.stderr
+    assert "policy=tiering08 requests=3 finished=3" in res.stdout
 
 
 def test_cli_oneshot_not_ported():
