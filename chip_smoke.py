@@ -40,16 +40,38 @@ Phases, in order; any failure exits non-zero:
    MoE layer of every decode step), the same requests and the same
    agreement rule; at a mismatch the fused path's smallest top-8 /
    top-9 router margin of that step is printed beside the logit margin;
-6. print the ``kernels`` JSON line, then the device line last.  The
-   line has one row per kernel build the serve phases launch: each
+6. train gpt2-xl-offload through ``ZeroOffloadEngine`` at full width and
+   depth, once the serve phases' weights are freed: random weights from
+   a seeded generator on the card, batches of 8 x 512 tokens from the
+   port's ``DataIterator``, AdamW at the default learning rate scaled by
+   the smoke width over the full one (``train_engine``); 4 steps with
+   the fp32 optimizer state all on pinned host memory, then 2 steps
+   from the same weights with it half on the device and half in
+   pageable host memory (the paper's LDRAM+CXL).  Each step prints its loss and its four Fig. 9 phase
+   times; ``fused_adam`` must launch once per parameter leaf per step,
+   the losses must be finite and the loss must fall from step 1 to
+   step 4;
+7. print the ``kernels`` JSON line, then the device line last.  The
+   line has one row per kernel build the main paths launch: each
    attention kernel at each model's KV geometry (``decode_attention@KV8``
-   for llama3-8b, ``...@KV4`` for qwen3-moe-30b-a3b) and
-   ``fused_expert_ffn``; each row's times, bound and error come from its
-   own build, and its launches from its own model's serve phases.
+   for llama3-8b, ``...@KV4`` for qwen3-moe-30b-a3b),
+   ``fused_expert_ffn`` and ``fused_adam``; each row's times, bound and
+   error come from its own build, and its launches from its own model's
+   serve or train phases.
 
-Launch counters are set to 0 just before each serve phase and read just
-after it; a kernel of the path that did not launch fails the run.
-Details go to ``chiprun_out/chip_smoke.json``.
+The kernel phase also holds ``fused_adam`` against its plain version at
+gpt2-xl-offload's largest leaf (bf16 g) and at a ragged n of 70001 (fp32
+g), aligned and at an odd storage offset; it holds the update
+``master' - master`` (about lr = 3e-4 against masters of about 0.02),
+m' and v' to ``ADAM_RTOL`` relative, plus two fp32 ulps of the master
+for the update.  The small references also train the gpt2-xl-offload
+and llama3-8b smoke configs for 3 steps on the card and on the CPU from
+the same weights and batches: step-1 losses must agree within
+``TRAIN_LOSS_ATOL``.
+
+Launch counters are set to 0 just before each serve or train phase and
+read just after it; a kernel of the path that did not launch fails the
+run.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -77,7 +99,22 @@ NEAR_TIE = 0.1         # top-2 logit margin under which a flip is a tie
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 L2_FLUSH_BYTES = 256 << 20     # written before each timed call (L2: 50 MB)
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 peak outside the tensor cores
 SEED = 0
+# fused_adam vs plain: the two round the same operations in the same
+# order, except that PyTorch divides by a scalar as a multiplication by
+# its reciprocal (one ulp each for m'/b1c and v'/b2c): the update agrees
+# to a few 1e-7 relative.  The master' itself may round one ulp apart.
+ADAM_RTOL = 1e-6
+ADAM_MASTER_ULPS = 2
+# card vs CPU training of a smoke model: the step-1 loss is one bf16
+# forward each (cuBLAS vs the CPU's bf16 matmuls; losses of ~6.2, whose
+# bf16 ulp is 0.03)
+TRAIN_LOSS_ATOL = 1e-2
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "gpt2-xl-offload", 512, 8
+TRAIN_PLACEMENTS = (("pinned", (("pinned_host", 1.0),), 4),
+                    ("ldram+cxl", (("device", 0.5), ("unpinned_host", 0.5)),
+                     2))
 
 B, H, HD, BT = 4, 32, 128, 16
 MODELS = {"llama3-8b": 8, "qwen3-moe-30b-a3b": 4}   # served, and KV heads
@@ -91,6 +128,7 @@ REPLACES = {
     "paged_decode_attention": "src/repro/kernels/tiered_gather.py:157",
     "flash_attention": "src/repro/kernels/flash_attention.py:87",
     "fused_expert_ffn": "src/repro/kernels/tiered_gather.py:219",
+    "fused_adam": "src/repro/kernels/fused_adam.py:68",
 }
 SOURCES = {
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
@@ -98,6 +136,7 @@ SOURCES = {
         "src/repro_torch/csrc/paged_decode_attention.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "fused_expert_ffn": "src/repro_torch/csrc/fused_expert_ffn.cu",
+    "fused_adam": "src/repro_torch/csrc/fused_adam.cu",
 }
 
 
@@ -185,9 +224,9 @@ def randn_bf16(gen: torch.Generator, *shape, std: float = 1.0):
             * std).to(torch.bfloat16)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / BF16_FLOP_PER_S * 1e3
+    t_f = flops / flop_rate * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -347,11 +386,123 @@ def expert_kernel(dev, gen) -> dict:
         bound_ms=t_b, bound_by=by, distinct_experts=distinct)
 
 
+def adam_inputs(gen, n: int, gdtype, offset: int = 0) -> tuple:
+    """master ~ N(0, 0.02^2), step-3 moments of grads ~ N(0, 1e-6)
+    (nonzero m and v) and g; ``offset`` > 0 views each of the four at
+    that storage offset, contiguous but not 16-byte aligned."""
+    def draw(std, dtype=torch.float32):
+        t = torch.randn(n + offset, generator=gen, device=gen.device)
+        return (t * std).to(dtype)[offset:]
+    master, m, g = draw(0.02), draw(3e-4), draw(1e-3, gdtype)
+    v = draw(1.0).square_().mul_(1.5e-7)
+    return master, m, v, g
+
+
+def adam_kwargs(step: int = 3) -> dict:
+    return dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1,
+                b1c=1.0 - 0.9 ** step, b2c=1.0 - 0.95 ** step)
+
+
+def poison(n: int, dev) -> None:
+    """Fill three n-float blocks with NaN and free them, so the caching
+    allocator hands them to the next outputs of that size: an element a
+    kernel does not write stays NaN."""
+    blocks = [torch.full((n,), float("nan"), device=dev) for _ in range(3)]
+    del blocks
+
+
+def check_adam(name: str, got: tuple, want: tuple,
+               master: torch.Tensor) -> float:
+    """Kernel against plain: the update ``master' - master`` to
+    ``ADAM_RTOL`` of the plain update plus ``ADAM_MASTER_ULPS`` fp32
+    ulps of the master; m' and v' to ``ADAM_RTOL`` plus that fraction of
+    their rms.  Returns the largest absolute error of the three."""
+    torch.cuda.synchronize()
+    eps32 = torch.finfo(torch.float32).eps
+    pairs = (("update", got[0] - master, want[0] - master,
+              ADAM_MASTER_ULPS * eps32 * master.abs()),
+             ("m'", got[1], want[1], None), ("v'", got[2], want[2], None))
+    worst = 0.0
+    for what, g, w, ulps in pairs:
+        if not torch.isfinite(g).all():
+            fail(f"{name}: non-finite {what} "
+                 f"({int((~torch.isfinite(g)).sum())} elements)")
+        err = (g - w).abs()
+        tol = ADAM_RTOL * w.abs() + (
+            ulps if ulps is not None
+            else ADAM_RTOL * w.square().mean().sqrt())
+        bad = err > tol
+        if bad.any():
+            fail(f"{name}: {what}: {int(bad.sum())} elements off by up to "
+                 f"{err.max().item():.4g} (mean |plain| "
+                 f"{w.abs().mean().item():.4g})")
+        log(f"  {name} {what}: max_abs_err={err.max().item():.3g} "
+            f"mean|plain|={w.abs().mean().item():.3g}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def adam_kernel(dev, gen) -> dict:
+    """``fused_adam`` at gpt2-xl-offload's largest leaf (``mlp.w_up``,
+    48 x 1600 x 6400, bf16 g) and at a ragged n of 70001 (fp32 g),
+    aligned (vector loop and its tail) and at storage offset 1 (the
+    scalar loop); step-3 bias corrections, weight decay 0.1."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_adam import fused_adam
+
+    cfg = get_config(TRAIN_ARCH)
+    kw = adam_kwargs()
+    err = 0.0
+    for n, gdtype, offset in ((70001, torch.float32, 0),
+                              (70001, torch.float32, 1)):
+        master, m, v, g = adam_inputs(gen, n, gdtype, offset)
+        poison(n, dev)
+        err = max(err, check_adam(
+            f"fused_adam n={n} g={str(gdtype)[6:]} offset={offset}",
+            fused_adam(master, m, v, g, **kw),
+            ref.fused_adam(master, m, v, g, **kw), master))
+    shape = (cfg.n_units, cfg.d_model, cfg.d_ff)
+    n = math.prod(shape)
+    master, m, v, g = (t.reshape(shape) for t in
+                       adam_inputs(gen, n, torch.bfloat16))
+    err = max(err, check_adam(
+        f"fused_adam {shape} g=bfloat16", fused_adam(master, m, v, g, **kw),
+        ref.fused_adam(master, m, v, g, **kw), master))
+    gc.collect()
+    # 12.8 GB per call: far past the L2, so back-to-back calls are cold
+    t_b, by = bound(n * (3 * 4 + 2 + 3 * 4), n * 16, FP32_FLOP_PER_S)
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fused_adam(master, m, v, g, **kw), iters=10,
+                   cold=False),
+        plain_ms=time_ms(lambda: ref.fused_adam(master, m, v, g, **kw),
+                         iters=5, warmup=1, cold=False),
+        bound_ms=t_b, bound_by=by, library_ms=None, shape=list(shape))
+    # yardstick: one torch._fused_adamw_ call over clones of the same
+    # state (it updates in place, and takes g in the params' fp32)
+    lib = [[master.clone()], [g.float()], [m.clone()], [v.clone()], [],
+           [torch.tensor(3.0, device=dev)]]
+    try:
+        row["library_ms"] = time_ms(lambda: torch._fused_adamw_(
+            *lib, lr=kw["lr"], beta1=kw["b1"], beta2=kw["b2"],
+            weight_decay=kw["wd"], eps=kw["eps"], amsgrad=False,
+            maximize=False), iters=10, cold=False)
+        row["library"] = "torch._fused_adamw_ (fp32 g)"
+    except (AttributeError, RuntimeError, TypeError) as e:
+        log(f"  torch._fused_adamw_ not timed: {e}")
+    del lib, master, m, v, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def kernel_phase(dev, gen) -> dict:
-    """Rows of the ``kernels`` line, one per kernel build the serve
-    phases launch: each attention kernel at both models' KV geometry
-    (``decode_attention@KV8``, ``...@KV4``) and the expert kernel.  Each
-    row names its ``kernel`` and the ``model`` whose serve runs it."""
+    """Rows of the ``kernels`` line, one per kernel build the main paths
+    launch: each attention kernel at both models' KV geometry
+    (``decode_attention@KV8``, ``...@KV4``), the expert kernel and the
+    Adam kernel.  Each row names its ``kernel`` and the ``model`` whose
+    serve or train phases run it."""
     rows = {}
     for arch, KV in MODELS.items():
         for name, row in attention_kernels(dev, gen, KV).items():
@@ -359,25 +510,27 @@ def kernel_phase(dev, gen) -> dict:
     rows["fused_expert_ffn"] = dict(expert_kernel(dev, gen),
                                     kernel="fused_expert_ffn",
                                     model="qwen3-moe-30b-a3b")
+    rows["fused_adam"] = dict(adam_kernel(dev, gen), kernel="fused_adam",
+                              model=TRAIN_ARCH)
     for name, row in rows.items():
         lib = row["library_ms"]
         log(f"kernel {name}: max_abs_err={row['max_abs_err']:.3g} "
-            f"ms={row['ms']:.4f} (warm L2 {row['warm_ms']:.4f}) "
+            f"ms={row['ms']:.4f} (warm L2 {row.get('warm_ms', row['ms']):.4f}) "
             f"plain_ms={row['plain_ms']:.4f} library_ms="
             + ("none" if lib is None else f"{lib:.4f}")
             + f" bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
     return rows
 
 
-def kernels_line(kernels: dict, serve: dict) -> list:
+def kernels_line(kernels: dict, runs: dict) -> list:
     """The ``kernels`` line's rows.  Each row's launches are those of
-    its own model's serve phases (staged and fused), the only runs that
-    launch its build."""
+    its own model's serve phases (staged and fused) or train phases
+    (both placements), the only runs that launch its build."""
     return [{"name": name, "route": "cuda",
              "source": SOURCES[row["kernel"]],
              "replaces": REPLACES[row["kernel"]],
              "launches": sum(phase["launches"][row["kernel"]]
-                             for key, phase in serve[row["model"]].items()
+                             for key, phase in runs[row["model"]].items()
                              if key != "profile"),
              "max_abs_err": row["max_abs_err"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -622,6 +775,151 @@ def serve_model(arch: str, profile: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# training phases                                                         #
+# ---------------------------------------------------------------------- #
+def train_engine(cfg, params, shares, device):
+    """A ``ZeroOffloadEngine`` whose AdamW learning rate is the default
+    one scaled by the smoke width over ``cfg``'s width: AdamW's first
+    steps move every weight by about lr, so a layer's output moves in
+    proportion to lr x fan-in, and the default rate, which the smoke
+    configs (d_model 64) learn at, makes the full widths diverge."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.offload import OffloadConfig, ZeroOffloadEngine
+    from repro_torch.optim import AdamConfig
+    lr = AdamConfig.lr * get_smoke_config(cfg.name).d_model / cfg.d_model
+    return ZeroOffloadEngine(cfg, params, OffloadConfig(
+        opt_state_shares=list(shares), adam=AdamConfig(lr=lr)),
+        device=device)
+
+
+def run_train(eng, batches) -> tuple:
+    """``eng`` through one step per batch, the launch counters set to 0
+    just before; returns (step timings, launches, wall s)."""
+    from repro_torch.kernels import build
+    build.reset_launches()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timings = [eng.train_step(b) for b in batches]
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    return timings, dict(build.LAUNCHES), time.perf_counter() - t0
+
+
+def n_leaves(params) -> int:
+    import torch.utils._pytree as pytree
+    return len(pytree.tree_leaves(params))
+
+
+def small_train_reference(arch: str) -> dict:
+    """``arch``'s smoke config trained 3 steps by ``ZeroOffloadEngine``
+    on the card (``fused_adam``) and on the CPU (plain versions) from the
+    same weights and batches: finite losses, step-1 losses within
+    ``TRAIN_LOSS_ATOL``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import batch_for_step, DataConfig
+    from repro_torch.models import lm
+    cfg = get_smoke_config(arch)
+    cpu = lm.init_params(cfg, seed=SEED, device="cpu")
+    dc = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    batches = [batch_for_step(dc, step) for step in range(3)]
+    losses = {}
+    for dev, params in (("cpu", cpu),
+                        ("cuda", lm.tree_map(lambda t: t.cuda(), cpu))):
+        eng = train_engine(cfg, params, (("pinned_host", 1.0),), dev)
+        timings, launches, _ = run_train(eng, batches)
+        losses[dev] = [t.loss for t in timings]
+        want = len(batches) * n_leaves(params) if dev == "cuda" else 0
+        if launches["fused_adam"] != want:
+            fail(f"small train reference {arch} on {dev}: "
+                 f"{launches['fused_adam']} fused_adam launches, "
+                 f"expected {want}")
+    if not all(math.isfinite(x) for v in losses.values() for x in v):
+        fail(f"small train reference {arch}: non-finite loss {losses}")
+    d = abs(losses["cuda"][0] - losses["cpu"][0])
+    if d > TRAIN_LOSS_ATOL:
+        fail(f"small train reference {arch}: step-1 loss {losses['cuda'][0]}"
+             f" on the card, {losses['cpu'][0]} on the CPU")
+    log(f"small train reference {arch}: card {losses['cuda']} CPU "
+        f"{losses['cpu']} (step 1 differs by {d:.3g})")
+    return losses
+
+
+def train_model(arch: str) -> dict:
+    """Train ``arch`` at full width and depth under each of
+    ``TRAIN_PLACEMENTS``, each from the same seeded weights and the same
+    first batches.  The weights are freed when this returns."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import LOGICAL_KINDS
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    leaves = n_leaves(params)
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    log(f"{arch} params ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}; {n_params} parameters in {leaves} leaves): "
+        f"{time.perf_counter() - t0:.1f} s, {memory()}")
+    out = {}
+    for label, shares, n_steps in TRAIN_PLACEMENTS:
+        t0 = time.perf_counter()
+        eng = train_engine(cfg, params, shares, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        on = {kind: eng.opt_state_bytes_on(kind) for kind in LOGICAL_KINDS}
+        log(f"train {arch} {label}: engine {init_s:.1f} s, opt state bytes "
+            + " ".join(f"{k}={v}" for k, v in on.items())
+            + f" (12 x params = {12 * n_params}), {memory()}")
+        if label == "pinned" and (on["pinned_host"] != 12 * n_params
+                                  or on["device"]):
+            fail(f"train {arch} {label}: the fp32 state is not all on "
+                 "pinned host memory")
+        it = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                     global_batch=TRAIN_BATCH, seed=SEED))
+        timings, launches, wall = run_train(
+            eng, [next(it) for _ in range(n_steps)])
+        for i, t in enumerate(timings):
+            log(f"  step {i + 1}: loss={t.loss:.5f} "
+                f"fwd_bwd={t.fwd_bwd_s:.3f} s grad_xfer={t.grad_xfer_s:.3f} "
+                f"s optimizer={t.optimizer_s:.3f} s "
+                f"param_xfer={t.param_xfer_s:.4f} s total={t.total_s:.3f} s")
+        losses = [t.loss for t in timings]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train {arch} {label}: non-finite loss {losses}")
+        if launches["fused_adam"] != leaves * n_steps:
+            fail(f"train {arch} {label}: {launches['fused_adam']} fused_adam"
+                 f" launches, expected {leaves} leaves x {n_steps} steps")
+        others = {k: v for k, v in launches.items()
+                  if v and k != "fused_adam"}
+        if others:
+            fail(f"train {arch} {label}: serving kernels launched {others}")
+        log(f"train {arch} {label}: wall={wall:.2f} s launches={launches} "
+            f"{memory()}")
+        out[label] = {"shares": shares, "init_s": init_s, "wall_s": wall,
+                      "opt_state_bytes": on, "launches": launches,
+                      "losses": losses,
+                      "steps": [dataclasses.asdict(t) for t in timings]}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    losses = out["pinned"]["losses"]
+    if not losses[3] < losses[0]:
+        fail(f"train {arch}: the loss did not fall from step 1 to step 4 "
+             f"({losses})")
+    d = abs(out["ldram+cxl"]["losses"][0] - losses[0])
+    if d > TRAIN_LOSS_ATOL:
+        fail(f"train {arch}: step-1 loss depends on the placement ({d:.3g})")
+    log(f"train {arch}: step-1 loss under LDRAM+CXL differs from pinned by "
+        f"{d:.3g}")
+    return out
+
+
 def memory() -> str:
     return (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device "
             f"(peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
@@ -666,12 +964,16 @@ def main() -> int:
         d_ff=1024)
     record["small_moe_reference"] = small_reference_phase(
         "qwen3-moe-30b-a3b", d_model=512, n_kv=2, head_dim=128)
+    record["small_train_reference"] = {
+        arch: small_train_reference(arch)
+        for arch in (TRAIN_ARCH, "llama3-8b")}
     record["serve"] = {}
     for arch in MODELS:              # one model's weights on the card
         record["serve"][arch] = serve_model(arch, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
-    rows = kernels_line(kernels, record["serve"])
+    record["train"] = {TRAIN_ARCH: train_model(TRAIN_ARCH)}
+    rows = kernels_line(kernels, {**record["serve"], **record["train"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

@@ -7,11 +7,16 @@ copies.  Every Pallas kernel of the reference that the ported path runs
 is a CUDA kernel under ``csrc/``, built at first use (``kernels.build``).
 
 Subpackages (imported lazily so ``import repro_torch`` stays light):
-  configs   model configs (llama3-8b)
-  core      tier descriptors, migration policies, memory kinds
+  configs   model configs (llama3-8b, qwen3-moe-30b-a3b, gpt2-xl-offload)
+  core      tier descriptors, migration policies, memory kinds,
+            TieredArray
+  cluster   namespaced ledger keys
   pool      residency ledger
   kernels   CUDA kernels, their plain PyTorch versions, dispatch
-  models    model blocks and the pattern LM (prefill)
+  models    model blocks and the pattern LM (prefill, training loss)
+  data      deterministic synthetic token pipeline
+  optim     AdamW (clipping, bf16 compression, fused kernel path)
+  offload   ZeRO-Offload training engine
   serving   continuous-batching paged-KV serving
   launch    step builders and the serving CLI
 """
@@ -20,7 +25,8 @@ import importlib
 __version__ = "0.1.0"
 
 _LAZY_SUBPACKAGES = ("configs", "core", "cluster", "pool", "kernels",
-                     "models", "serving", "launch")
+                     "models", "data", "optim", "offload", "serving",
+                     "launch")
 
 
 def __getattr__(name):

@@ -10,7 +10,7 @@ from typing import List
 
 from .base import ModelConfig, smoke_variant
 
-ARCH_IDS: List[str] = ["llama3-8b", "qwen3-moe-30b-a3b"]
+ARCH_IDS: List[str] = ["llama3-8b", "qwen3-moe-30b-a3b", "gpt2-xl-offload"]
 
 _MODULES = {i: __package__ + "." + i.replace("-", "_").replace(".", "_")
             for i in ARCH_IDS}

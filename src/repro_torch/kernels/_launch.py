@@ -7,9 +7,10 @@ import torch
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
-            shape: Sequence[int]) -> None:
+            shape: Sequence[int], aligned: bool = True) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
-    ``shape``, 16-byte aligned (the kernels load 8 or 16 bytes at once)."""
+    ``shape`` and, unless ``aligned`` is False, 16-byte aligned (the
+    kernels load 8 or 16 bytes at once)."""
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes a CUDA tensor "
                          f"(got {getattr(t, 'device', type(t))}); CPU "
@@ -22,7 +23,7 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
 

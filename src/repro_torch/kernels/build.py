@@ -27,7 +27,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("decode_attention", "paged_decode_attention", "flash_attention",
-           "fused_expert_ffn")
+           "fused_expert_ffn", "fused_adam")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,6 +48,10 @@ _ARGTYPES = {
     # stream
     "fused_expert_ffn_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
+    # master, m, v, g, out_master, out_m, out_v, n, g_dtype,
+    # lr, b1, b2, eps, wd, b1c, b2c, 1 - b1, 1 - b2, stream
+    "fused_adam_f32": [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int]
+    + [ctypes.c_float] * 9 + [ctypes.c_void_p],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

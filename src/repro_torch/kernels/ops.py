@@ -14,6 +14,7 @@ from . import ref
 from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import check_args as _flash_check
 from .flash_attention import flash_attention as _flash_kernel
+from .fused_adam import fused_adam as _adam_kernel
 from .tiered_gather import fused_expert_ffn as _expert_kernel
 from .tiered_gather import paged_decode_attention as _paged_kernel
 
@@ -50,3 +51,11 @@ def fused_expert_ffn(x, w_gate, w_up, w_down, expert_ids,
         return _expert_kernel(x, w_gate, w_up, w_down, expert_ids,
                               expert_wts)
     return ref.expert_ffn(x, w_gate, w_up, w_down, expert_ids, expert_wts)
+
+
+def fused_adam(master, m, v, g, *, lr, b1, b2, eps, wd, b1c, b2c):
+    """One AdamW step over a parameter leaf: (master', m', v'), fp32."""
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, wd=wd, b1c=b1c, b2c=b2c)
+    if _on_cuda(master):
+        return _adam_kernel(master, m, v, g, **kw)
+    return ref.fused_adam(master, m, v, g, **kw)

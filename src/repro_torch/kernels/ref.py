@@ -9,10 +9,26 @@ its plain version on the same inputs.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
 NEG_INF = -1e30
+
+
+def fused_adam(master: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+               g: torch.Tensor, *, lr: float, b1: float, b2: float,
+               eps: float, wd: float, b1c, b2c
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """AdamW update (fp32; g cast to fp32).  Returns (new_master, new_m,
+    new_v)."""
+    g = g.float()
+    m2 = b1 * m + (1.0 - b1) * g
+    v2 = b2 * v + (1.0 - b2) * g * g
+    mh = m2 / b1c
+    vh = v2 / b2c
+    new = master - lr * (mh / (torch.sqrt(vh) + eps) + wd * master)
+    return new, m2, v2
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

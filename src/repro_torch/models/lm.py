@@ -1,6 +1,6 @@
 """Pattern language model in PyTorch (counterpart of ``repro.models.lm``)
-for attention-only families, dense or MoE: parameters, prefill, and the
-conversion of the reference's parameters.
+for attention-only families, dense or MoE: parameters, prefill, the
+training loss, and the conversion of the reference's parameters.
 
 Parameters keep the reference's pytree layout — nested dicts and
 tuples, with the repeating unit's layers stacked on a leading ``units``
@@ -8,15 +8,18 @@ axis — so the two packages can be fed the same weights.  The
 reference's ``lax.scan`` over units becomes a Python loop over that
 axis (``unit_views``).  Prefill attention runs through
 ``kernels.ops.flash_attention``: the CUDA kernel on the card, its plain
-version on the CPU.
+version on the CPU; training attention through the plain
+``chunked_attention``, as in the reference's train mode.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.tiered_array import DeviceLike, resolve_device
@@ -202,21 +205,26 @@ def project_qkv(cfg: ModelConfig, ap: Params, h: torch.Tensor):
             v.reshape(B, S, cfg.n_kv, cfg.head_dim))
 
 
-def ffn(cfg: ModelConfig, spec, lp: Params, h: torch.Tensor) -> torch.Tensor:
+def ffn(cfg: ModelConfig, spec, lp: Params, h: torch.Tensor):
     """The layer's MLP, or its MoE (``moe_fwd``, capacity and drop as
-    the config sets them) where the layer spec says so."""
+    the config sets them) where the layer spec says so.  Returns (out,
+    MoE aux loss, or None for an MLP)."""
     if spec.moe:
         return M.moe_fwd(lp["moe"], h, top_k=cfg.top_k,
                          capacity_factor=cfg.capacity_factor,
-                         n_groups=cfg.moe_groups, act=cfg.act)[0]
-    return M.mlp_fwd(lp["mlp"], h, cfg.act)
+                         n_groups=cfg.moe_groups, act=cfg.act)
+    return M.mlp_fwd(lp["mlp"], h, cfg.act), None
 
 
-def _unit_prefill(cfg: ModelConfig, up: Params, x: torch.Tensor,
-                  positions: torch.Tensor):
-    """One unit over the whole prompt; returns (x, [k], [v]) with the
-    post-rotary bf16 K/V of each attention layer."""
+def _unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
+              positions: torch.Tensor, train: bool = False):
+    """One unit over the whole sequence; returns (x, MoE aux loss (fp32),
+    [k], [v]) with the post-rotary bf16 K/V of each attention layer.
+    Attention runs through ``ops.flash_attention`` (the kernel on the
+    card) or, with ``train``, through the plain ``chunked_attention``, as
+    the reference's train mode does: the kernel has no backward."""
     B, S, _ = x.shape
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for li, spec in enumerate(cfg.pattern):
         lp = up["layers"][li]
@@ -225,15 +233,23 @@ def _unit_prefill(cfg: ModelConfig, up: Params, x: torch.Tensor,
         if cfg.pos_emb == "rope":
             q = M.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
             k = M.apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
-        att = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=True)
+        if train:
+            att = M.chunked_attention(q, k, v, causal=True,
+                                      chunk_q=cfg.attn_chunk,
+                                      chunk_kv=cfg.attn_chunk)
+        else:
+            att = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=True)
         x = x + att.reshape(B, S, cfg.n_heads * cfg.head_dim) \
             @ lp["attn"]["wo"]
         h = M.apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + ffn(cfg, spec, lp, h)
+        out, a = ffn(cfg, spec, lp, h)
+        x = x + out
+        if a is not None:
+            aux = aux + a
         ks.append(k.to(torch.bfloat16))
         vs.append(v.to(torch.bfloat16))
-    return x, ks, vs
+    return x, aux, ks, vs
 
 
 @torch.no_grad()
@@ -249,7 +265,7 @@ def prefill(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(S, device=x.device)
     kk, vv = [], []
     for up in (units if units is not None else unit_views(p, cfg)):
-        x, ks, vs = _unit_prefill(cfg, up, x, positions)
+        x, _, ks, vs = _unit_fwd(cfg, up, x, positions)
         kk.append(torch.stack(ks))
         vv.append(torch.stack(vs))
     x = M.apply_norm(cfg.norm, p["final_norm"], x[:, -1:])
@@ -257,3 +273,65 @@ def prefill(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cache = {"kv_k": torch.stack(kk), "kv_v": torch.stack(vv),
              "index": S}
     return logits, cache
+
+
+# ====================================================================== #
+# Training loss                                                          #
+# ====================================================================== #
+def _stack_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               positions: torch.Tensor):
+    """The units in order (the reference's ``lax.scan``); with
+    ``cfg.remat`` each unit is recomputed in the backward pass, so only
+    the unit boundaries are kept.  Returns (x, summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for up in unit_views(p, cfg):
+        body = functools.partial(_unit_fwd, cfg, up, train=True)
+        if cfg.remat:
+            x, a, _, _ = checkpoint(body, x, positions, use_reentrant=False)
+        else:
+            x, a, _, _ = body(x, positions)
+        aux = aux + a
+    return x, aux
+
+
+def _chunk_ce(xi: torch.Tensor, yi: torch.Tensor,
+              W: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one sequence chunk, logits in fp32."""
+    logits = (xi @ W.T).float()                               # (B,C,V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, yi[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def forward_loss(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 labels: torch.Tensor,
+                 cross_inputs: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Training loss, a 0-d fp32 tensor: the mean token cross-entropy,
+    computed over chunks of ``cfg.loss_chunk`` positions so the (B, S, V)
+    logits never exist at once, plus 0.01 x the MoE aux loss."""
+    check_supported(cfg)
+    if cross_inputs is not None:
+        raise NotImplementedError("cross inputs (encoder-decoder models) "
+                                  "are not ported yet")
+    dev = p["embed"].device
+    tokens = tokens.to(device=dev, dtype=torch.int64)
+    labels = labels.to(device=dev, dtype=torch.int64)
+    x = _embed_tokens(p, cfg, tokens)
+    B, S = tokens.shape
+    x, aux = _stack_fwd(cfg, p, x, torch.arange(S, device=dev))
+    x = M.apply_norm(cfg.norm, p["final_norm"], x)
+    W = _lm_head(p, cfg)
+    C = min(cfg.loss_chunk, S)
+    if S % C:
+        raise ValueError(f"sequence length {S} is not a multiple of "
+                         f"loss_chunk {C}")
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for c0 in range(0, S, C):
+        xi, yi = x[:, c0:c0 + C], labels[:, c0:c0 + C]
+        if cfg.remat:
+            total = total + checkpoint(_chunk_ce, xi, yi, W,
+                                       use_reentrant=False)
+        else:
+            total = total + _chunk_ce(xi, yi, W)
+    return total / (B * S) + 0.01 * aux

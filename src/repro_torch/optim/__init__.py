@@ -1,0 +1,4 @@
+"""AdamW with mixed precision (counterpart of ``repro.optim``)."""
+from .adam import AdamConfig, apply_update, init_state
+
+__all__ = ["AdamConfig", "apply_update", "init_state"]

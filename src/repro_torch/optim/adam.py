@@ -1,0 +1,112 @@
+"""AdamW with mixed precision and bf16 gradient compression (counterpart
+of ``repro.optim.adam``).
+
+The state is {master (fp32), m (fp32), v (fp32), step} shaped like the
+params, as in the reference.  ``apply_update`` clips by the global norm,
+optionally compresses the gradients to bf16 with error feedback, and
+updates each leaf either with the plain math (``kernels.ref``) or, with
+``use_fused_kernel``, through ``kernels.ops.fused_adam``: the CUDA
+kernel on the card, its plain version on the CPU.  The reference streams
+layer-stacked leaves through ``lax.map`` only to bound fp32 temporaries;
+one call per leaf computes the same function.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.utils._pytree as pytree
+
+from ..kernels import ops as kops
+from ..kernels import ref as kref
+
+Params = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    # gradient compression (bf16 + error feedback)
+    compress_grads: bool = False
+    # update through kernels.ops.fused_adam (the CUDA kernel on the card)
+    use_fused_kernel: bool = False
+
+
+def init_state(params: Params, cfg: AdamConfig) -> Dict[str, Any]:
+    """Fresh state; every leaf is a new tensor (fp32 params are copied,
+    not aliased).  ``step`` is a 0-d int32 tensor on the params' device."""
+    def f32(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    leaves = pytree.tree_leaves(params)
+    state = {
+        "master": pytree.tree_map(
+            lambda p: p.detach().to(torch.float32, copy=True), params),
+        "m": pytree.tree_map(f32, params),
+        "v": pytree.tree_map(f32, params),
+        "step": torch.zeros((), dtype=torch.int32,
+                            device=leaves[0].device if leaves else None),
+    }
+    if cfg.compress_grads:
+        state["err"] = pytree.tree_map(f32, params)
+    return state
+
+
+def _global_norm(leaves) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in leaves))
+
+
+def apply_update(params: Params, state: Dict[str, Any], grads: Params,
+                 cfg: AdamConfig) -> Tuple[Params, Dict[str, Any]]:
+    """One AdamW step.  Returns (new params in the params' dtypes, new
+    state); the inputs are not modified."""
+    flat_p, spec = pytree.tree_flatten(params)
+    flat_g = spec.flatten_up_to(grads)
+    step = state["step"] + 1
+    if cfg.compress_grads:
+        # error-feedback compression: quantize (grad + residual) to bf16,
+        # keep the quantization error for the next step
+        flat_e = spec.flatten_up_to(state["err"])
+        comp = [(g.float() + e).to(torch.bfloat16)
+                for g, e in zip(flat_g, flat_e)]
+        new_err = [g.float() + e - c.float()
+                   for g, e, c in zip(flat_g, flat_e, comp)]
+        flat_g = comp
+    gnorm = _global_norm(flat_g)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+
+    # bias corrections in fp32 from the step counter, as the reference
+    b1c = 1.0 - torch.pow(cfg.b1, step.float())
+    b2c = 1.0 - torch.pow(cfg.b2, step.float())
+    update = kref.fused_adam
+    if cfg.use_fused_kernel:
+        update = kops.fused_adam
+        # read once: the kernel takes them as float arguments
+        b1c, b2c = float(b1c), float(b2c)
+    kw = dict(lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+              wd=cfg.weight_decay, b1c=b1c, b2c=b2c)
+
+    new_mast, new_m, new_v, new_p = [], [], [], []
+    for p, ma, m, v, g in zip(flat_p, spec.flatten_up_to(state["master"]),
+                              spec.flatten_up_to(state["m"]),
+                              spec.flatten_up_to(state["v"]), flat_g):
+        nm_, m2_, v2_ = update(ma, m, v, g.float() * scale, **kw)
+        new_mast.append(nm_)
+        new_m.append(m2_)
+        new_v.append(v2_)
+        new_p.append(nm_.to(p.dtype))
+    out_state = dict(state)
+    out_state["master"] = pytree.tree_unflatten(new_mast, spec)
+    out_state["m"] = pytree.tree_unflatten(new_m, spec)
+    out_state["v"] = pytree.tree_unflatten(new_v, spec)
+    out_state["step"] = step
+    if cfg.compress_grads:
+        out_state["err"] = pytree.tree_unflatten(new_err, spec)
+    return pytree.tree_unflatten(new_p, spec), out_state

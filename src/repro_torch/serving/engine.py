@@ -112,7 +112,7 @@ def _finish_layer(cfg: ModelConfig, spec, lp, x: torch.Tensor,
     """Staged path: the layer after attention, MoE layers through
     ``moe_fwd``."""
     x, h = _attn_out(cfg, lp, x, att)
-    return x + lm.ffn(cfg, spec, lp, h)
+    return x + lm.ffn(cfg, spec, lp, h)[0]
 
 
 def _routed_experts(cfg: ModelConfig, mp, h: torch.Tensor):

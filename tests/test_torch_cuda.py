@@ -15,6 +15,7 @@ from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.fused_adam import fused_adam  # noqa: E402
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
     fused_expert_ffn, paged_decode_attention)
 
@@ -102,6 +103,62 @@ def test_fused_expert_ffn_kernel(gen):
     torch.testing.assert_close(got, ref.expert_ffn(x, wg, wu, wd, ids, wts),
                                **TOL)
     assert torch.equal(got[3], got[0])
+
+
+# fused_adam against its plain version, as chip_smoke.py holds it: the
+# update master' - master (about lr = 3e-4 against masters of about
+# 0.02, so a tolerance on master' alone would pass a kernel that skipped
+# it) to 1e-6 of itself plus two fp32 ulps of the master (master' may
+# round one ulp apart: PyTorch divides by a scalar through its
+# reciprocal); m' and v' to 1e-6 of themselves plus 1e-6 of their rms
+ADAM_KW = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1,
+               b1c=1.0 - 0.9 ** 3, b2c=1.0 - 0.95 ** 3)
+
+
+@pytest.mark.parametrize("shape,gdtype,offset", [
+    ((48, 1600, 6400), torch.bfloat16, 0),   # gpt2-xl-offload mlp.w_up
+    ((70001,), torch.float32, 0),            # vector loop and its tail
+    ((70001,), torch.float32, 1),            # misaligned: scalar loop
+    ((3, 5), torch.float16, 0),
+])
+def test_fused_adam_kernel(gen, shape, gdtype, offset):
+    n = 1
+    for d in shape:
+        n *= d
+
+    def draw(std, dtype=torch.float32):
+        t = torch.randn(n + offset, generator=gen, device="cuda") * std
+        return t.to(dtype)[offset:].view(shape)
+
+    master, m, g = draw(0.02), draw(3e-4), draw(1e-3, gdtype)
+    v = draw(1.0).square_().mul_(1.5e-7)
+    # NaN in the blocks the outputs will reuse: an unwritten element fails
+    poison = [torch.full((n,), float("nan"), device="cuda")
+              for _ in range(3)]
+    del poison
+    before = build.LAUNCHES["fused_adam"]
+    got = fused_adam(master, m, v, g, **ADAM_KW)
+    assert build.LAUNCHES["fused_adam"] == before + 1
+    want = ref.fused_adam(master, m, v, g, **ADAM_KW)
+    eps32 = torch.finfo(torch.float32).eps
+    for a, b, extra in ((got[0] - master, want[0] - master,
+                         2 * eps32 * master.abs()),
+                        (got[1], want[1], None), (got[2], want[2], None)):
+        assert torch.isfinite(a).all()
+        tol = 1e-6 * b.abs() + (extra if extra is not None
+                                else 1e-6 * b.square().mean().sqrt())
+        assert ((a - b).abs() <= tol).all()
+
+
+def test_fused_adam_refuses_what_it_does_not_take(gen):
+    x = torch.zeros(8, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        fused_adam(x, x, x, x.double(), **ADAM_KW)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_adam(x.half(), x, x, x, **ADAM_KW)
+    with pytest.raises(ValueError, match="contiguous"):
+        y = torch.zeros(8, 2, device="cuda")[:, 0]
+        fused_adam(y, y, y, y, **ADAM_KW)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

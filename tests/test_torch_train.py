@@ -1,0 +1,395 @@
+"""The port's training slice against the JAX package on the CPU: the data
+pipeline, ``TieredArray``, ``forward_loss`` and its gradients, and the
+ZeRO-Offload engine, on the gpt2-xl-offload and llama3-8b smoke configs
+(qwen3-moe-30b-a3b for the MoE loss), with the reference's weights
+carried across by ``params_from_numpy``."""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch.utils._pytree as pytree  # noqa: E402
+from _torch_parity import (assert_close, to_numpy, to_torch,  # noqa: E402
+                           tree_to_torch)
+
+from repro.configs import get_smoke_config as jsmoke  # noqa: E402
+from repro.core import tiered_array as jta  # noqa: E402
+from repro.data import pipeline as jdata  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.offload import train_engine as jeng  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core import (gather_pytree, place_pytree,  # noqa: E402
+                              TieredArray)
+from repro_torch.data import (batch_for_step, DataConfig,  # noqa: E402
+                              DataIterator, global_batch_for_step)
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.offload import (OffloadConfig, StepTiming,  # noqa: E402
+                                 ZeroOffloadEngine)
+
+DENSE = ("gpt2-xl-offload", "llama3-8b")
+# the paper's placements of the optimizer state (Figs. 8-9)
+PLACEMENTS = {
+    "ldram": [("device", 1.0)],
+    "pinned": [("pinned_host", 1.0)],
+    "ldram+cxl": [("device", 0.5), ("unpinned_host", 0.5)],
+    "interleave_all": [("device", 0.34), ("pinned_host", 0.33),
+                       ("unpinned_host", 0.33)],
+}
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[getattr(k, "key", getattr(k, "idx", None))]
+    return tree
+
+
+# ---------------------------------------------------------------------- #
+# data pipeline                                                           #
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("kw,dp_size", [
+    (dict(vocab=512, seq_len=32, global_batch=4), 1),
+    (dict(vocab=50257, seq_len=512, global_batch=8), 2),
+    (dict(vocab=128256, seq_len=64, global_batch=6, seed=7, zipf_a=1.5), 3),
+])
+def test_batches_equal_reference_bytes(kw, dp_size):
+    ours, ref = DataConfig(**kw), jdata.DataConfig(**kw)
+    for step in (0, 1, 9):
+        for rank in range(dp_size):
+            a = batch_for_step(ours, step, rank, dp_size)
+            b = jdata.batch_for_step(ref, step, rank, dp_size)
+            for k in ("tokens", "labels"):
+                assert a[k].dtype == b[k].dtype
+                assert a[k].tobytes() == b[k].tobytes()
+        assert global_batch_for_step(ours, step)["tokens"].tobytes() == \
+            jdata.global_batch_for_step(ref, step)["tokens"].tobytes()
+
+
+def test_data_iterator_resumes_like_reference():
+    kw = dict(vocab=512, seq_len=16, global_batch=2)
+    ours = DataIterator(DataConfig(**kw), start_step=3)
+    ref = jdata.DataIterator(jdata.DataConfig(**kw), start_step=3)
+    for _ in range(2):
+        assert next(ours)["tokens"].tobytes() == next(ref)["tokens"].tobytes()
+    state = ours.state()
+    assert state == ref.state() == {"step": 5}
+    again = DataIterator(DataConfig(**kw))
+    again.restore(state)
+    assert next(again)["labels"].tobytes() == next(ref)["labels"].tobytes()
+
+
+# ---------------------------------------------------------------------- #
+# TieredArray                                                             #
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("name", sorted(PLACEMENTS))
+@pytest.mark.parametrize("block_rows", [None, 1, 3, 16])
+@pytest.mark.parametrize("n_rows", [1, 7, 64, 100])
+def test_plan_blocks_equal_reference(name, block_rows, n_rows):
+    shares = PLACEMENTS[name]
+    assert TieredArray.plan_blocks(n_rows, shares, block_rows) == \
+        jta.TieredArray.plan_blocks(n_rows, shares, block_rows)
+
+
+def test_plan_blocks_rejects_empty_shares():
+    with pytest.raises(ValueError, match="empty share list"):
+        TieredArray.plan_blocks(4, [("device", 0.0)])
+
+
+@pytest.mark.parametrize("name", sorted(PLACEMENTS))
+@pytest.mark.parametrize("block_rows", [None, 16])
+def test_place_gather_update_round_trip(name, block_rows):
+    """Round trips and per-kind bytes equal the reference's under the
+    four paper placements; ``update`` writes into the same blocks."""
+    shares = PLACEMENTS[name]
+    x = np.arange(256 * 12, dtype=np.float32).reshape(256, 12)
+    ours = TieredArray.place(to_torch(x), shares, block_rows, device="cpu")
+    ref = jta.TieredArray.place(jnp.asarray(x), shares, block_rows)
+    assert ours.kinds == ref.kinds
+    assert [b.shape[0] for b in ours.blocks] == \
+        [b.shape[0] for b in ref.blocks]
+    np.testing.assert_array_equal(to_numpy(ours.gather()), x)
+    for kind in ("device", "pinned_host", "unpinned_host"):
+        assert ours.bytes_on(kind) == ref.bytes_on(kind)
+    assert ours.nbytes == ref.nbytes
+    assert ours.fast_fraction() == pytest.approx(ref.fast_fraction())
+    ptrs = [b.data_ptr() for b in ours.blocks]
+    assert ours.update(to_torch(3 * x)) is ours
+    assert [b.data_ptr() for b in ours.blocks] == ptrs
+    np.testing.assert_array_equal(to_numpy(ours.gather()), 3 * x)
+
+
+def test_place_copies_and_keeps_dtype():
+    x = torch.ones(4, 2, dtype=torch.bfloat16)
+    ta = TieredArray.place(x, [("pinned_host", 1.0)], device="cpu")
+    x.zero_()
+    assert ta.dtype == torch.bfloat16 and ta.gather().sum() == 8
+    assert TieredArray.place(torch.tensor(2.0), [("device", 1.0)],
+                             device="cpu").shape == (1,)
+    z = TieredArray.alloc((5, 3), torch.float32, PLACEMENTS["ldram+cxl"],
+                          device="cpu", zero=True)
+    assert z.gather().abs().sum() == 0 and z.kinds == ["device",
+                                                       "unpinned_host"]
+
+
+def test_from_plan_maps_tier_names_like_reference():
+    x = np.ones((32, 4), np.float32)
+    plan = [("LDRAM", 0.25), ("CXL", 0.5), ("HBM", 0.25)]
+    ours = TieredArray.from_plan(to_torch(x), plan, device="cpu")
+    ref = jta.TieredArray.from_plan(jnp.asarray(x), plan)
+    assert ours.kinds == ref.kinds
+    assert ours.bytes_on("device") == ref.bytes_on("device")
+
+
+def test_pytree_placement_names_and_gather():
+    tree = {"a": torch.ones(16, 4), "b": (torch.zeros(8),)}
+    seen = []
+
+    def shares(name, leaf):
+        seen.append(name)
+        return [("pinned_host", 1.0)]
+
+    placed = place_pytree(tree, shares, device="cpu")
+    assert seen == ["a", "b/0"]
+    out = gather_pytree(placed)
+    assert torch.equal(out["a"], tree["a"]) and out["b"][0].shape == (8,)
+    assert placed["a"].bytes_on("pinned_host") == placed["a"].nbytes
+
+
+# ---------------------------------------------------------------------- #
+# forward_loss and gradients                                              #
+# ---------------------------------------------------------------------- #
+def _models(arch, remat):
+    jcfg = dataclasses.replace(jsmoke(arch), remat=remat)
+    cfg = dataclasses.replace(get_smoke_config(arch), remat=remat)
+    jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    return jcfg, jparams, cfg, tree_to_torch(jparams)
+
+
+def _batch(cfg, step=0, seq_len=64, batch=4):
+    return batch_for_step(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                                     global_batch=batch), step)
+
+
+# Both packages run a bf16 model and round at different places.  Losses:
+# within 2e-4 of ~6.2 (measured 4e-5).  Gradients, by per-leaf relative
+# norm error: JAX's own jit and eager runs of the same step differ by up
+# to 1.1% (dense) and 3.3% (MoE smoke, whose routing amplifies rounding);
+# the port is held within about 2.5x of that.
+LOSS_ATOL = 2e-4
+GRAD_REL = {"dense": 3e-2, "moe": 8e-2}
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", DENSE + ("qwen3-moe-30b-a3b",))
+def test_forward_loss_and_grads_match_reference(arch, remat):
+    jcfg, jparams, cfg, params = _models(arch, remat)
+    b = _batch(cfg)
+    jloss, jgrads = jax.jit(jsteps.make_grad_step(jcfg))(
+        jparams, {k: jnp.asarray(v) for k, v in b.items()})
+    loss, grads = steps.make_grad_step(cfg)(
+        params, {k: torch.as_tensor(v) for k, v in b.items()})
+    assert loss.dtype == torch.float32 and loss.shape == ()
+    assert abs(float(loss) - float(jloss)) < LOSS_ATOL
+    assert abs(float(lm.forward_loss(params, cfg, torch.as_tensor(
+        b["tokens"]), torch.as_tensor(b["labels"]))) - float(jloss)) \
+        < LOSS_ATOL
+    tol = GRAD_REL[jcfg.family]
+    for path, want in jax.tree_util.tree_leaves_with_path(jgrads):
+        got = _leaf(grads, path)
+        assert str(got.dtype).endswith(str(want.dtype)), path
+        w = np.asarray(want, np.float32)
+        err = np.linalg.norm(to_numpy(got) - w) / np.linalg.norm(w)
+        assert err < tol, (jax.tree_util.keystr(path), err)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_remat_recomputes_the_same_function(arch):
+    """Checkpointed units and loss chunks give bit-identical loss and
+    grads to the plain forward, and leave the params untouched."""
+    _, _, cfg, params = _models(arch, False)
+    b = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
+    before = pytree.tree_map(torch.clone, params)
+    l0, g0 = steps.make_grad_step(cfg)(params, b)
+    l1, g1 = steps.make_grad_step(dataclasses.replace(cfg, remat=True))(
+        params, b)
+    assert torch.equal(l0, l1)
+    for a, c, p, q in zip(pytree.tree_leaves(g0), pytree.tree_leaves(g1),
+                          pytree.tree_leaves(before),
+                          pytree.tree_leaves(params)):
+        assert torch.equal(a, c)
+        assert torch.equal(p, q) and q.grad is None and not q.requires_grad
+
+
+def test_forward_loss_rejects_a_ragged_loss_chunk():
+    _, _, cfg, params = _models("llama3-8b", False)
+    tok = torch.zeros(1, 48, dtype=torch.int64)
+    with pytest.raises(ValueError, match="loss_chunk"):
+        lm.forward_loss(params, cfg, tok, tok)
+
+
+def test_train_step_matches_reference():
+    """make_train_step (grads + plain AdamW) against the reference's."""
+    from repro.optim import adam as jadam
+    from repro_torch.optim import AdamConfig, init_state
+    jcfg, jparams, cfg, params = _models("gpt2-xl-offload", False)
+    b = _batch(cfg, seq_len=32)
+    acfg = dict(lr=1e-3, grad_clip=1e9)
+    _, js, jloss = jax.jit(jsteps.make_train_step(
+        jcfg, jadam.AdamConfig(**acfg)))(
+        jparams, jadam.init_state(jparams, jadam.AdamConfig(**acfg)),
+        {k: jnp.asarray(v) for k, v in b.items()})
+    tparams, ts, loss = steps.make_train_step(cfg, AdamConfig(**acfg))(
+        params, init_state(params, AdamConfig(**acfg)),
+        {k: torch.as_tensor(v) for k, v in b.items()})
+    assert abs(float(loss) - float(jloss)) < LOSS_ATOL
+    assert int(ts["step"]) == 1
+    # AdamW's first step moves each master by about lr, so the masters
+    # agree to a few lr wherever the two grads' signs agree (almost all)
+    for path, want in jax.tree_util.tree_leaves_with_path(js["master"]):
+        d = np.abs(to_numpy(_leaf(ts["master"], path))
+                   - np.asarray(want))
+        assert np.mean(d < 1e-6 + 3 * acfg["lr"]) > 0.995, path
+        assert d.max() < 3 * acfg["lr"], path
+
+
+# ---------------------------------------------------------------------- #
+# ZeRO-Offload engine                                                     #
+# ---------------------------------------------------------------------- #
+def _engines(arch, shares, use_fused_kernel=True):
+    jcfg, jparams, cfg, params = _models(arch, False)
+    je = jeng.ZeroOffloadEngine(jcfg, jparams, jeng.OffloadConfig(
+        opt_state_shares=shares, use_fused_kernel=use_fused_kernel))
+    te = ZeroOffloadEngine(cfg, params, OffloadConfig(
+        opt_state_shares=shares, use_fused_kernel=use_fused_kernel),
+        device="cpu")
+    return je, te
+
+
+def _state(engine, name):
+    return jax.tree.map(lambda t: t.gather(), getattr(engine, name),
+                        is_leaf=lambda t: isinstance(t, jta.TieredArray))
+
+
+# Engine losses: one bf16 forward each, as in the loss test; from step 2
+# on the masters also differ where a tiny grad's sign flipped (a 2 lr
+# move), so the later losses get twice the room.
+ENGINE_LOSS_ATOL = (1e-3, 2e-3, 2e-3)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_engine_three_steps_match_reference(arch):
+    je, te = _engines(arch, PLACEMENTS["pinned"])
+    dc = DataConfig(vocab=te.cfg.vocab, seq_len=32, global_batch=4)
+    losses = []
+    for step, atol in enumerate(ENGINE_LOSS_ATOL):
+        b = batch_for_step(dc, step)
+        jt = je.train_step({k: jnp.asarray(v) for k, v in b.items()})
+        t = te.train_step(b)
+        assert isinstance(t, StepTiming) and np.isfinite(t.loss)
+        assert t.fwd_bwd_s > 0 and t.optimizer_s > 0 and t.total_s > 0
+        assert abs(t.loss - jt.loss) < atol, (step, t.loss, jt.loss)
+        losses.append(t.loss)
+    assert losses[-1] < losses[0] + 0.5
+    # the placement assertions of the reference's engine test
+    n = sum(p.numel() for p in pytree.tree_leaves(te.params))
+    assert te.opt_state_bytes_on("pinned_host") == 12 * n == \
+        je.opt_state_bytes_on("pinned_host")
+    assert te.opt_state_bytes_on("device") == 0
+    for p, q in zip(pytree.tree_leaves(te.params),
+                    jax.tree.leaves(je.params)):
+        assert str(p.dtype).endswith(str(q.dtype))
+
+
+@pytest.mark.parametrize("use_fused_kernel", [True, False])
+@pytest.mark.parametrize("placement", ["pinned", "ldram+cxl"])
+def test_engine_optimizer_given_reference_grads(use_fused_kernel,
+                                                placement):
+    """Fed the reference's own loss and grads, one engine step leaves
+    master, m, v and the bf16 params as the reference engine does, at
+    the kernel tolerance: the optimizer phase computes one function."""
+    je, te = _engines("gpt2-xl-offload", PLACEMENTS[placement],
+                      use_fused_kernel)
+    b = batch_for_step(DataConfig(vocab=te.cfg.vocab, seq_len=32,
+                                  global_batch=2), 0)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    jloss, jgrads = je.grad_step(je.params, jb)
+    te.grad_step = lambda params, batch: (
+        torch.tensor(float(jloss)), tree_to_torch(jgrads))
+    jt, t = je.train_step(jb), te.train_step(b)
+    assert t.loss == pytest.approx(jt.loss, abs=1e-6)
+    for name in ("master", "m", "v"):
+        want = _state(je, name)
+        got = gather_pytree(getattr(te, name))
+        for path, w in jax.tree_util.tree_leaves_with_path(want):
+            assert_close(_leaf(got, path), w, dict(rtol=1e-5, atol=1e-6))
+    # fp32 params are the masters; a bf16 param may round one ulp apart
+    for path, w in jax.tree_util.tree_leaves_with_path(je.params):
+        assert_close(_leaf(te.params, path), w,
+                     dict(rtol=1e-5, atol=1e-6) if w.dtype == jnp.float32
+                     else dict(rtol=1e-2, atol=1e-6))
+
+
+@pytest.mark.parametrize("placement", ["interleave_all", "ldram+cxl"])
+def test_engine_places_state_across_kinds(placement):
+    """The reference's interleave-all test, and LDRAM+CXL: the state is
+    split over the kinds of the placement, in the reference's bytes."""
+    je, te = _engines("llama3-8b", PLACEMENTS[placement])
+    b = batch_for_step(DataConfig(vocab=te.cfg.vocab, seq_len=32,
+                                  global_batch=2), 0)
+    assert np.isfinite(te.train_step(b).loss)
+    for kind in ("device", "pinned_host", "unpinned_host"):
+        assert te.opt_state_bytes_on(kind) == je.opt_state_bytes_on(kind)
+    assert te.opt_state_bytes_on("device") > 0
+    other = "pinned_host" if placement == "interleave_all" \
+        else "unpinned_host"
+    assert te.opt_state_bytes_on(other) > 0
+
+
+def test_engine_reuses_its_grad_buffers_and_state_blocks():
+    _, _, cfg, params = _models("gpt2-xl-offload", False)
+    te = ZeroOffloadEngine(cfg, params, device="cpu")
+    ptrs = [b.data_ptr() for t in (te.grads_host, te.master, te.m, te.v)
+            for leaf in pytree.tree_leaves(t) for b in leaf.blocks]
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2)
+    for step in range(2):
+        te.train_step(batch_for_step(dc, step))
+    assert ptrs == [b.data_ptr()
+                    for t in (te.grads_host, te.master, te.m, te.v)
+                    for leaf in pytree.tree_leaves(t) for b in leaf.blocks]
+
+
+def test_engine_emits_fig9_traffic_per_step():
+    class Trace:
+        def __init__(self):
+            self.events, self.epochs = [], 0
+
+        def observe(self, obj, read, write, t, phase):
+            self.events.append((obj, read, write, phase))
+
+        def advance_epoch(self):
+            self.epochs += 1
+
+    _, _, cfg, params = _models("llama3-8b", False)
+    trace = Trace()
+    te = ZeroOffloadEngine(cfg, params, telemetry=trace, device="cpu")
+    te.train_step(batch_for_step(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                            global_batch=2), 0))
+    pb = sum(p.nbytes for p in pytree.tree_leaves(te.params))
+    assert trace.epochs == 1
+    assert [e[3] for e in trace.events] == ["fwd_bwd", "grad_xfer",
+                                            "optimizer", "param_xfer"]
+    assert trace.events[2][1:3] == (6 * pb, 6 * pb)
+
+
+def test_gpt2_xl_offload_config_copy_matches_reference():
+    from repro.configs import get_config as jget
+    assert dataclasses.asdict(get_config("gpt2-xl-offload")) == \
+        dataclasses.asdict(jget("gpt2-xl-offload"))
+    # 1.56 B parameters: 12 bytes each of fp32 master + m + v
+    assert get_config("gpt2-xl-offload").param_count() == \
+        jget("gpt2-xl-offload").param_count()
