@@ -8,12 +8,16 @@ NVIDIA Hopper GPU.
 Phases, in order; any failure exits non-zero:
 
 1. print the card's name and power limit (``nvidia-smi``), build the
-   CUDA kernels from ``src/repro_torch/csrc`` and print the build time;
+   CUDA kernels from ``src/repro_torch/csrc``, print the build time and
+   count each library's tensor-core (``HMMA``), ``ldmatrix`` (``LDSM``)
+   and ``cp.async`` (``LDGSTS``) instructions in its SASS (``cuobjdump``);
 2. kernels: each kernel against its plain PyTorch version on the card.
    The three attention kernels run at the serving shapes of llama3-8b
    (32 heads, 8 KV heads) and of qwen3-moe-30b-a3b (32 heads, 4 KV
-   heads), over ragged lengths (0, 15, 16, 17 and long), shared pool
-   blocks and a ragged prefill length; q and k have std ``QK_STD``, so
+   heads), over ragged lengths (0, 15, 16, 17, the paged kernel's
+   64-token split edges and long), shared pool blocks and ragged prefill
+   lengths (17, 256, 300, 512 and 2048, where operations bind; L 2048 is
+   timed beside SDPA on a line of its own); q and k have std ``QK_STD``, so
    the softmax is peaked and the outputs are O(1).  ``fused_expert_ffn``
    runs at qwen3-moe-30b-a3b's decode shapes (batch 4, d_model 2048,
    expert d_ff 768, 128 experts, top-8) on router-like ids, with one
@@ -81,6 +85,7 @@ import functools
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -238,15 +243,19 @@ def attention_kernels(dev, gen, KV: int) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.tiered_gather import paged_decode_attention
+    from repro_torch.kernels.tiered_gather import (H100_SMS,
+                                                   paged_decode_attention,
+                                                   split_plan)
 
     rnd = functools.partial(randn_bf16, gen)
 
     out = {}
     tag = f"KV={KV}"
     # cached lengths per decode row (the engine's ``lengths``): block
-    # edges, an empty row, and the main path's longest contexts
-    ragged = [[0, 15, 16, 17], [543, 287, 16, 1], [543, 543, 542, 0]]
+    # edges, an empty row, the main path's longest contexts, the paged
+    # kernel's split edges (64 tokens a split) and a full table
+    ragged = [[0, 15, 16, 17], [543, 287, 16, 1], [543, 543, 542, 0],
+              [63, 64, 65, S_PAD - 1]]
     timed = [543, 287, 543, 287]       # the serve phases' last step
 
     # -- decode_attention (staged path: kv_len = lengths + 1) --------- #
@@ -309,7 +318,12 @@ def attention_kernels(dev, gen, KV: int) -> dict:
              < kv_len[:, None, None, None] + 1)
     t_b, by = bound(2 * live * KV * HD * 2 + t.numel() * 4
                     + 2 * B * H * HD * 2 + 4 * B, 4 * live * H * HD)
+    T, n_split = split_plan(NB, BT, B, KV)
+    if B * KV * n_split < H100_SMS:
+        fail(f"paged_decode_attention {tag}: pass 1 has only "
+             f"{B * KV * n_split} blocks")
     out["paged_decode_attention"] = dict(
+        split_tokens=T, n_split=n_split, pass1_blocks=B * KV * n_split,
         max_abs_err=err,
         ms=time_ms(lambda: paged_decode_attention(
             q, kp, vp, t, kv_len, kn, vn, block_tokens=BT)),
@@ -345,6 +359,22 @@ def attention_kernels(dev, gen, KV: int) -> dict:
                         cold=False),
         plain_ms=time_ms(lambda: ref.flash_attention(qq, kk, vv,
                                                      causal=True)),
+        library_ms=time_ms(sdpa(qt, ktt, vtt, is_causal=True)),
+        bound_ms=t_b, bound_by=by)
+
+    # -- flash_attention at L = 2048, where operations bind ------------ #
+    L = 2048
+    qq, kk = rnd(1, L, H, HD, std=QK_STD), rnd(1, L, KV, HD, std=QK_STD)
+    vv = rnd(1, L, KV, HD)
+    qt, ktt, vtt = (x.transpose(1, 2) for x in (qq, kk, vv))
+    err = compare(f"flash_attention {tag} L={L}",
+                  flash_attention(qq, kk, vv, causal=True),
+                  ref.flash_attention(qq, kk, vv, causal=True))
+    t_b, by = bound((2 * L * H * HD + 2 * L * KV * HD) * 2,
+                    4 * H * HD * L * (L + 1) / 2)
+    out["flash_attention"]["L2048"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: flash_attention(qq, kk, vv, causal=True)),
         library_ms=time_ms(sdpa(qt, ktt, vtt, is_causal=True)),
         bound_ms=t_b, bound_by=by)
     return out
@@ -519,6 +549,13 @@ def kernel_phase(dev, gen) -> dict:
             f"plain_ms={row['plain_ms']:.4f} library_ms="
             + ("none" if lib is None else f"{lib:.4f}")
             + f" bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+        if "n_split" in row:
+            log(f"  {name}: pass 1 grid (KV, B, {row['n_split']}) = "
+                f"{row['pass1_blocks']} blocks of {row['split_tokens']} "
+                "tokens")
+    long = {name: row["L2048"] for name, row in rows.items()
+            if "L2048" in row}
+    log("flash_attention at L=2048 (cold): " + json.dumps(long))
     return rows
 
 
@@ -694,6 +731,8 @@ def profile_phase(cfg, params) -> dict:
     share of the run's wall time."""
     from torch.profiler import profile, ProfilerActivity
     groups = (("port kernels", ("decode_attention_kernel",
+                                "paged_decode_split_kernel",
+                                "paged_decode_merge_kernel",
                                 "flash_attention_kernel",
                                 "expert_up_kernel", "expert_down_kernel")),
               ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet",
@@ -723,16 +762,20 @@ def profile_phase(cfg, params) -> dict:
             continue
         cats = {name: 0.0 for name, _ in groups}
         cats["other"] = 0.0
-        for key, sec, _ in rows:
+        port = []
+        for key, sec, n in rows:
             low = key.lower()
-            name = next((n for n, keys in groups
+            name = next((g for g, keys in groups
                          if any(k in low for k in keys)), "other")
             cats[name] += sec
+            if name == "port kernels":
+                port.append((key, sec, n))
         rows.sort(key=lambda r: -r[1])
         out[label] = {"wall_s": wall, "device_busy_s": busy,
                       "device_idle_share": 1.0 - busy / wall,
                       "iterations": eng._step,
-                      "categories_s": cats, "top": rows[:15]}
+                      "categories_s": cats, "top": rows[:15],
+                      "port_kernels": port}
         log(f"profile {cfg.name} {label}: wall={wall:.3f} s "
             f"device_busy={busy:.3f} s "
             f"idle_share={1.0 - busy / wall:.3f} "
@@ -740,6 +783,8 @@ def profile_phase(cfg, params) -> dict:
             + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in cats.items()))
         for key, sec, n in rows[:8]:
             log(f"  {sec * 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
+        for key, sec, n in port:
+            log(f"  port kernel {sec * 1e3:8.3f} ms  {n:6d}x  {key[:70]}")
     return out
 
 
@@ -920,6 +965,28 @@ def train_model(arch: str) -> dict:
     return out
 
 
+def sass_counts(libs: dict) -> dict:
+    """Per kernel library: how many tensor-core mma (``HMMA``), ldmatrix
+    (``LDSM``), ``cp.async`` (``LDGSTS``) and fp32 FMA (``FFMA``)
+    instructions its SASS holds, over all its instantiations
+    (``cuobjdump -sass``); None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.is_file():
+        log("cuobjdump not found: SASS not counted")
+        return {name: None for name in libs}
+    out = {}
+    for name, path in libs.items():
+        sass = subprocess.run([str(tool), "-sass", str(path)],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        out[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                     for op in ("HMMA", "LDSM", "LDGSTS", "FFMA")}
+        log(f"  sass {name}: " + " ".join(f"{k}={v}"
+                                         for k, v in out[name].items()))
+    return out
+
+
 def memory() -> str:
     return (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device "
             f"(peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
@@ -951,7 +1018,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    record = {"card": card, "build_log": build.build_log}
+    record = {"card": card, "build_log": build.build_log,
+              "sass": sass_counts(libs)}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")

@@ -27,6 +27,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
 // N consecutive bf16 values (N = 2 or 4, 4- or 8-byte aligned) to fp32.
 template <int N>
 __device__ __forceinline__ void load_bf16(const bf16* __restrict__ p,
@@ -44,6 +51,40 @@ __device__ __forceinline__ void load_bf16(const bf16* __restrict__ p,
         *reinterpret_cast<const __nv_bfloat162*>(p));
     out[0] = a.x; out[1] = a.y;
   }
+}
+
+// N consecutive fp32 values (N = 2 or 4, 8- or 16-byte aligned).
+template <int N>
+__device__ __forceinline__ void load_f32(const float* __restrict__ p,
+                                         float (&out)[N]) {
+  static_assert(N == 2 || N == 4, "load_f32 takes 2 or 4 values");
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x; out[1] = x.y;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with ok false, 16 zero bytes (nothing read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace repro

@@ -37,10 +37,10 @@ _ARGTYPES = {
     # q, k, v, kv_len, out, B, H, KV, S, HD, scale, stream
     "decode_attention_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_void_p],
-    # q, k_pool, v_pool, tbl, kv_len, k_new, v_new, out,
-    # B, H, KV, nb, bt, HD, scale, stream
-    "paged_decode_attention_bf16": [ctypes.c_void_p] * 8
-    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+    # q, k_pool, v_pool, tbl, kv_len, k_new, v_new, out, m_part, l_part,
+    # acc_part, B, H, KV, nb, bt, HD, T, n_split, scale, stream
+    "paged_decode_attention_bf16": [ctypes.c_void_p] * 11
+    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
     # q, k, v, out, B, Sq, Sk, H, KV, HD, causal, scale, stream
     "flash_attention_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],

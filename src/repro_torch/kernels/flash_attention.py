@@ -6,20 +6,24 @@ Replaces ``repro/kernels/flash_attention.py`` (``flash_attention_bh`` /
 reference prefill calls pure-JAX ``chunked_attention``; the port's
 prefill (``models/lm.py``) calls this kernel on CUDA.
 
-Bound on the H100: bytes at the main path's prompt lengths.  Causal
-attention over ``L`` rows does about ``2 * L * (L + 1) * H * hd`` FLOP
-against ``(2 * L * H + 2 * L * KV) * hd * 2`` bytes in and out; at
-llama3-8b's 32 heads and 8 KV heads the bf16 peak (989 TFLOP/s) and the
-memory rate (3.35 TB/s) give equal times near ``L = 737``, so prompts
-of 512 are bound by bytes and longer ones by operations.
+Bound on the H100: causal attention over ``L`` rows does about
+``2 * L * (L + 1) * H * hd`` FLOP against ``(2 * L * H + 2 * L * KV) *
+hd * 2`` bytes in and out.  At llama3-8b's 32 heads and 8 KV heads,
+``L = 512`` (the main path's longest prompt) is bound by bytes (10.5 MB,
+3.1 us at 3.35 TB/s, against 2.2 us of bf16 tensor-core work) and
+``L = 2048`` by operations (34.4 GFLOP, 35 us at 989 TFLOP/s).
 
-Design: one thread block per (32-row query tile, batch * head), a loop
-over 32-row K/V tiles staged in shared memory that stops at the
-diagonal, fp32 online softmax in registers; GQA reads KV head
+Design: FlashAttention-2 on the tensor cores (``mma.sync.m16n8k16``,
+bf16 in, fp32 accumulate).  A block of 4 warps takes 64 query rows of
+one (batch, head) and loops over 64-key tiles, stopping at the diagonal;
+Q stays in registers, K and V arrive through a 2-stage ``cp.async``
+ring in swizzled shared memory and reach the products by ``ldmatrix``
+(``.trans`` for V).  The online softmax runs in fp32 on the score
+accumulators, which become P's operand fragments in registers; P is
+split into two bf16 terms (``hi + lo``) so that P V keeps P to 2^-17.
+Causal query tiles launch heaviest first.  GQA reads KV head
 ``h // (H // KV)`` in place of the reference wrapper's repeat, and the
-kernel masks ragged ``Sq``/``Sk`` itself.  Known weakness, left for a
-later version: the products run on the fp32 FMA units, not the bf16
-tensor cores.
+kernel masks ragged ``Sq``/``Sk`` itself.
 """
 from __future__ import annotations
 

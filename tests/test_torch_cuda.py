@@ -17,7 +17,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fused_adam import fused_adam  # noqa: E402
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
-    fused_expert_ffn, paged_decode_attention)
+    fused_expert_ffn, paged_decode_attention, split_plan)
 
 pytestmark = pytest.mark.cuda
 # q and k of std 1.5 peak the softmax, so outputs are O(1); the
@@ -56,29 +56,126 @@ def test_decode_attention_kernel(gen, H, KV, hd):
     assert build.LAUNCHES["decode_attention"] == n + 1
 
 
-def test_paged_decode_attention_kernel(gen):
-    B, H, KV, hd, bt, nb = 3, 32, 8, 128, 16, 4
+def _paged_case(gen, B, KV, hd, nb, lens, bt=16, H=32):
+    """Pool of B * nb blocks in a random order; row 2 (when B > 2) shares
+    row 0's first half of blocks; slots past each row's blocks hold
+    block 0, as the engine pads them."""
+    num_blocks = B * nb
     q = _rnd(gen, B, H, hd, std=QK_STD)
-    kp, vp = _rnd(gen, 10, bt, KV, hd, std=QK_STD), _rnd(gen, 10, bt, KV, hd)
+    kp = _rnd(gen, num_blocks, bt, KV, hd, std=QK_STD)
+    vp = _rnd(gen, num_blocks, bt, KV, hd)
     kn, vn = _rnd(gen, B, KV, hd, std=QK_STD), _rnd(gen, B, KV, hd)
-    tbl = torch.tensor([[3, 1, 0, 0], [1, 1, 9, 2], [0, 0, 0, 0]],
-                       dtype=torch.int32, device="cuda")
-    lens = torch.tensor([20, 63, 0], dtype=torch.int32, device="cuda")
-    got = paged_decode_attention(q, kp, vp, tbl, lens, kn, vn,
+    perm = torch.randperm(num_blocks, generator=gen, device="cuda")
+    tbl = perm.reshape(B, nb).to(torch.int32).contiguous()
+    if B > 2:
+        tbl[2, :nb // 2] = tbl[0, :nb // 2]
+    for i, n in enumerate(lens):
+        tbl[i, -(-(n + 1) // bt):] = 0
+    return q, kp, vp, tbl, kn, vn
+
+
+def _split_edges(B, KV, nb, bt=16):
+    """kv_len at the split edges of ``split_plan``: 0, T - 1, T, T + 1 and
+    a full table, nb * bt - 1 (the new token takes the last slot), as
+    rows of B (one row each when B is 1)."""
+    T, _ = split_plan(nb, bt, B, KV)
+    edges = [0, T - 1, T, T + 1, nb * bt - 1]
+    if B == 1:
+        return [[n] for n in edges]
+    return [edges[i:i + B] + edges[:max(0, i + B - len(edges))]
+            for i in range(len(edges))]
+
+
+@pytest.mark.parametrize("B,KV,hd,nb,lens", [
+    # a hand-written table: repeated blocks, a padded row (kv_len 0)
+    (3, 8, 128, 4, "table"),
+    # split edges at the main path's table width, shared blocks
+    (1, 4, 128, 35, "edges"), (1, 8, 128, 35, "edges"),
+    (4, 4, 128, 35, "edges"), (4, 8, 128, 35, "edges"),
+    (4, 8, 64, 35, "edges"),
+])
+def test_paged_decode_attention_kernel(gen, B, KV, hd, nb, lens):
+    H, bt = 32, 16
+    if lens == "table":
+        q = _rnd(gen, B, H, hd, std=QK_STD)
+        kp = _rnd(gen, 10, bt, KV, hd, std=QK_STD)
+        vp = _rnd(gen, 10, bt, KV, hd)
+        kn, vn = _rnd(gen, B, KV, hd, std=QK_STD), _rnd(gen, B, KV, hd)
+        tbl = torch.tensor([[3, 1, 0, 0], [1, 1, 9, 2], [0, 0, 0, 0]],
+                           dtype=torch.int32, device="cuda")
+        cases = [([20, 63, 0], (q, kp, vp, tbl, kn, vn))]
+    else:
+        cases = [(row, _paged_case(gen, B, KV, hd, nb, row))
+                 for row in _split_edges(B, KV, nb)]
+    for row, (q, kp, vp, tbl, kn, vn) in cases:
+        kv_len = torch.tensor(row, dtype=torch.int32, device="cuda")
+        n = build.LAUNCHES["paged_decode_attention"]
+        got = paged_decode_attention(q, kp, vp, tbl, kv_len, kn, vn,
+                                     block_tokens=bt)
+        assert build.LAUNCHES["paged_decode_attention"] == n + 1
+        torch.testing.assert_close(
+            got, ref.paged_decode_attention(q, kp, vp, tbl, kv_len, kn, vn),
+            **TOL)
+
+
+def test_paged_decode_attention_reads_only_live_blocks(gen):
+    """Pad slots (block 0) and blocks past kv_len are never read: with
+    NaN in every block no row owns, the output is unchanged and finite,
+    and the kv_len 0 row returns its new token's v."""
+    B, H, KV, hd, bt, nb = 4, 32, 8, 128, 16, 35
+    lens = [0, 63, 64, 300]
+    q, kp, vp, _, kn, vn = _paged_case(gen, B, KV, hd, nb, lens)
+    # blocks 1.. in a random order, so that no row owns block 0
+    perm = torch.randperm(B * nb - 1, generator=gen, device="cuda") + 1
+    tbl = torch.zeros(B, nb, dtype=torch.int32, device="cuda")
+    live = torch.zeros(B * nb, dtype=torch.bool, device="cuda")
+    for i, n in enumerate(lens):
+        used = -(-n // bt)
+        tbl[i, :used] = perm[i * nb:i * nb + used].to(torch.int32)
+        live[tbl[i, :used].long()] = True
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    want = paged_decode_attention(q, kp, vp, tbl, kv_len, kn, vn,
+                                  block_tokens=bt)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[~live] = float("nan")
+    vp2[~live] = float("nan")
+    got = paged_decode_attention(q, kp2, vp2, tbl, kv_len, kn, vn,
                                  block_tokens=bt)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got[0], vn[0].repeat_interleave(H // KV, 0),
+                               rtol=0, atol=0)
     torch.testing.assert_close(
-        got, ref.paged_decode_attention(q, kp, vp, tbl, lens, kn, vn), **TOL)
+        want, ref.paged_decode_attention(q, kp, vp, tbl, kv_len, kn, vn),
+        **TOL)
 
 
-@pytest.mark.parametrize("Sq,Sk,H,KV,hd", [(512, 512, 32, 8, 128),
-                                           (130, 259, 4, 4, 64),
-                                           (96, 40, 8, 1, 128)])
+FLASH_LENGTHS = (1, 63, 64, 65, 127, 129, 2048)   # the 64-row tiles' edges
+
+
+@pytest.mark.parametrize("Sq,Sk,H,KV,hd", [
+    (512, 512, 32, 8, 128), (130, 259, 4, 4, 64), (96, 40, 8, 1, 128)] + [
+    (Sq, Sk, 2 * rep, 2, hd)
+    for Sq in FLASH_LENGTHS for Sk in FLASH_LENGTHS if Sq != Sk
+    for hd in (64, 128) for rep in (1, 4, 8)])
 def test_flash_attention_kernel(gen, Sq, Sk, H, KV, hd):
-    q, k = _rnd(gen, 2, Sq, H, hd, std=QK_STD), _rnd(gen, 2, Sk, KV, hd,
+    B = 1 if max(Sq, Sk) == 2048 else 2
+    q, k = _rnd(gen, B, Sq, H, hd, std=QK_STD), _rnd(gen, B, Sk, KV, hd,
                                                      std=QK_STD)
-    v = _rnd(gen, 2, Sk, KV, hd)
-    torch.testing.assert_close(flash_attention(q, k, v, causal=True),
-                               ref.flash_attention(q, k, v, causal=True),
+    v = _rnd(gen, B, Sk, KV, hd)
+    n = build.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=True)
+    assert build.LAUNCHES["flash_attention"] == n + 1
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v, causal=True),
+                               **TOL)
+
+
+@pytest.mark.parametrize("Sq,hd", [(1, 128), (100, 64), (300, 128)])
+def test_flash_attention_kernel_noncausal(gen, Sq, hd):
+    q = _rnd(gen, 2, Sq, 8, hd, std=QK_STD)
+    k, v = _rnd(gen, 2, 256, 2, hd, std=QK_STD), _rnd(gen, 2, 256, 2, hd)
+    torch.testing.assert_close(flash_attention(q, k, v, causal=False),
+                               ref.flash_attention(q, k, v, causal=False),
                                **TOL)
 
 

@@ -1,6 +1,8 @@
 """Port kernels' plain versions (what the CPU runs in the kernels'
 place) against the JAX kernels, run through ``repro.kernels.ops`` in
 interpret mode, on the reference tests' shapes and edge cases."""
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -22,6 +24,7 @@ from repro_torch.kernels.tiered_gather import (  # noqa: E402
     fused_expert_ffn as expert_kernel)
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
     paged_decode_attention as paged_kernel)
+from repro_torch.kernels.tiered_gather import split_plan  # noqa: E402
 
 BF16_NP = jnp.bfloat16
 
@@ -173,6 +176,75 @@ def test_paged_decode_attention_shared_blocks_and_bf16():
     lens = np.asarray([40, 17, 5], np.int32)
     got, want = _paged_both(q, kp, vp, tbl, lens, kn, vn, bt)
     assert_close(got, want, BF16)
+
+
+@pytest.mark.parametrize("nb,bt,B,KV", [
+    (35, 16, 4, 8), (35, 16, 4, 4),          # the main path: 288, 144
+    (35, 16, 1, 8), (35, 16, 1, 4), (4, 16, 3, 8), (1, 16, 1, 1),
+    (8, 32, 2, 2), (3, 64, 2, 1), (5, 128, 4, 8), (200, 16, 16, 8),
+])
+def test_paged_split_plan(nb, bt, B, KV):
+    """The split plan of the paged kernel's pass 1: T a multiple of
+    block_tokens, n_split >= 1 splits that cover the table and none that
+    starts past it, and at least one block per SM (132) unless each
+    split is already one pool block."""
+    T, n_split = split_plan(nb, bt, B, KV)
+    assert n_split >= 1 and T >= bt and T % bt == 0
+    assert (n_split - 1) * T < nb * bt <= n_split * T
+    assert B * KV * n_split >= 132 or T == bt
+    if (nb, bt, B) == (35, 16, 4):
+        assert B * KV * n_split >= 132 and (T, n_split) == (64, 9)
+
+
+def _flash_tiles(q, k, v, split_p: bool, block_k: int = 64):
+    """The CUDA flash kernel's arithmetic, in PyTorch: 64-key tiles,
+    scores in log2 units, fp32 running max and sum, and P rounded to
+    bf16 as the operand of P V, either once or as hi + lo."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    kf = k.repeat_interleave(rep, 2).float()
+    vf = v.repeat_interleave(rep, 2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) \
+        * (math.log2(math.e) / math.sqrt(hd))
+    causal = torch.arange(S)[None, :] <= torch.arange(S)[:, None]
+    s = torch.where(causal, s, torch.full_like(s, -1e30))
+    m = torch.full(s.shape[:3], -1e30)
+    l = torch.zeros(s.shape[:3])
+    o = torch.zeros(B, H, S, hd)
+    for k0 in range(0, S, block_k):
+        st = s[..., k0:k0 + block_k]
+        mx = torch.maximum(m, st.max(-1).values)
+        c, p = torch.exp2(m - mx), torch.exp2(st - mx[..., None])
+        l = l * c + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = hi + (p - hi).bfloat16().float() if split_p else hi
+        o = o * c[..., None] + torch.einsum("bhqk,bkhd->bhqd", pv,
+                                            vf[:, k0:k0 + block_k])
+        m = mx
+    return (o / l[..., None]).permute(0, 2, 1, 3).bfloat16()
+
+
+@pytest.mark.parametrize("KV", [8, 4])
+def test_flash_p_operand_needs_two_bf16_terms(KV):
+    """Why the flash kernel splits P into bf16 hi + lo: at the main path's
+    geometry (L 512, 32 heads) and the card check's inputs (q, k of std
+    1.5) and tolerance (2e-3 + 1.6e-2 relative), a single bf16 P puts
+    outputs outside it on some of four draws, and hi + lo keeps every
+    output of every draw within half of it."""
+    L, H, hd = 512, 32, 128
+    worst = {False: 0.0, True: 0.0}
+    for seed in range(4):
+        rs = np.random.RandomState(seed)
+        q = normal(rs, (1, L, H, hd), 1.5)
+        k, v = normal(rs, (1, L, KV, hd), 1.5), normal(rs, (1, L, KV, hd))
+        q, k, v = (to_torch(x).bfloat16() for x in (q, k, v))
+        want = ref.flash_attention(q, k, v, causal=True).float()
+        tol = 2e-3 + 1.6e-2 * want.abs()
+        for split in worst:
+            err = (_flash_tiles(q, k, v, split).float() - want).abs()
+            worst[split] = max(worst[split], (err / tol).max().item())
+    assert worst[True] < 0.5
+    assert worst[False] > 1.0
 
 
 # -------------------------- fused expert FFN --------------------------- #
