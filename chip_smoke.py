@@ -14,11 +14,16 @@ Phases, in order; any failure exits non-zero:
 2. kernels: each kernel against its plain PyTorch version on the card.
    The three attention kernels run at the serving shapes of llama3-8b
    (32 heads, 8 KV heads) and of qwen3-moe-30b-a3b (32 heads, 4 KV
-   heads), over ragged lengths (0, 15, 16, 17, the paged kernel's
-   64-token split edges and long), shared pool blocks and ragged prefill
-   lengths (17, 256, 300, 512 and 2048, where operations bind; L 2048 is
-   timed beside SDPA on a line of its own); q and k have std ``QK_STD``, so
-   the softmax is peaked and the outputs are O(1).  ``fused_expert_ffn``
+   heads), over ragged lengths (0, 15, 16, 17, the decode kernels'
+   64-token split edges and long; a raw kv_len of 0 for the contiguous
+   kernel, whose reference then averages V over the whole cache),
+   shared pool blocks and ragged prefill lengths (17, 256, 300, 512 and
+   2048, where operations bind; L 2048 is timed beside SDPA on a line of
+   its own); q and k have std ``QK_STD``, so the softmax is peaked and
+   the outputs are O(1).  Each split-KV decode kernel's row gives the
+   pass-1 plan its wrapper computes (``split_tokens``, ``n_split``,
+   ``pass1_blocks``), and the run fails if that plan has fewer blocks
+   than an H100's 132 SMs.  ``fused_expert_ffn``
    runs at qwen3-moe-30b-a3b's decode shapes (batch 4, d_model 2048,
    expert d_ff 768, 128 experts, top-8) on router-like ids, with one
    duplicated expert and one padded row, x of std 1 and weights at their
@@ -27,7 +32,10 @@ Phases, in order; any failure exits non-zero:
    that drops a tile of keys, a slot or a column tile fails.  Each
    kernel, its plain version and, where one exists, one PyTorch library
    call of the same function are timed with CUDA events, each call
-   after a write that evicts the L2 (the regime of the bytes bound);
+   after a write that evicts the L2 (the regime of the bytes bound):
+   ``ms`` and ``library_ms``; ``device_ms`` and ``library_device_ms``
+   time the same calls with a spin on the card after the write, so the
+   wrapper's host time is hidden and the card's time alone is read;
 3. small references: a small dense model and a small MoE model with
    head_dim 128, each served on the card (kernels) and on the CPU (plain
    versions) from the same weights — the greedy tokens must agree, up
@@ -103,6 +111,7 @@ ATOL, RTOL = 2e-3, 1.6e-2   # kernel vs plain: >= two bf16 ulps, relative
 NEAR_TIE = 0.1         # top-2 logit margin under which a flip is a tie
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 L2_FLUSH_BYTES = 256 << 20     # written before each timed call (L2: 50 MB)
+LEAD_CYCLES = 200_000          # card spin for device_ms (~0.1 ms)
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 peak outside the tensor cores
 SEED = 0
@@ -159,11 +168,18 @@ def fail(msg: str) -> None:
 _flush: list = []
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = True) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = True,
+            lead: bool = False) -> float:
     """ms per call of ``fn``.  Cold (default): the median over calls that
     each follow a write of ``L2_FLUSH_BYTES``, so the inputs come from
     device memory as in the serve path.  Warm: the mean over calls back
-    to back on the same inputs, which stay in the L2."""
+    to back on the same inputs, which stay in the L2.
+
+    A cold call's events span whatever host time of ``fn`` the write
+    (~85 us on the card) does not hide.  ``lead`` adds a spin of
+    ``LEAD_CYCLES`` on the card after the write, which keeps the host
+    ahead of the card, so the events span the card's time alone: the
+    ``device_ms`` readings, kept beside ``ms`` and not in its place."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -183,6 +199,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = True) -> float:
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for start, end in events:
         _flush[0].zero_()
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -235,6 +253,19 @@ def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def cold_times(fn, library) -> dict:
+    """Cold times of a kernel's wrapper ``fn`` and of the ``library``
+    closure (None where no single PyTorch call computes the function):
+    ``ms`` and ``library_ms`` as ``time_ms`` reads them by default,
+    ``device_ms`` and ``library_device_ms`` with its ``lead``."""
+    times = dict(ms=time_ms(fn), device_ms=time_ms(fn, lead=True),
+                 library_ms=None, library_device_ms=None)
+    if library is not None:
+        times.update(library_ms=time_ms(library),
+                     library_device_ms=time_ms(library, lead=True))
+    return times
+
+
 # ---------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions                           #
 # ---------------------------------------------------------------------- #
@@ -243,9 +274,7 @@ def attention_kernels(dev, gen, KV: int) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.tiered_gather import (H100_SMS,
-                                                   paged_decode_attention,
-                                                   split_plan)
+    from repro_torch.kernels.tiered_gather import paged_decode_attention
 
     rnd = functools.partial(randn_bf16, gen)
 
@@ -258,14 +287,16 @@ def attention_kernels(dev, gen, KV: int) -> dict:
               [63, 64, 65, S_PAD - 1]]
     timed = [543, 287, 543, 287]       # the serve phases' last step
 
-    # -- decode_attention (staged path: kv_len = lengths + 1) --------- #
+    # -- decode_attention (staged path: kv_len = lengths + 1; and one
+    #    raw row with kv_len 0: uniform weights over the whole cache) -- #
     q = rnd(B, H, HD, std=QK_STD)
     kc, vc = rnd(B, S_PAD, KV, HD, std=QK_STD), rnd(B, S_PAD, KV, HD)
     err = 0.0
-    for lens in ragged + [timed]:
-        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev) + 1
+    for lens, plus in [(lens, 1) for lens in ragged + [timed]] \
+            + [(ragged[0], 0)]:
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev) + plus
         err = max(err, compare(
-            f"decode_attention {tag} lens={lens}",
+            f"decode_attention {tag} kv_len={kv_len.tolist()}",
             decode_attention(q, kc, vc, kv_len),
             ref.decode_attention(q, kc, vc, kv_len)))
     kv_len = torch.tensor(timed, dtype=torch.int32, device=dev) + 1
@@ -276,12 +307,12 @@ def attention_kernels(dev, gen, KV: int) -> dict:
     t_b, by = bound(2 * live * KV * HD * 2 + 2 * B * H * HD * 2 + 4 * B,
                     4 * live * H * HD)
     out["decode_attention"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: decode_attention(q, kc, vc, kv_len)),
+        max_abs_err=err, **cold_times(
+            lambda: decode_attention(q, kc, vc, kv_len),
+            sdpa(q[:, :, None], kt, vt, attn_mask=mask)),
         warm_ms=time_ms(lambda: decode_attention(q, kc, vc, kv_len),
                         cold=False),
         plain_ms=time_ms(lambda: ref.decode_attention(q, kc, vc, kv_len)),
-        library_ms=time_ms(sdpa(q[:, :, None], kt, vt, attn_mask=mask)),
         bound_ms=t_b, bound_by=by)
 
     # -- paged_decode_attention (fused path) -------------------------- #
@@ -318,23 +349,17 @@ def attention_kernels(dev, gen, KV: int) -> dict:
              < kv_len[:, None, None, None] + 1)
     t_b, by = bound(2 * live * KV * HD * 2 + t.numel() * 4
                     + 2 * B * H * HD * 2 + 4 * B, 4 * live * H * HD)
-    T, n_split = split_plan(NB, BT, B, KV)
-    if B * KV * n_split < H100_SMS:
-        fail(f"paged_decode_attention {tag}: pass 1 has only "
-             f"{B * KV * n_split} blocks")
     out["paged_decode_attention"] = dict(
-        split_tokens=T, n_split=n_split, pass1_blocks=B * KV * n_split,
-        max_abs_err=err,
-        ms=time_ms(lambda: paged_decode_attention(
-            q, kp, vp, t, kv_len, kn, vn, block_tokens=BT)),
+        max_abs_err=err, **cold_times(
+            lambda: paged_decode_attention(q, kp, vp, t, kv_len, kn, vn,
+                                           block_tokens=BT),
+            # SDPA over the cache staged beforehand: the attention
+            # alone, without the gather the kernel does itself
+            sdpa(q[:, :, None], staged_k, staged_v, attn_mask=pmask)),
         warm_ms=time_ms(lambda: paged_decode_attention(
             q, kp, vp, t, kv_len, kn, vn, block_tokens=BT), cold=False),
         plain_ms=time_ms(lambda: ref.paged_decode_attention(
             q, kp, vp, t, kv_len, kn, vn)),
-        # SDPA over the cache staged beforehand: the attention alone,
-        # without the gather the kernel does itself
-        library_ms=time_ms(sdpa(q[:, :, None], staged_k, staged_v,
-                                attn_mask=pmask)),
         bound_ms=t_b, bound_by=by)
 
     # -- flash_attention (prefill) ------------------------------------ #
@@ -353,13 +378,13 @@ def attention_kernels(dev, gen, KV: int) -> dict:
     t_b, by = bound((2 * L * H * HD + 2 * L * KV * HD) * 2,
                     4 * H * HD * L * (L + 1) / 2)
     out["flash_attention"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: flash_attention(qq, kk, vv, causal=True)),
+        max_abs_err=err, **cold_times(
+            lambda: flash_attention(qq, kk, vv, causal=True),
+            sdpa(qt, ktt, vtt, is_causal=True)),
         warm_ms=time_ms(lambda: flash_attention(qq, kk, vv, causal=True),
                         cold=False),
         plain_ms=time_ms(lambda: ref.flash_attention(qq, kk, vv,
                                                      causal=True)),
-        library_ms=time_ms(sdpa(qt, ktt, vtt, is_causal=True)),
         bound_ms=t_b, bound_by=by)
 
     # -- flash_attention at L = 2048, where operations bind ------------ #
@@ -373,10 +398,30 @@ def attention_kernels(dev, gen, KV: int) -> dict:
     t_b, by = bound((2 * L * H * HD + 2 * L * KV * HD) * 2,
                     4 * H * HD * L * (L + 1) / 2)
     out["flash_attention"]["L2048"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: flash_attention(qq, kk, vv, causal=True)),
-        library_ms=time_ms(sdpa(qt, ktt, vtt, is_causal=True)),
+        max_abs_err=err, **cold_times(
+            lambda: flash_attention(qq, kk, vv, causal=True),
+            sdpa(qt, ktt, vtt, is_causal=True)),
         bound_ms=t_b, bound_by=by)
+    return out
+
+
+def split_plans(KV: int) -> dict:
+    """The pass-1 plan of each split-KV decode kernel at the main path's
+    shapes and ``KV`` KV heads: the plan call its wrapper makes, with
+    the SM count it reads (the plan, not a readback of the launch).
+    Fails below one pass-1 block per SM of an H100."""
+    from repro_torch.kernels._launch import H100_SMS, sm_count, split_plan
+    from repro_torch.kernels.decode_attention import decode_split_plan
+    sms = sm_count(torch.cuda.current_device())
+    plans = {"decode_attention": decode_split_plan(S_PAD, B, KV, sms),
+             "paged_decode_attention": split_plan(NB, BT, B, KV, sms)}
+    out = {}
+    for name, (T, n_split) in plans.items():
+        if B * KV * n_split < H100_SMS:
+            fail(f"{name} KV={KV}: pass 1 has only {B * KV * n_split} "
+                 "blocks")
+        out[name] = dict(split_tokens=T, n_split=n_split,
+                         pass1_blocks=B * KV * n_split)
     return out
 
 
@@ -407,12 +452,12 @@ def expert_kernel(dev, gen) -> dict:
     t_b, by = bound(distinct * 3 * D * F * 2 + 2 * B * D * 2 + 8 * B * K,
                     B * K * 6 * D * F)
     return dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: fused_expert_ffn(x, wg, wu, wd, ids, wts)),
+        max_abs_err=err, **cold_times(
+            lambda: fused_expert_ffn(x, wg, wu, wd, ids, wts),
+            None),             # no single PyTorch call routes top-k
         warm_ms=time_ms(lambda: fused_expert_ffn(x, wg, wu, wd, ids, wts),
                         cold=False),
         plain_ms=time_ms(lambda: ref.expert_ffn(x, wg, wu, wd, ids, wts)),
-        library_ms=None,       # no single PyTorch call routes top-k
         bound_ms=t_b, bound_by=by, distinct_experts=distinct)
 
 
@@ -535,8 +580,10 @@ def kernel_phase(dev, gen) -> dict:
     serve or train phases run it."""
     rows = {}
     for arch, KV in MODELS.items():
+        plans = split_plans(KV)
         for name, row in attention_kernels(dev, gen, KV).items():
-            rows[f"{name}@KV{KV}"] = dict(row, kernel=name, model=arch)
+            rows[f"{name}@KV{KV}"] = dict(row, **plans.get(name, {}),
+                                          kernel=name, model=arch)
     rows["fused_expert_ffn"] = dict(expert_kernel(dev, gen),
                                     kernel="fused_expert_ffn",
                                     model="qwen3-moe-30b-a3b")
@@ -549,6 +596,11 @@ def kernel_phase(dev, gen) -> dict:
             f"plain_ms={row['plain_ms']:.4f} library_ms="
             + ("none" if lib is None else f"{lib:.4f}")
             + f" bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+        if "device_ms" in row:
+            dlib = row["library_device_ms"]
+            log(f"  {name}: device_ms={row['device_ms']:.4f} "
+                "library_device_ms="
+                + ("none" if dlib is None else f"{dlib:.4f}"))
         if "n_split" in row:
             log(f"  {name}: pass 1 grid (KV, B, {row['n_split']}) = "
                 f"{row['pass1_blocks']} blocks of {row['split_tokens']} "
@@ -730,7 +782,8 @@ def profile_phase(cfg, params) -> dict:
     256, 8 new tokens); device time by category and the device's idle
     share of the run's wall time."""
     from torch.profiler import profile, ProfilerActivity
-    groups = (("port kernels", ("decode_attention_kernel",
+    groups = (("port kernels", ("decode_split_kernel",
+                                "decode_merge_kernel",
                                 "paged_decode_split_kernel",
                                 "paged_decode_merge_kernel",
                                 "flash_attention_kernel",

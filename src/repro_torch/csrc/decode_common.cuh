@@ -1,40 +1,29 @@
 // GQA decode attention bodies shared by the contiguous-cache kernel
 // (decode_attention.cu) and the paged-pool kernel
 // (paged_decode_attention.cu).  Bound on the H100: device-memory bytes
-// (the K/V rows), at about one FMA per byte.
+// (the live K/V rows), at about one FMA per byte, so what matters is
+// the whole card busy with many bytes in flight, not the tensor cores.
 //
-// decode_body (decode_attention.cu): one thread block per (KV head,
-// sequence) serves that KV head's REP query heads, so each K/V row is
-// read from device memory once (the grouping the TPU kernel does with
-// its (KV, rep) layout).  The TPU grid's sequential kv axis becomes a
-// loop inside the block: each of the kDecodeWarps warps walks every
-// kDecodeWarps-th group of kDecodeUnroll tokens and keeps its own fp32
-// online-softmax state (m, l, acc) per query head; a lane holds HD/32
-// consecutive channels of q, k, v and acc, and a score is one warp-wide
-// shuffle sum.  At the end the warps' states are merged through shared
-// memory.  Weakness kept for now: only B * KV blocks (32 at llama3-8b,
-// batch 4) for 132 SMs, each with few bytes in flight.
-//
-// split_partial_body + split_merge_body (paged_decode_attention.cu; the
-// contiguous kernel can take them later through ContiguousRows): the
-// split-KV ("flash-decoding") form.  Pass 1 runs a grid (KV, B, n_split)
-// in which each block takes T consecutive tokens of one sequence for one
-// KV head: it starts every K and V row of its split at once with 16-byte
-// cp.async copies into shared memory, before any math, then writes its
-// REP heads' partial (m, l, acc) in fp32 to scratch.  Pass 2 merges a
-// row's partials with the usual max correction and folds the step's new
-// token in.  A split past the row's length writes the empty partial
+// Both kernels take the split-KV ("flash-decoding") form, two kernels
+// behind one C call.  Pass 1 (split_partial_body) runs a grid (KV, B,
+// n_split) in which each block takes T consecutive tokens of one
+// sequence for one KV head and its REP query heads, so each K/V row is
+// read from device memory once (the grouping the TPU kernels do with
+// their (KV, rep) layout): it starts every K and V row of its split at
+// once with 16-byte cp.async copies into shared memory, before any math,
+// then writes its heads' partial (m, l, acc) in fp32 to scratch.  Where
+// the TPU kernels carried (m, l, acc) along a sequential kv grid axis,
+// pass 2 (split_merge_body) merges a row's partials with the usual max
+// correction and, for the paged kernel, folds the step's new token in.
+// A split past the row's last read token writes the empty partial
 // (m = -1e30, l = 0, acc = 0) and reads nothing, so the host sizes the
-// grid from the table width alone.
+// grid from the shapes alone, with no sync on the lengths.  Rows come
+// through ContiguousRows or PagedRows.
 #pragma once
 
 #include "common.cuh"
 
 namespace repro {
-
-constexpr int kDecodeWarps = 8;
-constexpr int kDecodeUnroll = 4;
-constexpr int kDecodeThreads = kDecodeWarps * 32;
 
 // Element offset of the (b, t, kvh) row of a contiguous (B, S, KV, HD)
 // cache.
@@ -59,142 +48,6 @@ struct PagedRows {
   }
 };
 
-// q (B, H, HD); k/v rows through `rows`; positions [0, end) are read and
-// positions >= kv_len among them are masked (only the contiguous kernel
-// with kv_len == 0 reads masked positions, to keep the reference's
-// uniform-weights result).  k_new/v_new (B, KV, HD) or null: the token
-// folded in after the cached ones.  out (B, H, HD).
-template <int HD, int REP, class Rows>
-__device__ __forceinline__ void decode_body(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, Rows rows, int end, int kv_len,
-    const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
-    bf16* __restrict__ out, int H, int KV, float scale) {
-  constexpr int EPL = HD / 32;  // channels per lane
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int h0 = kvh * REP;
-
-  float qf[REP][EPL];
-#pragma unroll
-  for (int r = 0; r < REP; ++r)
-    load_bf16<EPL>(q + (static_cast<int64_t>(b) * H + h0 + r) * HD +
-                       lane * EPL, qf[r]);
-
-  float m[REP], l[REP], acc[REP][EPL];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
-  }
-
-  for (int t0 = warp * kDecodeUnroll; t0 < end;
-       t0 += kDecodeWarps * kDecodeUnroll) {
-    float kf[kDecodeUnroll][EPL], vf[kDecodeUnroll][EPL];
-#pragma unroll
-    for (int j = 0; j < kDecodeUnroll; ++j) {
-      const int t = t0 + j;
-      if (t < end) {
-        const int64_t off = rows(b, t, kvh) + lane * EPL;
-        load_bf16<EPL>(k + off, kf[j]);
-        load_bf16<EPL>(v + off, vf[j]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) kf[j][e] = vf[j][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      float s[kDecodeUnroll];
-      float mx = m[r];
-#pragma unroll
-      for (int j = 0; j < kDecodeUnroll; ++j) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) part += qf[r][e] * kf[j][e];
-        s[j] = warp_sum(part) * scale;
-        if (t0 + j >= kv_len) s[j] = kNegInf;
-        if (t0 + j < end) mx = fmaxf(mx, s[j]);
-      }
-      const float corr = expf(m[r] - mx);
-      float psum = 0.f;
-      float pv[EPL];
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) pv[e] = 0.f;
-#pragma unroll
-      for (int j = 0; j < kDecodeUnroll; ++j) {
-        const float p = (t0 + j < end) ? expf(s[j] - mx) : 0.f;
-        psum += p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) pv[e] += p * vf[j][e];
-      }
-      l[r] = l[r] * corr + psum;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[r][e] = acc[r][e] * corr + pv[e];
-      m[r] = mx;
-    }
-  }
-
-  __shared__ float sm_m[kDecodeWarps][REP];
-  __shared__ float sm_l[kDecodeWarps][REP];
-  __shared__ float sm_acc[kDecodeWarps][REP][HD];
-  __shared__ float sm_sn[REP];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    if (lane == 0) {
-      sm_m[warp][r] = m[r];
-      sm_l[warp][r] = l[r];
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][r][lane * EPL + e] = acc[r][e];
-  }
-  if (k_new != nullptr && warp == 0) {
-    float kn[EPL];
-    load_bf16<EPL>(k_new + (static_cast<int64_t>(b) * KV + kvh) * HD +
-                       lane * EPL, kn);
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      float part = 0.f;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) part += qf[r][e] * kn[e];
-      const float sn = warp_sum(part) * scale;
-      if (lane == 0) sm_sn[r] = sn;
-    }
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < REP * HD; idx += kDecodeThreads) {
-    const int r = idx / HD;
-    const int d = idx % HD;
-    float M = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) M = fmaxf(M, sm_m[w][r]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) {
-      const float c = expf(sm_m[w][r] - M);
-      L += sm_l[w][r] * c;
-      A += sm_acc[w][r][d] * c;
-    }
-    if (k_new != nullptr) {
-      const float sn = sm_sn[r];
-      const float mf = fmaxf(M, sn);
-      const float corr = expf(M - mf);
-      const float pn = expf(sn - mf);
-      const float vn = __bfloat162float(
-          v_new[(static_cast<int64_t>(b) * KV + kvh) * HD + d]);
-      L = L * corr + pn;
-      A = A * corr + pn * vn;
-    }
-    out[(static_cast<int64_t>(b) * H + h0 + r) * HD + d] =
-        __float2bfloat16(A / fmaxf(L, kMinDenom));
-  }
-}
-
 // ---- split-KV decode ------------------------------------------------- //
 constexpr int kSplitWarps = 8;
 constexpr int kSplitThreads = kSplitWarps * 32;
@@ -210,13 +63,17 @@ __host__ __device__ constexpr int split_smem_bytes(int T) {
 
 // Pass 1, block (kvh, b, split) of a (KV, B, n_split) grid: tokens
 // [split * T, split * T + T) of sequence b, cut at `end`, for KV head kvh
-// and its REP query heads.  q (B, H, HD); k/v rows through `rows`.
+// and its REP query heads.  q (B, H, HD); k/v rows through `rows`.  A
+// score at a position >= mask_len is -1e30, as the reference masks it
+// (only the contiguous kernel with kv_len <= 0 reads masked positions,
+// to keep the reference's uniform weights over the padded cache; the
+// paged kernel passes mask_len = end, which masks nothing).
 // Partials (B, H, n_split) for m and l, (B, H, n_split, HD) for acc:
 // m the split's max score, l = sum exp(s - m), acc = sum exp(s - m) v.
 template <int HD, int REP, class Rows>
 __device__ __forceinline__ void split_partial_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, Rows rows, int end, int T,
+    const bf16* __restrict__ v, Rows rows, int end, int mask_len, int T,
     float* __restrict__ m_part, float* __restrict__ l_part,
     float* __restrict__ acc_part, int H, float scale) {
   constexpr int EPL = HD / 32;   // channels per lane
@@ -274,6 +131,7 @@ __device__ __forceinline__ void split_partial_body(
 #pragma unroll
       for (int e = 0; e < EPL; ++e) part += qf[r][e] * kf[e];
       part = warp_sum(part) * scale;
+      if (t0 + t >= mask_len) part = kNegInf;
       if (lane == 0) sP[r * T + t] = part;
     }
   }
@@ -317,9 +175,10 @@ __device__ __forceinline__ void split_partial_body(
 }
 
 // Pass 2, block (i, b) of a (ceil(H / kMergeWarps), B) grid: warp w
-// merges the n_split partials of head h = i * kMergeWarps + w, folds the
-// step's new token (k_new, v_new) (B, KV, HD) in after the cached ones,
-// as decode_body's finalize does, and writes out (B, H, HD) in bf16.
+// merges the n_split partials of head h = i * kMergeWarps + w and writes
+// out (B, H, HD) in bf16.  k_new/v_new (B, KV, HD), or null: the step's
+// new token, folded in after the cached ones (paged kernel; the
+// contiguous kernel's cache already holds it).
 template <int HD, int REP>
 __device__ __forceinline__ void split_merge_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k_new,
@@ -336,15 +195,6 @@ __device__ __forceinline__ void split_merge_body(
   const int64_t row = static_cast<int64_t>(b) * H + h;
   const int64_t p0 = row * n_split;
 
-  float qf[EPL], kn[EPL];
-  load_bf16<EPL>(q + row * HD + lane * EPL, qf);
-  load_bf16<EPL>(k_new + (static_cast<int64_t>(b) * KV + kvh) * HD +
-                     lane * EPL, kn);
-  float part = 0.f;
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) part += qf[e] * kn[e];
-  const float sn = warp_sum(part) * scale;
-
   float M = kNegInf;
   for (int s = lane; s < n_split; s += 32) M = fmaxf(M, m_part[p0 + s]);
   M = warp_max(M);
@@ -360,17 +210,27 @@ __device__ __forceinline__ void split_merge_body(
 #pragma unroll
     for (int e = 0; e < EPL; ++e) A[e] += a[e] * c;
   }
-  const float mf = fmaxf(M, sn);
-  const float corr = expf(M - mf);
-  const float pn = expf(sn - mf);
-  L = L * corr + pn;
-  float vn[EPL];
-  load_bf16<EPL>(v_new + (static_cast<int64_t>(b) * KV + kvh) * HD +
-                     lane * EPL, vn);
+  if (k_new != nullptr) {
+    const int64_t nrow = (static_cast<int64_t>(b) * KV + kvh) * HD;
+    float qf[EPL], kn[EPL], vn[EPL];
+    load_bf16<EPL>(q + row * HD + lane * EPL, qf);
+    load_bf16<EPL>(k_new + nrow + lane * EPL, kn);
+    load_bf16<EPL>(v_new + nrow + lane * EPL, vn);
+    float part = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) part += qf[e] * kn[e];
+    const float sn = warp_sum(part) * scale;
+    const float mf = fmaxf(M, sn);
+    const float corr = expf(M - mf);
+    const float pn = expf(sn - mf);
+    L = L * corr + pn;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) A[e] = A[e] * corr + pn * vn[e];
+  }
 #pragma unroll
   for (int e = 0; e < EPL; ++e)
-    out[row * HD + lane * EPL + e] = __float2bfloat16(
-        (A[e] * corr + pn * vn[e]) / fmaxf(L, kMinDenom));
+    out[row * HD + lane * EPL + e] =
+        __float2bfloat16(A[e] / fmaxf(L, kMinDenom));
 }
 
 }  // namespace repro

@@ -46,8 +46,8 @@ paged_decode_split_kernel(const bf16* __restrict__ q,
                           int nb, int bt, int T, float scale) {
   const int end = max(0, min(kv_len[blockIdx.y], nb * bt));
   repro::split_partial_body<HD, REP>(
-      q, k_pool, v_pool, repro::PagedRows{tbl, nb, bt, KV, HD}, end, T,
-      m_part, l_part, acc_part, H, scale);
+      q, k_pool, v_pool, repro::PagedRows{tbl, nb, bt, KV, HD}, end, end,
+      T, m_part, l_part, acc_part, H, scale);
 }
 
 // Grid (ceil(H / kMergeWarps), B).

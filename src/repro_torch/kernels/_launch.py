@@ -1,9 +1,14 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and the split-KV plan shared by the kernel wrappers."""
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+import math
+from typing import Sequence, Tuple
 
 import torch
+
+SPLIT_TOKENS = 64     # tokens a pass-1 block takes, when the grid is full
+H100_SMS = 132
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -40,3 +45,39 @@ def lengths(kv_len, B: int, like: torch.Tensor) -> torch.Tensor:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_scratch(B: int, H: int, n_split: int, hd: int,
+                  like: torch.Tensor
+                  ) -> Tuple[torch.Tensor, int, int, int]:
+    """fp32 scratch of a split-KV decode on ``like``'s device: one
+    allocation holding the partials acc (B, H, n_split, hd), then m and
+    l (B, H, n_split), acc first so that its rows stay 16-byte aligned.
+    Returns the tensor, which the caller holds until the launch is
+    enqueued, and the m, l and acc device pointers."""
+    n = B * H * n_split
+    scratch = torch.empty(n * (hd + 2), dtype=torch.float32,
+                          device=like.device)
+    acc = scratch.data_ptr()
+    return scratch, acc + 4 * n * hd, acc + 4 * n * (hd + 1), acc
+
+
+def split_plan(nb: int, block_tokens: int, B: int, KV: int,
+               sms: int = H100_SMS) -> Tuple[int, int]:
+    """(T, n_split) of a split-KV decode's pass 1 over ``nb`` blocks of
+    ``block_tokens`` tokens per sequence (pool blocks for the paged
+    kernel, 16-token granules for the contiguous one): ``T`` tokens a
+    pass-1 block, a multiple of ``block_tokens`` (about
+    ``SPLIT_TOKENS``, fewer blocks while the (KV, B, n_split) grid would
+    have fewer than ``sms`` blocks), and ``n_split`` splits, which cover
+    ``nb * block_tokens``."""
+    per = max(1, SPLIT_TOKENS // block_tokens)   # blocks a split
+    while per > 1 and B * KV * math.ceil(nb / per) < sms:
+        per -= 1
+    return per * block_tokens, math.ceil(nb / per)

@@ -34,8 +34,9 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
           "-I", str(CSRC))
 _ARGTYPES = {
-    # q, k, v, kv_len, out, B, H, KV, S, HD, scale, stream
-    "decode_attention_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    # q, k, v, kv_len, out, m_part, l_part, acc_part, B, H, KV, S, HD, T,
+    # n_split, scale, stream
+    "decode_attention_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
     # q, k_pool, v_pool, tbl, kv_len, k_new, v_new, out, m_part, l_part,
     # acc_part, B, H, KV, nb, bt, HD, T, n_split, scale, stream

@@ -36,36 +36,13 @@ own, so an expert two tokens route to is read twice.
 """
 from __future__ import annotations
 
-import functools
 import math
-from typing import Tuple
 
 import torch
 
 from . import build
-from ._launch import lengths, require, stream_of
-
-
-SPLIT_TOKENS = 64     # tokens a pass-1 block takes, when the grid is full
-H100_SMS = 132
-
-
-def split_plan(nb: int, block_tokens: int, B: int, KV: int,
-               sms: int = H100_SMS) -> Tuple[int, int]:
-    """(T, n_split) of the paged kernel's pass 1 over a (B, nb) table:
-    ``T`` tokens a block, a multiple of ``block_tokens`` (about
-    ``SPLIT_TOKENS``, fewer pool blocks while the (KV, B, n_split) grid
-    would have fewer than ``sms`` blocks), and ``n_split`` splits, which
-    cover ``nb * block_tokens``."""
-    per = max(1, SPLIT_TOKENS // block_tokens)   # pool blocks a split
-    while per > 1 and B * KV * math.ceil(nb / per) < sms:
-        per -= 1
-    return per * block_tokens, math.ceil(nb / per)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+from ._launch import (lengths, require, sm_count, split_plan,
+                      split_scratch, stream_of)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -90,22 +67,17 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     require(k_new, "k_new", torch.bfloat16, (B, KV, hd))
     require(v_new, "v_new", torch.bfloat16, (B, KV, hd))
     lens = lengths(kv_len, B, q)
-    T, n_split = split_plan(nb, bt, B, KV, _sm_count(q.device.index))
+    T, n_split = split_plan(nb, bt, B, KV, sm_count(q.device.index))
     out = torch.empty_like(q)
-    # one fp32 scratch: acc (B, H, n_split, hd) first, so that its rows
-    # stay 16-byte aligned, then m and l (B, H, n_split)
-    n = B * H * n_split
-    scratch = torch.empty(n * (hd + 2), dtype=torch.float32,
-                          device=q.device)
-    acc_part = scratch[:n * hd]
-    m_part, l_part = scratch[n * hd:n * (hd + 1)], scratch[n * (hd + 1):]
+    # scratch stays referenced until the launch is enqueued
+    scratch, m_part, l_part, acc_part = split_scratch(B, H, n_split, hd, q)
     with torch.cuda.device(q.device):
         rc = build.load("paged_decode_attention").paged_decode_attention_bf16(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tbl.data_ptr(), lens.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), out.data_ptr(), m_part.data_ptr(),
-            l_part.data_ptr(), acc_part.data_ptr(), B, H, KV, nb, bt, hd, T,
-            n_split, 1.0 / math.sqrt(hd), stream_of(q))
+            v_new.data_ptr(), out.data_ptr(), m_part, l_part, acc_part, B,
+            H, KV, nb, bt, hd, T, n_split, 1.0 / math.sqrt(hd),
+            stream_of(q))
     build.check(rc, "paged_decode_attention")
     build.LAUNCHES["paged_decode_attention"] += 1
     return out

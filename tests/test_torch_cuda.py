@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention)
+    decode_attention, decode_split_plan)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fused_adam import fused_adam  # noqa: E402
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
@@ -42,18 +42,68 @@ def _rnd(g, *shape, std=1.0):
         torch.bfloat16)
 
 
-@pytest.mark.parametrize("H,KV,hd", [(32, 8, 128), (8, 8, 64), (16, 2, 64)])
-def test_decode_attention_kernel(gen, H, KV, hd):
-    B, S = 4, 96
+def _as_rows(edges, B):
+    """Lengths as rows of B, every edge in at least one row (one row each
+    when B is 1)."""
+    if B == 1:
+        return [[n] for n in edges]
+    return [edges[i:i + B] + edges[:max(0, i + B - len(edges))]
+            for i in range(len(edges))]
+
+
+def _decode_edges(S, B, KV):
+    """kv_len at the split edges of ``decode_split_plan``: 0 (uniform
+    weights over the cache), 1, T - 1, T, T + 1, S - 1 and S."""
+    T, _ = decode_split_plan(S, B, KV)
+    return _as_rows([0, 1, T - 1, T, T + 1, S - 1, S], B)
+
+
+@pytest.mark.parametrize("H,KV,hd,B,S,lens", [
+    # the first cases: head geometries, lengths [0, 1, 17, 96]
+    (32, 8, 128, 4, 96, "short"), (8, 8, 64, 4, 96, "short"),
+    (16, 2, 64, 4, 96, "short"),
+    # split edges at S 544 (T 64, 9 splits, as at the main path's 560)
+    *[(32, KV, hd, B, 544, "edges") for B in (1, 4) for KV in (4, 8)
+      for hd in (64, 128)],
+])
+def test_decode_attention_kernel(gen, H, KV, hd, B, S, lens):
     q, kc = _rnd(gen, B, H, hd, std=QK_STD), _rnd(gen, B, S, KV, hd,
                                                   std=QK_STD)
     vc = _rnd(gen, B, S, KV, hd)
-    kv_len = torch.tensor([0, 1, 17, 96], dtype=torch.int32, device="cuda")
-    n = build.LAUNCHES["decode_attention"]
-    got = decode_attention(q, kc, vc, kv_len)
-    torch.testing.assert_close(got, ref.decode_attention(q, kc, vc, kv_len),
+    rows = [[0, 1, 17, 96]] if lens == "short" else _decode_edges(S, B, KV)
+    for row in rows:
+        kv_len = torch.tensor(row, dtype=torch.int32, device="cuda")
+        n = build.LAUNCHES["decode_attention"]
+        got = decode_attention(q, kc, vc, kv_len)
+        assert build.LAUNCHES["decode_attention"] == n + 1
+        torch.testing.assert_close(
+            got, ref.decode_attention(q, kc, vc, kv_len), **TOL)
+
+
+def test_decode_attention_reads_only_live_rows(gen):
+    """Positions >= kv_len of a kv_len >= 1 row are never read: with NaN
+    there, the output is unchanged; a kv_len 0 row (not poisoned) keeps
+    the uniform weights, the mean of V over the whole cache."""
+    B, H, KV, hd, S = 4, 32, 8, 128, 544
+    q, kc = _rnd(gen, B, H, hd, std=QK_STD), _rnd(gen, B, S, KV, hd,
+                                                  std=QK_STD)
+    vc = _rnd(gen, B, S, KV, hd)
+    kv_len = torch.tensor([0, 63, 65, 300], dtype=torch.int32,
+                          device="cuda")
+    want = decode_attention(q, kc, vc, kv_len)
+    dead = torch.arange(S, device="cuda")[None, :] >= kv_len[:, None]
+    dead[kv_len <= 0] = False
+    kc2, vc2 = kc.clone(), vc.clone()
+    kc2[dead] = float("nan")
+    vc2[dead] = float("nan")
+    got = decode_attention(q, kc2, vc2, kv_len)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(
+        got[0].float(), vc[0].float().mean(0).repeat_interleave(H // KV, 0),
+        **TOL)
+    torch.testing.assert_close(want, ref.decode_attention(q, kc, vc, kv_len),
                                **TOL)
-    assert build.LAUNCHES["decode_attention"] == n + 1
 
 
 def _paged_case(gen, B, KV, hd, nb, lens, bt=16, H=32):
@@ -76,14 +126,9 @@ def _paged_case(gen, B, KV, hd, nb, lens, bt=16, H=32):
 
 def _split_edges(B, KV, nb, bt=16):
     """kv_len at the split edges of ``split_plan``: 0, T - 1, T, T + 1 and
-    a full table, nb * bt - 1 (the new token takes the last slot), as
-    rows of B (one row each when B is 1)."""
+    a full table, nb * bt - 1 (the new token takes the last slot)."""
     T, _ = split_plan(nb, bt, B, KV)
-    edges = [0, T - 1, T, T + 1, nb * bt - 1]
-    if B == 1:
-        return [[n] for n in edges]
-    return [edges[i:i + B] + edges[:max(0, i + B - len(edges))]
-            for i in range(len(edges))]
+    return _as_rows([0, T - 1, T, T + 1, nb * bt - 1], B)
 
 
 @pytest.mark.parametrize("B,KV,hd,nb,lens", [

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the ``repro`` package.
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no script of ``tools/`` imports JAX or anything of
+the ``repro`` package.
 
 Checked twice: by importing every module in a subprocess whose import
 system refuses ``jax`` and ``repro`` (a subprocess, because this test
@@ -44,7 +45,8 @@ print(len(names))
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def test_port_imports_with_jax_and_repro_blocked():

@@ -18,6 +18,8 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention as decode_kernel)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_split_plan)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention as flash_kernel)
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
@@ -121,6 +123,87 @@ def test_decode_attention_ragged_edges(kv_len):
                                  block_k=16)
     got = ops.decode_attention(*map(to_torch, (q, kc, vc, lens)))
     assert_close(got, want, FP32)
+
+
+@pytest.mark.parametrize("KV", [4, 8])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("S", [16, 96, 544, 2048])
+def test_decode_split_plan(S, B, KV):
+    """The contiguous kernel's pass-1 plan: T a multiple of 16, splits
+    that cover S and none that starts past it, at least one block per SM
+    (132) unless each split is one 16-token granule, and (64, 9) at the
+    main path (S 544, batch 4)."""
+    T, n_split = decode_split_plan(S, B, KV)
+    assert T >= 16 and T % 16 == 0 and n_split >= 1
+    assert (n_split - 1) * T < S <= n_split * T
+    assert B * KV * n_split >= 132 or T == 16
+    if (S, B) == (544, 4):
+        assert (T, n_split) == (64, 9)
+
+
+def _split_decode(q, kc, vc, kv_len, T):
+    """The contiguous kernel's two passes, in PyTorch: per T-token split,
+    scores of positions >= kv_len masked to -1e30 and tokens past
+    ``end = kv_len <= 0 ? S : min(kv_len, S)`` not read, fp32 partials
+    (m, l, acc), a split past ``end`` empty (m -1e30, l 0, acc 0); then
+    the merge with the max correction, out = A / max(L, 1e-30)."""
+    B, H, hd = q.shape
+    S, KV = kc.shape[1], kc.shape[2]
+    rep = H // KV
+    kf = kc.float().repeat_interleave(rep, 2)
+    vf = vc.float().repeat_interleave(rep, 2)
+    out = torch.empty(B, H, hd)
+    for b in range(B):
+        n = int(kv_len[b])
+        end = S if n <= 0 else min(n, S)
+        ms, ls, accs = [], [], []
+        for t0 in range(0, S, T):
+            t1 = min(t0 + T, end)
+            if t1 <= t0:
+                ms.append(torch.full((H,), -1e30))
+                ls.append(torch.zeros(H))
+                accs.append(torch.zeros(H, hd))
+                continue
+            s = torch.einsum("hd,thd->ht", q[b].float(), kf[b, t0:t1]) \
+                / math.sqrt(hd)
+            pos = torch.arange(t0, t1)
+            s = torch.where(pos[None] < n, s, torch.full_like(s, -1e30))
+            m = s.max(-1).values
+            p = torch.exp(s - m[:, None])
+            ms.append(m)
+            ls.append(p.sum(-1))
+            accs.append(torch.einsum("ht,thd->hd", p, vf[b, t0:t1]))
+        m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+        c = torch.exp(m - m.max(0).values)
+        out[b] = (acc * c[..., None]).sum(0) \
+            / (l * c).sum(0).clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, BF16_NP])
+@pytest.mark.parametrize("KV,hd", [(4, 64), (4, 128), (8, 64), (8, 128)])
+def test_decode_split_merge_matches_reference(KV, hd, dtype):
+    """The split form (T-token partials, then the merge) against the JAX
+    kernel at S 544 (planned as the main path's 560-token caches: T 64,
+    9 splits), one row per kv_len: -1 and 0 (the
+    reference's uniform weights over the whole cache), one live token,
+    the split edges T - 1, T, T + 1, and S - 1, S."""
+    S, H = 544, 2 * KV
+    T, n_split = decode_split_plan(S, 8, KV)
+    assert (T, n_split) == (64, 9)
+    lens = np.asarray([-1, 0, 1, T - 1, T, T + 1, S - 1, S], np.int32)
+    B = len(lens)
+    rs = np.random.RandomState(6)
+    q = normal(rs, (B, H, hd), 1.0, dtype)
+    kc = normal(rs, (B, S, KV, hd), 1.0, dtype)
+    vc = normal(rs, (B, S, KV, hd), 1.0, dtype)
+    want = jops.decode_attention(*map(jnp.asarray, (q, kc, vc, lens)),
+                                 block_k=32)
+    got = _split_decode(*map(to_torch, (q, kc, vc, lens)), T)
+    tol = FP32 if dtype == np.float32 else BF16
+    assert_close(got, want, tol)
+    uniform = to_torch(vc[:2]).float().mean(1).repeat_interleave(H // KV, 1)
+    assert_close(got[:2], uniform, tol)
 
 
 # ---------------------- paged decode attention ------------------------ #
