@@ -47,6 +47,19 @@ Phases, in order; any failure exits non-zero:
    pinned_host.  Fused tokens must equal staged ones, except where the
    first differing step is a near tie (top-2 logit margin below
    ``NEAR_TIE``);
+4b. serve llama3-8b again, adaptive (``adaptive=True``, replans every
+   ``REPLAN_EVERY`` iterations), staged then fused, on the same
+   prompts, pool and policy.  First the transfer probes of the three
+   memory kinds are printed (the engine's replanner plans over tiers
+   built from such probes; its planning tiers are printed too).  Each
+   adaptive run's tokens must equal its path's tokens of phase 4
+   exactly (a replan moves blocks, never a value); it must consider at
+   least one replan, its trace must hold an epoch with a replan
+   decision, and its trace (JSONL), metrics (Prometheus text) and audit
+   report, written to a temporary directory and read back, must not be
+   empty.  tok/s, TTFT, decode gap, replans, moved bytes and, where
+   blocks moved, the priced move time against the wall time are
+   printed beside phase 4's numbers;
 5. serve qwen3-moe-30b-a3b the same way, once llama3-8b's weights are
    freed: staged (``moe_fwd``) then fused (``fused_expert_ffn`` on every
    MoE layer of every decode step), the same requests and the same
@@ -97,6 +110,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -134,6 +148,8 @@ B, H, HD, BT = 4, 32, 128, 16
 MODELS = {"llama3-8b": 8, "qwen3-moe-30b-a3b": 4}   # served, and KV heads
 D_MOE, F_MOE, E_MOE, K_MOE = 2048, 768, 128, 8   # qwen3-moe-30b-a3b
 PROMPTS, NEW_TOKENS, N_REQ = (512, 256), 32, 8
+ADAPTIVE_ARCH, REPLAN_EVERY = "llama3-8b", 8
+PROBE_MB, PROBE_ITERS = 256, 5
 MAX_CONTEXT = max(PROMPTS) + NEW_TOKENS + BT
 NB = math.ceil(MAX_CONTEXT / BT)          # table slots per sequence
 S_PAD = NB * BT
@@ -776,6 +792,105 @@ def serve_phase(label: str, cfg, params, prompts, fused: bool) -> dict:
             "route_margins": eng.route_margins, "tiering": rep.tiering}
 
 
+def probe_phase() -> dict:
+    """Copy bandwidth from the card into each memory kind, the probe the
+    adaptive engine builds its planning tiers from."""
+    from repro_torch.obs import measure_transfer_probes
+    probes = measure_transfer_probes(
+        ("device", "pinned_host", "unpinned_host"), n_mb=PROBE_MB,
+        iters=PROBE_ITERS, device="cuda")
+    for p in probes:
+        log(f"probe device -> {p.tier}: {p.bw_GBps:.2f} GB/s "
+            f"({PROBE_ITERS} copies of {PROBE_MB} MiB, CUDA events)")
+    return {p.tier: p.bw_GBps for p in probes}
+
+
+def read_back_artifacts(label: str, eng) -> dict:
+    """Write the run's trace (JSONL), metrics (Prometheus text) and audit
+    report into a temporary directory, read them back, and fail if any
+    is empty."""
+    from repro_torch.obs import TraceRecorder
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, prom, audit = (Path(tmp) / n for n in
+                              ("t.jsonl", "m.prom", "a.json"))
+        n = eng.tracer.to_jsonl(str(trace))
+        prom.write_text(eng.registry.to_prometheus_text())
+        audit.write_text(json.dumps(eng.audit_report(), sort_keys=True))
+        events = TraceRecorder.read_jsonl(str(trace))
+        text = prom.read_text()
+        report = json.loads(audit.read_text())
+    if not events or len(events) != n:
+        fail(f"{label}: the trace read back {len(events)} of {n} events")
+    if "# TYPE" not in text or "serving_" not in text:
+        fail(f"{label}: the metrics text has no serving_ series")
+    if not report.get("audit", {}).get("totals"):
+        fail(f"{label}: the audit report is empty")
+    log(f"{label}: artifacts read back: {len(events)} trace events, "
+        f"{text.count('# TYPE')} metric series, audit models "
+        f"{sorted(report['audit']['models'])}")
+    return {"trace_events": len(events), "series": text.count("# TYPE"),
+            "audit_models": sorted(report["audit"]["models"])}
+
+
+def adaptive_phase(label: str, cfg, params, prompts, fused: bool,
+                   plain: dict) -> dict:
+    """One adaptive serve of the prompts of ``plain`` (the same path's
+    non-adaptive phase): the tokens must be ``plain``'s exactly."""
+    from repro_torch.obs import replan_chains
+    eng = serve(cfg, params, prompts, NEW_TOKENS, "cuda",
+                fused_gather=fused, adaptive=True,
+                replan_every=REPLAN_EVERY)
+    for kind, t in eng.replanner.tiers.items():
+        log(f"{label}: planning tier {kind}: {t.peak_bw_GBps:.2f} GB/s "
+            f"(probed), capacity {t.capacity_GiB * 1024:.1f} MiB (pool budget)")
+    rep, wall, launches, tokens = run_engine(eng)
+    for name in path_kernels(cfg, fused):
+        if launches[name] <= 0:
+            fail(f"{label}: kernel {name} was never launched")
+    if tokens != plain["tokens"]:
+        bad = sorted(r for r in plain["tokens"]
+                     if tokens.get(r) != plain["tokens"][r])
+        fail(f"{label}: tokens differ from the non-adaptive run for "
+             f"requests {bad}")
+    t, s, s0 = rep.telemetry, rep.summary, plain["summary"]
+    if t.get("replans_considered", 0) < 1:
+        fail(f"{label}: no replan was considered")
+    chains = replan_chains(eng.tracer.events)
+    decided = sorted(e for e, c in chains.items() if c["decisions"])
+    if not decided:
+        fail(f"{label}: the trace holds no epoch with a replan decision")
+    moves = [(r.predicted, r.realized)
+             for r in eng.audit.records("migration.move_time")
+             if r.realized is not None]
+    artifacts = read_back_artifacts(label, eng)
+    log(f"serve {label}: wall={wall:.2f} s "
+        f"throughput={s['throughput_tok_s']:.1f} tok/s "
+        f"(non-adaptive {s0['throughput_tok_s']:.1f}) "
+        f"mean_ttft={s['mean_ttft_s'] * 1e3:.1f} ms "
+        f"({s0['mean_ttft_s'] * 1e3:.1f}) "
+        f"p95_decode_gap={s['p95_decode_gap_s'] * 1e3:.1f} ms "
+        f"({s0['p95_decode_gap_s'] * 1e3:.1f}) "
+        f"replans={int(t['replans_applied'])}/"
+        f"{int(t['replans_considered'])} at epochs {decided} "
+        f"moved_bytes={int(t['moved_bytes'])} "
+        f"denied_bytes={int(t['denied_bytes'])} "
+        f"migrated_bytes={rep.tiering['migrated_bytes']} "
+        f"({plain['tiering']['migrated_bytes']}) launches={launches}")
+    if moves:
+        pred, real = (sum(m[i] for m in moves) for i in (0, 1))
+        log(f"{label}: migration.move_time over {len(moves)} executions: "
+            f"predicted {pred * 1e3:.3f} ms, realized {real * 1e3:.3f} ms "
+            f"(wall clock around blocking copies)")
+    else:
+        log(f"{label}: no physical block moves to audit "
+            + ("(no replan moved bytes)"
+               if eng.replanner.executor.physical_moves
+               else "(this layout moves residency only)"))
+    return {"summary": s, "wall_s": wall, "launches": launches,
+            "telemetry": t, "decided_epochs": decided,
+            "move_time": moves, "artifacts": artifacts}
+
+
 def profile_phase(cfg, params) -> dict:
     """Where a serve run's time goes (``--profile``): one torch.profiler
     trace over a short run of each path (4 requests, prompts 512 and
@@ -868,6 +983,11 @@ def serve_model(arch: str, profile: bool) -> dict:
                           fused["route_margins"])
     log(f"{arch} fused vs staged: {N_REQ - len(fused['ties'])}/{N_REQ} "
         "requests give identical tokens")
+    if arch == ADAPTIVE_ARCH:
+        for path in ("staged", "fused"):
+            out[f"adaptive {path}"] = adaptive_phase(
+                f"{arch} adaptive {path}", cfg, params, prompts,
+                path == "fused", out[path])
     if profile:
         out["profile"] = profile_phase(cfg, params)
     return out
@@ -1088,6 +1208,7 @@ def main() -> int:
     record["small_train_reference"] = {
         arch: small_train_reference(arch)
         for arch in (TRAIN_ARCH, "llama3-8b")}
+    record["probes_GBps"] = probe_phase()
     record["serve"] = {}
     for arch in MODELS:              # one model's weights on the card
         record["serve"][arch] = serve_model(arch, args.profile)

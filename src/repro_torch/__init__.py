@@ -7,11 +7,13 @@ copies.  Every Pallas kernel of the reference that the ported path runs
 is a CUDA kernel under ``csrc/``, built at first use (``kernels.build``).
 
 Subpackages (imported lazily so ``import repro_torch`` stays light):
-  configs   model configs (llama3-8b, qwen3-moe-30b-a3b, gpt2-xl-offload)
-  core      tier descriptors, migration policies, memory kinds,
-            TieredArray
+  configs   the attention-only model configs (configs.ARCH_IDS)
+  core      tier descriptors, data objects, placement policies, the
+            cost model, migration policies, memory kinds, TieredArray
   cluster   namespaced ledger keys
   pool      residency ledger
+  telemetry access traces, sampling, phase detection, adaptive replan
+  obs       control-plane trace, metrics registry, SLOs, audit, probes
   kernels   CUDA kernels, their plain PyTorch versions, dispatch
   models    model blocks and the pattern LM (prefill, training loss)
   data      deterministic synthetic token pipeline
@@ -24,9 +26,9 @@ import importlib
 
 __version__ = "0.1.0"
 
-_LAZY_SUBPACKAGES = ("configs", "core", "cluster", "pool", "kernels",
-                     "models", "data", "optim", "offload", "serving",
-                     "launch")
+_LAZY_SUBPACKAGES = ("configs", "core", "cluster", "pool", "telemetry",
+                     "obs", "kernels", "models", "data", "optim",
+                     "offload", "serving", "launch")
 
 
 def __getattr__(name):

@@ -10,7 +10,19 @@ from typing import List
 
 from .base import ModelConfig, smoke_variant
 
-ARCH_IDS: List[str] = ["llama3-8b", "qwen3-moe-30b-a3b", "gpt2-xl-offload"]
+ARCH_IDS: List[str] = [
+    "qwen3-moe-235b-a22b",
+    "qwen3-moe-30b-a3b",
+    "codeqwen1.5-7b",
+    "qwen1.5-32b",
+    "stablelm-1.6b",
+    "llama3-8b",
+    # paper's own evaluation models (Sec. IV)
+    "gpt2-xl-offload",
+    "bert-large-offload",
+    "llama-65b-serve",
+    "opt-66b-serve",
+]
 
 _MODULES = {i: __package__ + "." + i.replace("-", "_").replace(".", "_")
             for i in ARCH_IDS}

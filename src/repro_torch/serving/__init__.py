@@ -1,7 +1,11 @@
 """Continuous-batching paged-KV serving (counterpart of
-``repro.serving``, dense attention-only models)."""
-from .engine import (check_paged_support, ServingConfig, ServingEngine,
-                     ServingReport)
+``repro.serving``, attention-only models), with the telemetry and
+observability planes and adaptive object-level re-interleaving."""
+from .config import (ClusterOptions, ConfigError, ExpertOptions,
+                     QoSOptions, ROUTER_POLICIES, TieringOptions,
+                     validate_args)
+from .engine import (check_paged_support, kind_bases, kind_tiers,
+                     ServingConfig, ServingEngine, ServingReport)
 from .kv_pool import (FAST_KIND, KVBlock, KVBlockSpec, PagedKVPool,
                       PoolExhausted, spec_from_config)
 from .metrics import percentile, PoolSample, RequestMetrics, ServingMetrics
@@ -11,10 +15,12 @@ from .scheduler import (AdmissionPlan, ContinuousBatchingScheduler,
 from .tiering import KVBlockTierer, make_tiering_policy, POLICIES
 
 __all__ = [
-    "AdmissionPlan", "check_paged_support", "ContinuousBatchingScheduler",
-    "FAST_KIND", "KVBlock", "KVBlockSpec", "KVBlockTierer",
+    "AdmissionPlan", "check_paged_support", "ClusterOptions", "ConfigError",
+    "ContinuousBatchingScheduler", "ExpertOptions", "FAST_KIND",
+    "kind_bases", "kind_tiers", "KVBlock", "KVBlockSpec", "KVBlockTierer",
     "make_tiering_policy", "PagedKVPool", "percentile", "plan_admission",
-    "POLICIES", "PoolExhausted", "PoolSample", "Request", "RequestMetrics",
-    "RequestState", "SchedulerConfig", "ServingConfig", "ServingEngine",
-    "ServingMetrics", "ServingReport", "spec_from_config",
+    "POLICIES", "PoolExhausted", "PoolSample", "QoSOptions", "Request",
+    "RequestMetrics", "RequestState", "ROUTER_POLICIES", "SchedulerConfig",
+    "ServingConfig", "ServingEngine", "ServingMetrics", "ServingReport",
+    "spec_from_config", "TieringOptions", "validate_args",
 ]

@@ -20,12 +20,25 @@ staged path; on the fused path they route top-k without drop and run
 the ``fused_expert_ffn`` kernel over the routed experts only, as the
 reference does.
 
-Then greedy argmax, ``append_token``, and one ``KVBlockTierer`` epoch.
-Padded batch rows carry ``lens = 0`` and a zero block table, exactly as
-in the reference.  The reference's control planes (telemetry and
-adaptive replanning, predictive arbitration, calibration, topology,
-QoS, MoE expert residency, the multi-host cluster) are not ported yet:
-their options raise ``NotImplementedError`` naming the ROADMAP item.
+Then greedy argmax, ``append_token``, one ``KVBlockTierer`` epoch and
+one telemetry epoch.  Padded batch rows carry ``lens = 0`` and a zero
+block table, exactly as in the reference.
+
+Every engine builds the observability plane (a control-plane trace, a
+metrics registry, a prediction-audit ledger and SLO monitors) and the
+telemetry plane (the pool's access events through a sampler, phase
+detection).  With ``adaptive=True`` an ``AdaptiveReplanner`` re-plans
+the live sequences' KV placement every ``replan_every`` iterations from
+the measured traffic (``ObjectLevelInterleave`` gated by the cost
+model) and moves their blocks through ``_move_seq_blocks``.  It plans
+over tiers built from transfer probes of this machine's memory kinds
+(``kind_bases``).  Replans change residency only, never a value: the
+tokens are those of the same run without ``adaptive``.
+
+The reference's other control planes (predictive arbitration,
+calibration, topology, QoS, MoE expert residency, the multi-host
+cluster) are not ported yet: their options raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -38,11 +51,18 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.migration import MigrationExecutor
 from ..core.tiered_array import DeviceLike, resolve_device
+from ..core.tiers import GiB, MemoryTier
 from ..kernels import ops
 from ..launch import steps as steps_mod
 from ..models import lm
 from ..models import modules as M
+from ..obs import (LagRatioMonitor, measure_transfer_probes, MetricsRegistry,
+                   PredictionLedger, SLOMonitor, SLOTarget, TraceRecorder)
+from ..telemetry import (AccessSampler, AccessTrace, AdaptiveReplanner,
+                         PhaseDetector, ReplanConfig, SamplerConfig)
+from . import config as config_mod
 from .kv_pool import FAST_KIND, PagedKVPool, spec_from_config
 from .metrics import ServingMetrics
 from .scheduler import (ContinuousBatchingScheduler, plan_admission, Request,
@@ -52,14 +72,12 @@ from .tiering import KVBlockTierer
 # options of the reference ServingConfig whose planes are not ported
 # yet -> the ROADMAP queue-1 item that ports them
 _NOT_PORTED = {
-    "adaptive": "item 5 (telemetry and obs planes)",
-    "predictive": "item 8 (engine control planes)",
-    "calibrate": "item 8 (engine control planes)",
-    "topology": "item 8 (engine control planes)",
-    "qos": "item 8 (engine control planes)",
-    "expert_policy": "item 5 (serving/expert_pool.py, with the telemetry "
-                     "slice)",
-    "cluster": "item 13 (cluster)",
+    "predictive": "item 5 (engine control planes)",
+    "calibrate": "item 5 (engine control planes)",
+    "topology": "item 5 (engine control planes)",
+    "qos": "item 5 (engine control planes)",
+    "expert_policy": "item 3 (serving/expert_pool.py)",
+    "cluster": "item 9 (cluster)",
 }
 
 
@@ -271,22 +289,44 @@ class ServingConfig:
     # optional cost-model sizing: overrides num_blocks/fast budget/batch
     device_budget_bytes: Optional[int] = None
     host_budget_bytes: Optional[int] = None
+    # telemetry + adaptive object-level re-interleaving (telemetry/):
+    # sample_rate 1.0 = full instrumentation; lower it toward PEBS-like
+    # rates for production-sized pools
+    adaptive: bool = False
+    replan_every: int = 8   # iterations between replans (<= 0 disables)
+    sample_rate: float = 1.0
     # residency-ledger tenant namespace of this engine's pool
     tenant: str = "serving"
+    # observability plane (obs/): ring bound on the control-plane trace
+    # and optional SLO thresholds (seconds) on TTFT and the inter-token
+    # decode latency, checked live by the rolling-window SLOMonitor
+    trace_max_events: int = 65536
+    slo_p95_ttft_s: Optional[float] = None
+    slo_p95_decode_s: Optional[float] = None
+    slo_p99_decode_s: Optional[float] = None
+    slo_p999_decode_s: Optional[float] = None
+    slo_window: int = 512
     # fused decode: pooled KV layout read through block tables by the
     # paged_decode_attention kernel (no staging copy)
     fused_gather: bool = False
     # reference options whose planes are not ported yet (see
     # _NOT_PORTED): setting any of them raises NotImplementedError
-    adaptive: bool = False
     predictive: bool = False
-    calibrate: bool = False
     topology: Optional[str] = None
     qos: bool = False
+    qos_class: str = "read"
+    calibrate: bool = False
     expert_policy: Optional[str] = None
-    cluster: Optional[object] = None
+    expert_fast_fraction: float = 0.25
+    # nested sections (serving.config): the grouped view of the flat
+    # fields above, kept coherent with them by __post_init__
+    tiering: Optional[config_mod.TieringOptions] = None
+    qos_options: Optional[config_mod.QoSOptions] = None
+    experts: Optional[config_mod.ExpertOptions] = None
+    cluster: Optional[config_mod.ClusterOptions] = None
 
     def __post_init__(self):
+        config_mod.sync_sections(self)
         for name, item in _NOT_PORTED.items():
             if getattr(self, name):
                 raise NotImplementedError(
@@ -295,8 +335,19 @@ class ServingConfig:
 
     @classmethod
     def from_args(cls, args) -> "ServingConfig":
-        """Build from a serve-CLI-shaped namespace."""
+        """Build from a serve-CLI-shaped namespace, running every
+        cross-field validation (``config.validate_args``) first; raises
+        :class:`~repro_torch.serving.config.ConfigError` on a violated
+        constraint."""
+        config_mod.validate_args(args)
         get = lambda name, default=None: getattr(args, name, default)  # noqa: E731
+        replicas = int(get("replicas", 1) or 1)
+        cluster = None
+        if replicas > 1 or get("router") is not None:
+            cluster = config_mod.ClusterOptions(
+                replicas=replicas,
+                router=get("router") or "headroom-distance",
+                shard_model=bool(get("shard_model", True)))
         return cls(
             block_tokens=get("block_tokens", 16),
             max_batch=get("batch", 4),
@@ -305,8 +356,23 @@ class ServingConfig:
             policy=get("policy", "tiering08"),
             num_blocks=get("num_blocks"),
             fast_block_budget=get("fast_blocks"),
+            adaptive=bool(get("adaptive")),
+            replan_every=get("replan_every", 8),
+            sample_rate=get("sample_rate", 1.0),
+            predictive=bool(get("predictive")),
+            calibrate=bool(get("calibrate")),
+            topology=get("topology"),
             tenant=get("tenant") or "serving",
-            fused_gather=bool(get("fused_gather")))
+            slo_p95_ttft_s=get("slo_p95_ttft"),
+            slo_p95_decode_s=get("slo_p95_decode"),
+            slo_p99_decode_s=get("slo_p99_decode"),
+            slo_p999_decode_s=get("slo_p999_decode"),
+            slo_window=get("slo_window", 512),
+            qos=bool(get("qos")),
+            fused_gather=bool(get("fused_gather")),
+            expert_policy=get("expert_policy"),
+            expert_fast_fraction=get("expert_fast_frac", 0.25),
+            cluster=cluster)
 
 
 @dataclasses.dataclass
@@ -315,6 +381,61 @@ class ServingReport:
     per_request: List[Tuple[int, Dict[str, float]]]
     tiering: Dict[str, int]
     policy: str
+    telemetry: Dict[str, float] = dataclasses.field(default_factory=dict)
+    slo: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+
+def kind_bases(pool: PagedKVPool) -> Dict[str, MemoryTier]:
+    """MemoryTier descriptors of the pool's fast and slow memory kinds,
+    built from transfer probes of this machine
+    (``obs.measure_transfer_probes`` on the pool's device: on the card,
+    copies from the device into each kind, timed with CUDA events).
+
+    A bulk copy observes bandwidth only, so every other field is
+    derived from it:
+
+      * ``peak_bw_GBps`` and ``stream_bw_GBps``: the probed copy rate.
+        One copy stream reaches it, so ``saturation_streams`` is 1;
+      * ``unloaded_latency_ns``: the time of one 64-byte line at that
+        rate (64 / rate).  It is not a latency: it orders the tiers by
+        the one thing the probe saw, fastest first.  The planner uses
+        latency only for random access, and KV reads stream;
+      * ``capacity_GiB``: 0 here; ``kind_tiers`` sets it from the
+        pool's block budgets;
+      * ``kind``: ``hbm`` for the device, ``host`` for host memory.
+
+    Under a CPU engine the kinds are logical CPU memory and the probes
+    time CPU copies.
+    """
+    probes = measure_transfer_probes(kinds=(FAST_KIND, pool.slow_kind),
+                                     device=pool.device)
+    return {p.tier: MemoryTier(p.tier, 64.0 / p.bw_GBps, p.bw_GBps,
+                               p.bw_GBps, 0.0,
+                               kind="hbm" if p.tier == FAST_KIND
+                               else "host")
+            for p in probes}
+
+
+def kind_tiers(pool: PagedKVPool,
+               fast_base: Optional[MemoryTier] = None,
+               slow_base: Optional[MemoryTier] = None
+               ) -> Dict[str, MemoryTier]:
+    """MemoryTier descriptors for the pool's memory kinds, with
+    capacities set from the pool's block budgets — what the adaptive
+    replanner plans against.  ``fast_base``/``slow_base`` default to
+    the probed ``kind_bases(pool)``."""
+    if fast_base is None or slow_base is None:
+        base = kind_bases(pool)
+        fast_base = fast_base or base[FAST_KIND]
+        slow_base = slow_base or base[pool.slow_kind]
+    bn = pool.block_nbytes()
+    fast = dataclasses.replace(
+        fast_base, name=FAST_KIND,
+        capacity_GiB=max(pool.fast_block_budget, 1) * bn / GiB)
+    slow = dataclasses.replace(
+        slow_base, name=pool.slow_kind, kind="host",
+        capacity_GiB=max(pool.num_blocks, 1) * bn / GiB)
+    return {FAST_KIND: fast, pool.slow_kind: slow}
 
 
 class ServingEngine:
@@ -364,14 +485,66 @@ class ServingEngine:
             pooled=sv.fused_gather, device=self.device)
         self.ledger = self.pool.ledger
         self.tierer = KVBlockTierer(self.pool, sv.policy)
-        self.sched = ContinuousBatchingScheduler(
-            self.pool, SchedulerConfig(
-                max_batch=max_batch,
-                max_prefill_per_iter=sv.max_prefill_per_iter))
-        self.metrics = ServingMetrics()
+        # observability plane: one tracer + registry + audit ledger +
+        # SLO monitor per engine, on the engine's run clock (_now),
+        # created before the components they instrument
         self._t0 = 0.0
         self._virtual_skew = 0.0
         self._step = 0
+        self.tracer = TraceRecorder(clock=self._now,
+                                    max_events=sv.trace_max_events)
+        self.registry = MetricsRegistry()
+        self.audit = PredictionLedger(registry=self.registry,
+                                      tracer=self.tracer)
+        slo_targets = [SLOTarget(metric, q, thr) for metric, q, thr in (
+            ("ttft", 0.95, sv.slo_p95_ttft_s),
+            ("decode_latency", 0.95, sv.slo_p95_decode_s),
+            ("decode_latency", 0.99, sv.slo_p99_decode_s),
+            ("decode_latency", 0.999, sv.slo_p999_decode_s))
+            if thr is not None]
+        self.slo = SLOMonitor(slo_targets, clock=self._now,
+                              registry=self.registry, tracer=self.tracer,
+                              window=sv.slo_window)
+        self.lag = LagRatioMonitor()
+        self._lag_tokens = 0          # decode tokens at last epoch close
+        self._lag_time = 0.0          # _now() at last epoch close
+        self.sched = ContinuousBatchingScheduler(
+            self.pool, SchedulerConfig(
+                max_batch=max_batch,
+                max_prefill_per_iter=sv.max_prefill_per_iter),
+            tracer=self.tracer)
+        self.metrics = ServingMetrics(registry=self.registry,
+                                      slo=self.slo)
+        # telemetry: the pool emits access events through a sampling
+        # front-end; phase detection and (with adaptive) the replanner
+        # read the shared trace, which is also this tenant's namespace
+        # in the ledger
+        self.trace = AccessTrace()
+        self.sampler = AccessSampler(
+            self.trace, SamplerConfig(sample_rate=sv.sample_rate))
+        self.pool.attach_telemetry(self.sampler)
+        self.ledger.attach_trace(sv.tenant, self.trace)
+        self.phases = PhaseDetector(self.trace)
+        self.replanner: Optional[AdaptiveReplanner] = None
+        if sv.adaptive:
+            tiers = kind_tiers(self.pool)
+            executor = MigrationExecutor(tiers,
+                                         move_fn=self._move_seq_blocks)
+            # the staged path on the card moves block payloads between
+            # HBM and host memory: audit each priced move time against
+            # its wall time.  Pooled and CPU-engine moves are residency
+            # bookkeeping, whose wall time prices nothing
+            executor.physical_moves = (self.device.type == "cuda"
+                                       and not self.pool.pooled)
+            self.replanner = AdaptiveReplanner(
+                self.trace, tiers, FAST_KIND,
+                cfg=ReplanConfig(replan_every=max(sv.replan_every, 1),
+                                 window_epochs=max(sv.replan_every, 1)),
+                executor=executor, default_tier=self.pool.slow_kind,
+                ledger=self.ledger, tenant=sv.tenant,
+                tracer=self.tracer, audit=self.audit)
+            executor.tracer = self.tracer
+            executor.audit = self.audit
         self._units = (lm.unit_views(params, cfg)
                        if params is not None else None)
         self._prefill = steps_mod.make_prefill_step(cfg)
@@ -569,6 +742,91 @@ class ServingEngine:
                 self.metrics.on_finish(req.rid, now_tok, req.preemptions)
 
     # ------------------------------------------------------------------ #
+    def _move_seq_blocks(self, obj: str, src: str, dst: str,
+                         nbytes: int) -> int:
+        """MigrationExecutor move_fn: realize an object-level byte move
+        as pool-block migrations.  Returns bytes actually moved (the
+        fast-block budget may deny promotions).  Every payload copy is
+        complete when this returns (``to_kind`` blocks), so the
+        executor's wall-clock audit times the moves, not their
+        enqueueing; pooled blocks move in the ledger only."""
+        if not obj.startswith("seq"):
+            return 0
+        try:
+            sid = int(obj[3:])
+        except ValueError:
+            return 0
+        bn = self.pool.block_nbytes()
+        want = int(round(nbytes / max(bn, 1)))
+        moved = 0
+        for b in self.pool.seq_blocks(sid):
+            if moved >= want:
+                break
+            if b.kind == src and self.pool.migrate(b.bid, dst):
+                moved += 1
+        return moved * bn
+
+    def _replan_step(self) -> None:
+        """One telemetry epoch: close the bucket, track phases, and (in
+        adaptive mode) attempt an object-level replan over the live
+        sequences, with plans cached per phase label."""
+        self.sampler.advance_epoch()
+        self.phases.update()
+        # live lag monitor: one (phase, tokens, time) sample per epoch
+        now = self._now()
+        self.lag.observe_epoch(str(self.phases.label),
+                               self.metrics.decode_tokens
+                               - self._lag_tokens,
+                               now - self._lag_time)
+        self._lag_tokens = self.metrics.decode_tokens
+        self._lag_time = now
+        self.tracer.event("phase.update", cat="phase",
+                          epoch=self._step, label=str(self.phases.label),
+                          shifts=len(self.phases.shifts))
+        if self.slo.targets and self._step % 16 == 0:
+            self.slo.check()
+        if (self.replanner is None or self.sv.replan_every <= 0
+                or self._step == 0
+                or self._step % self.sv.replan_every != 0):
+            return
+        bn = self.pool.block_nbytes()
+        nbytes = {f"seq{sid}": len(tbl) * bn
+                  for sid, tbl in self.pool.table.items() if tbl}
+        if nbytes:
+            self.replanner.maybe_replan(self._step, nbytes, force=True,
+                                        phase=self.phases.label)
+
+    def telemetry_summary(self) -> Dict[str, float]:
+        out: Dict[str, float] = {
+            "trace_events": float(self.trace.total_events),
+            "profiling_samples": float(self.sampler.samples),
+            "profiling_overhead_s": self.sampler.overhead_s,
+            "phase_shifts": float(len(self.phases.shifts)),
+            # link budgets and QoS admission are not ported: the port's
+            # scheduler never defers or evicts for them
+            "link_deferrals": 0.0,
+            "budget_preemptions": float(self.sched.budget_preemptions),
+            "qos_deferrals": 0.0,
+            "slo_preemptions": 0.0,
+            "ledger_migrated_bytes": float(
+                self.ledger.counters.migrated_bytes),
+        }
+        if self.replanner is not None:
+            out.update(self.replanner.summary())
+        lag = self.lag.ratio()
+        if lag is not None:
+            out["live_burst_entry_ratio"] = float(lag)
+        out["trace_recorded_events"] = float(len(self.tracer))
+        out["trace_dropped_events"] = float(self.tracer.dropped)
+        out.update(self.audit.summary())
+        return out
+
+    def audit_report(self) -> Dict[str, object]:
+        """Structured prediction-audit artifact (the ``--audit-out``
+        payload): per-model residual stats."""
+        return {"audit": self.audit.report()}
+
+    # ------------------------------------------------------------------ #
     def _now(self) -> float:
         """Trace time: wall clock since run() start plus the virtual
         fast-forward over idle arrival gaps."""
@@ -601,6 +859,7 @@ class ServingEngine:
                     self._step % self.sv.migrate_every == 0:
                 self.tierer.step(
                     [r.rid for r in self.sched.running], self._step)
+            self._replan_step()
             self.metrics.on_iteration(
                 self._step, self.pool.used_block_count(),
                 self.pool.fast_used(), len(self.sched.running),
@@ -608,8 +867,22 @@ class ServingEngine:
             self._step += 1
         self._flush_route_margins()
         tstats = self.tierer.stats.as_dict()
+        # adaptive replan moves also migrate pool blocks; surface them in
+        # the tiering counters the report exposes
         tstats["migrated_bytes"] = self.pool.counters.migrated_bytes
+        if self.slo.targets:
+            self.slo.check()           # final window evaluation
+        summary = self.metrics.summary(tstats)
+        telemetry = self.telemetry_summary()
+        # publish the run's aggregates into the registry, so a
+        # --metrics-out export carries engine + ledger + control-plane
+        # state beside the streaming histograms
+        self.registry.set_gauges(summary, prefix="serving.summary")
+        self.registry.set_gauges(telemetry, prefix="serving.telemetry")
+        self.ledger.publish(self.registry)
+        self.registry.set_gauges(self.audit.summary())
         return ServingReport(
-            summary=self.metrics.summary(tstats),
+            summary=summary,
             per_request=self.metrics.per_request_rows(),
-            tiering=tstats, policy=self.tierer.policy_name)
+            tiering=tstats, policy=self.tierer.policy_name,
+            telemetry=telemetry, slo=self.slo.summary())

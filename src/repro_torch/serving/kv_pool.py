@@ -144,11 +144,27 @@ class PagedKVPool:
         self.table: Dict[int, List[int]] = {}   # seq_id -> [bid]
         self.seq_len: Dict[int, int] = {}       # seq_id -> tokens written
         self.counters = PoolCounters()
+        self.telemetry = None                   # AccessTrace/AccessSampler
         self.ledger = ledger if ledger is not None else ResidencyLedger()
         self.tenant = tenant
         self.ledger.register_tenant(tenant)
         self.fast_block_budget = (num_blocks if fast_block_budget is None
                                   else fast_block_budget)
+
+    # ------------------------------------------------------------------ #
+    # telemetry                                                          #
+    # ------------------------------------------------------------------ #
+    def attach_telemetry(self, recorder) -> None:
+        """Attach an access recorder (anything with ``observe(obj,
+        read_bytes, write_bytes, random_fraction, phase)`` — an
+        AccessTrace or an AccessSampler front-end)."""
+        self.telemetry = recorder
+
+    def _emit(self, seq_id: int, read_bytes: int = 0, write_bytes: int = 0,
+              phase: str = "") -> None:
+        if self.telemetry is not None and (read_bytes or write_bytes):
+            self.telemetry.observe(f"seq{seq_id}", read_bytes, write_bytes,
+                                   0.0, phase=phase)
 
     # ------------------------------------------------------------------ #
     # capacity accounting (occupancy reads/writes go through the ledger) #
@@ -232,6 +248,10 @@ class PagedKVPool:
         """Release every block of a sequence; returns #blocks freed."""
         tbl = self.table.pop(seq_id, [])
         self.seq_len.pop(seq_id, None)
+        if self.telemetry is not None:
+            forget = getattr(self.telemetry, "forget", None)
+            if forget is not None:
+                forget(f"seq{seq_id}")
         for bid in tbl:
             b = self.blocks[bid]
             b.seq_id = None
@@ -256,6 +276,8 @@ class PagedKVPool:
             b = self.blocks[bid]
             b.touch_count += 1
             b.last_touch_step = step
+        self._emit(seq_id, read_bytes=len(tbl) * self.block_nbytes(),
+                   phase="decode")
 
     # ------------------------------------------------------------------ #
     # payload I/O (data mode)                                            #
@@ -300,6 +322,8 @@ class PagedKVPool:
                 self.write_block(bid, kv_k[:, :, i * bt:(i + 1) * bt],
                                  kv_v[:, :, i * bt:(i + 1) * bt])
         self.seq_len[seq_id] = n_tokens
+        self._emit(seq_id, write_bytes=n_blocks * self.block_nbytes(),
+                   phase="prefill")
 
     def append_token(self, seq_id: int, k_tok: torch.Tensor,
                      v_tok: torch.Tensor) -> None:
@@ -325,6 +349,10 @@ class PagedKVPool:
             b.k[:, :, off].copy_(k_tok)
             b.v[:, :, off].copy_(v_tok)
         self.seq_len[seq_id] = n + 1
+        self._emit(seq_id,
+                   write_bytes=max(self.block_nbytes()
+                                   // self.block_tokens, 1),
+                   phase="decode")
 
     def gather_seq(self, seq_id: int, pad_blocks: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -22,6 +22,10 @@ from repro_torch.models import modules as M  # noqa: E402
 
 
 ARCHS = ("llama3-8b", "qwen3-moe-30b-a3b")
+# the other attention-only configs of the port's registry
+COPIED = ("codeqwen1.5-7b", "qwen1.5-32b", "stablelm-1.6b",
+          "bert-large-offload", "llama-65b-serve", "opt-66b-serve",
+          "qwen3-moe-235b-a22b")
 
 
 def _smoke(arch):
@@ -40,7 +44,7 @@ def moe_smoke():
     return _smoke("qwen3-moe-30b-a3b")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + COPIED)
 def test_config_copy_matches_reference(arch):
     from repro.configs import get_config
     from repro_torch.configs import get_config as tget
@@ -173,6 +177,28 @@ def test_prefill_matches_reference(smoke, B, S):
 @pytest.mark.parametrize("B,S", [(1, 12), (2, 40)])
 def test_moe_prefill_matches_reference(moe_smoke, B, S):
     _check_prefill(*moe_smoke, B, S)
+
+
+# codeqwen1.5-7b: QKV bias; stablelm-1.6b: LayerNorm and 25% rotary;
+# bert-large-offload: learned positions, tied embeddings, gelu
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "stablelm-1.6b",
+                                  "bert-large-offload"])
+def test_copied_config_prefill_matches_reference(arch):
+    """Biases start at zero; drawn at random here so the QKV-bias and
+    LayerNorm-bias paths are held, not multiplied away."""
+    jcfg = jsmoke(arch)
+    rs = np.random.RandomState(7)
+
+    def draw_bias(path, leaf):
+        if getattr(path[-1], "key", None) in ("bq", "bk", "bv", "bias"):
+            return jnp.asarray(normal(rs, leaf.shape, 0.5), leaf.dtype)
+        return leaf
+
+    jparams = jax.tree_util.tree_map_with_path(
+        draw_bias, jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    cfg = get_smoke_config(arch)
+    lm.check_supported(cfg)
+    _check_prefill(jcfg, jparams, cfg, tree_to_torch(jparams), 2, 21)
 
 
 def test_unported_families_raise():

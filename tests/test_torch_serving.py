@@ -315,7 +315,7 @@ def test_staged_prefill_kv_matches_reference_pool(tiny):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("adaptive", True), ("predictive", True), ("calibrate", True),
+    ("predictive", True), ("calibrate", True),
     ("topology", "far-socket"), ("qos", True), ("expert_policy", "lru"),
     ("cluster", object()),
 ])
@@ -370,4 +370,4 @@ def test_cli_moe_fused_cpu():
 def test_cli_oneshot_not_ported():
     res = _cli("--smoke", "--scheduler", "oneshot", "--device", "cpu")
     assert res.returncode != 0
-    assert "ROADMAP queue 1, item 10" in res.stderr
+    assert "ROADMAP queue 1, item 7" in res.stderr
