@@ -60,11 +60,32 @@ Phases, in order; any failure exits non-zero:
    empty.  tok/s, TTFT, decode gap, replans, moved bytes and, where
    blocks moved, the priced move time against the wall time are
    printed beside phase 4's numbers;
+4c. serve llama3-8b staged once more under every control plane
+   (``adaptive``, ``predictive``, ``calibrate``, ``topology="h100-node"``
+   with its rates probed on this card, ``qos``), with a p99 decode SLO
+   of ``SLO_FRACTION`` of phase 4's staged p95 decode gap, so that
+   violations fire.  Tokens must equal phase 4's staged tokens; a
+   request that QoS preempted and recomputed may part from them only at
+   a near tie.  The trace, read back, must hold a replan chain with a
+   grant and a decision; the run must rebalance the arbiter at least
+   once, flush at least one move-scheduler round and blame at least one
+   excursion.  The calibrator's slow-tier rate is printed beside the
+   topology's probe;
 5. serve qwen3-moe-30b-a3b the same way, once llama3-8b's weights are
    freed: staged (``moe_fwd``) then fused (``fused_expert_ffn`` on every
    MoE layer of every decode step), the same requests and the same
    agreement rule; at a mismatch the fused path's smallest top-8 /
    top-9 router margin of that step is printed beside the logit margin;
+5b. serve qwen3-moe-30b-a3b fused once more with MoE expert residency
+   (``expert_policy="predictive"``, ``EXPERT_FAST_FRACTION`` of the
+   48 x 128 expert blocks fast) under the predictive control plane.
+   Residency is ledger bookkeeping, so the tokens must equal phase 5's
+   fused tokens exactly; the pool must promote at least one expert, and
+   ``record_routing`` must be called once per live row per MoE layer of
+   every decode iteration.  Accesses, the fast-hit ratio, prefetch
+   promotes and hits, promotions, demotions, move-scheduler rounds,
+   arbiter rebalances and the host time of the routing feed are
+   printed;
 6. train gpt2-xl-offload through ``ZeroOffloadEngine`` at full width and
    depth, once the serve phases' weights are freed: random weights from
    a seeded generator on the card, batches of 8 x 512 tokens from the
@@ -149,6 +170,11 @@ MODELS = {"llama3-8b": 8, "qwen3-moe-30b-a3b": 4}   # served, and KV heads
 D_MOE, F_MOE, E_MOE, K_MOE = 2048, 768, 128, 8   # qwen3-moe-30b-a3b
 PROMPTS, NEW_TOKENS, N_REQ = (512, 256), 32, 8
 ADAPTIVE_ARCH, REPLAN_EVERY = "llama3-8b", 8
+EXPERT_ARCH, EXPERT_FAST_FRACTION = "qwen3-moe-30b-a3b", 0.25
+# the control-plane phase's p99 decode SLO, as a fraction of the p95
+# decode gap its path's non-adaptive phase measured in the same call:
+# below the gaps, so violations fire and the blame plane runs
+SLO_FRACTION = 0.5
 PROBE_MB, PROBE_ITERS = 256, 5
 MAX_CONTEXT = max(PROMPTS) + NEW_TOKENS + BT
 NB = math.ceil(MAX_CONTEXT / BT)          # table slots per sequence
@@ -805,10 +831,11 @@ def probe_phase() -> dict:
     return {p.tier: p.bw_GBps for p in probes}
 
 
-def read_back_artifacts(label: str, eng) -> dict:
+def read_back_artifacts(label: str, eng) -> tuple:
     """Write the run's trace (JSONL), metrics (Prometheus text) and audit
     report into a temporary directory, read them back, and fail if any
-    is empty."""
+    is empty.  Returns (what was read, in counts; the trace's events as
+    read back)."""
     from repro_torch.obs import TraceRecorder
     with tempfile.TemporaryDirectory() as tmp:
         trace, prom, audit = (Path(tmp) / n for n in
@@ -829,7 +856,7 @@ def read_back_artifacts(label: str, eng) -> dict:
         f"{text.count('# TYPE')} metric series, audit models "
         f"{sorted(report['audit']['models'])}")
     return {"trace_events": len(events), "series": text.count("# TYPE"),
-            "audit_models": sorted(report["audit"]["models"])}
+            "audit_models": sorted(report["audit"]["models"])}, events
 
 
 def adaptive_phase(label: str, cfg, params, prompts, fused: bool,
@@ -862,7 +889,7 @@ def adaptive_phase(label: str, cfg, params, prompts, fused: bool,
     moves = [(r.predicted, r.realized)
              for r in eng.audit.records("migration.move_time")
              if r.realized is not None]
-    artifacts = read_back_artifacts(label, eng)
+    artifacts, _ = read_back_artifacts(label, eng)
     log(f"serve {label}: wall={wall:.2f} s "
         f"throughput={s['throughput_tok_s']:.1f} tok/s "
         f"(non-adaptive {s0['throughput_tok_s']:.1f}) "
@@ -889,6 +916,168 @@ def adaptive_phase(label: str, cfg, params, prompts, fused: bool,
     return {"summary": s, "wall_s": wall, "launches": launches,
             "telemetry": t, "decided_epochs": decided,
             "move_time": moves, "artifacts": artifacts}
+
+
+def control_planes_phase(label: str, cfg, params, prompts,
+                         plain: dict) -> dict:
+    """The staged path under every control plane of the engine: the
+    predictive arbiter and move scheduler, calibration, the ``h100-node``
+    topology (rates probed on this card) and QoS with a p99 decode SLO
+    of ``SLO_FRACTION`` of ``plain``'s p95 decode gap, so that
+    violations fire and are blamed.  Tokens must be ``plain``'s; a
+    request that QoS preempted and recomputed may part from them only
+    at a near tie."""
+    from repro_torch.obs import replan_chains
+    slo = SLO_FRACTION * plain["summary"]["p95_decode_gap_s"]
+    eng = serve(cfg, params, prompts, NEW_TOKENS, "cuda",
+                adaptive=True, replan_every=REPLAN_EVERY, predictive=True,
+                calibrate=True, topology="h100-node", qos=True,
+                slo_p99_decode_s=slo)
+    link = eng.topo.links[("chip0", "host0")]
+    fitted0 = eng.calibrator.calibrated_tiers()[eng.pool.slow_kind]
+    log(f"{label}: h100-node PCIe link {link.bw_GBps:.2f} GB/s "
+        f"(probed), calibrated {eng.pool.slow_kind} at start-up "
+        f"{fitted0.peak_bw_GBps:.2f} GB/s (its own probe, 16 MiB x 2); "
+        f"p99 decode SLO {slo * 1e3:.2f} ms")
+    rep, wall, launches, tokens = run_engine(eng)
+    for name in path_kernels(cfg, False):
+        if launches[name] <= 0:
+            fail(f"{label}: kernel {name} was never launched")
+    preempted = {r.rid: r.preemptions for r in eng.sched.finished}
+    exact = {rid: t for rid, t in tokens.items() if not preempted[rid]}
+    if any(exact[rid] != plain["tokens"][rid] for rid in exact):
+        fail(f"{label}: a request QoS never preempted has other tokens "
+             "than the non-adaptive run")
+    ties = agree(label, plain["tokens"], tokens, eng.margins)
+    t, s, s0 = rep.telemetry, rep.summary, plain["summary"]
+    blame = rep.slo["blame"]
+    _, events = read_back_artifacts(label, eng)
+    chains = replan_chains(events)
+    granted = sorted(e for e, c in chains.items()
+                     if c["decisions"] and c["grants"])
+    if not granted:
+        fail(f"{label}: the trace read back holds no replan chain with "
+             "a grant and a decision")
+    for key, what in (("arbiter_rebalances", "arbiter rebalance"),
+                      ("movesched.rounds", "move-scheduler round")):
+        if t.get(key, 0) < 1:
+            fail(f"{label}: no {what}")
+    if blame["total_excursions"] < 1:
+        fail(f"{label}: no SLO violation was blamed")
+    fitted = eng.calibrator.calibrated_tiers()[eng.pool.slow_kind]
+    log(f"serve {label}: wall={wall:.2f} s "
+        f"throughput={s['throughput_tok_s']:.1f} tok/s "
+        f"(non-adaptive {s0['throughput_tok_s']:.1f}) "
+        f"p95_decode_gap={s['p95_decode_gap_s'] * 1e3:.1f} ms "
+        f"({s0['p95_decode_gap_s'] * 1e3:.1f}) "
+        f"replans={int(t['replans_applied'])}/"
+        f"{int(t['replans_considered'])} chains with grants {granted} "
+        f"arbiter_rebalances={int(t['arbiter_rebalances'])} "
+        f"movesched_rounds={int(t['movesched.rounds'])} "
+        f"moved_bytes={int(t['moved_bytes'])} "
+        f"denied_bytes={int(t['denied_bytes'])} "
+        f"link_deferrals={int(t['link_deferrals'])} "
+        f"qos_deferrals={int(t['qos_deferrals'])} "
+        f"slo_preemptions={int(t['slo_preemptions'])} "
+        f"preempted={sorted(r for r, n in preempted.items() if n)} "
+        f"violations={rep.slo['targets'][0]['violations']} "
+        f"excursions={blame['total_excursions']} "
+        f"top_link={blame.get('top_link')} launches={launches}")
+    log(f"{label}: calibrated {eng.pool.slow_kind} {fitted.peak_bw_GBps:.2f}"
+        f" GB/s after {int(t['calibration.observations'])} online "
+        f"observations (start-up {fitted0.peak_bw_GBps:.2f}, h100-node "
+        f"probe {link.bw_GBps:.2f})")
+    return {"summary": s, "wall_s": wall, "launches": launches,
+            "telemetry": t, "ties": ties, "granted_epochs": granted,
+            "slo_s": slo, "blame": blame, "preempted": preempted,
+            "link_GBps": link.bw_GBps,
+            "calibrated_GBps": (fitted0.peak_bw_GBps, fitted.peak_bw_GBps)}
+
+
+def experts_phase(label: str, cfg, params, prompts, plain: dict) -> dict:
+    """The fused MoE path with expert residency (``expert_policy``
+    predictive, ``EXPERT_FAST_FRACTION`` of the (layer, expert) blocks
+    fast) under the predictive control plane.  Residency is ledger
+    bookkeeping, so the tokens must be ``plain``'s exactly; every live
+    row of every decode iteration must feed each MoE layer's routed ids
+    to the pool once."""
+    from repro_torch.serving.expert_pool import (expert_nbytes_from_config,
+                                                 moe_layers_from_config)
+    eng = serve(cfg, params, prompts, NEW_TOKENS, "cuda",
+                fused_gather=True, adaptive=True, predictive=True,
+                replan_every=REPLAN_EVERY, expert_policy="predictive",
+                expert_fast_fraction=EXPERT_FAST_FRACTION)
+    pool, n_moe = eng.expert_pool, moe_layers_from_config(cfg)
+    nbytes = expert_nbytes_from_config(cfg)
+    log(f"{label}: {pool.fast_expert_budget} of {n_moe * cfg.n_experts} "
+        f"experts of {nbytes / 1e6:.2f} MB fast "
+        f"({pool.fast_expert_budget * nbytes / 1e9:.2f} GB grant)")
+    count = {"calls": 0, "rows": 0, "record_s": 0.0, "step_s": 0.0}
+    record, step, decode = (pool.record_routing, pool.step,
+                            eng._fused_decode_batch)
+
+    def counted_record(*a, **kw):
+        t0 = time.perf_counter()
+        record(*a, **kw)
+        count["calls"] += 1
+        count["record_s"] += time.perf_counter() - t0
+
+    def timed_step(*a, **kw):
+        t0 = time.perf_counter()
+        step(*a, **kw)
+        count["step_s"] += time.perf_counter() - t0
+
+    def counted_decode(batch):
+        count["rows"] += len(batch)
+        return decode(batch)
+    pool.record_routing, pool.step = counted_record, timed_step
+    eng._fused_decode_batch = counted_decode
+    rep, wall, launches, tokens = run_engine(eng)
+    for name in path_kernels(cfg, True):
+        if launches[name] <= 0:
+            fail(f"{label}: kernel {name} was never launched")
+    if tokens != plain["tokens"]:
+        bad = sorted(r for r in plain["tokens"]
+                     if tokens.get(r) != plain["tokens"][r])
+        fail(f"{label}: tokens differ from the fused run for requests "
+             f"{bad}")
+    if count["calls"] != count["rows"] * n_moe:
+        fail(f"{label}: {count['calls']} record_routing calls, not "
+             f"{count['rows']} live rows x {n_moe} MoE layers")
+    t, s, s0 = rep.telemetry, rep.summary, plain["summary"]
+    if t["expert.promoted"] < 1:
+        fail(f"{label}: no expert was promoted")
+    # the routing feed's one copy an iteration, alone: a tensor of the
+    # routed ids' shape and dtype copied to the host from an idle card
+    ids = torch.zeros((cfg.n_units, n_moe // cfg.n_units, B, cfg.top_k),
+                      dtype=torch.int32, device="cuda")
+    copies = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids.cpu()
+        copies.append(time.perf_counter() - t0)
+    count["copy_ms"] = statistics.median(copies[1:]) * 1e3
+    log(f"serve {label}: wall={wall:.2f} s "
+        f"throughput={s['throughput_tok_s']:.1f} tok/s "
+        f"(fused {s0['throughput_tok_s']:.1f}) "
+        f"p95_decode_gap={s['p95_decode_gap_s'] * 1e3:.1f} ms "
+        f"({s0['p95_decode_gap_s'] * 1e3:.1f}) "
+        f"accesses={int(t['expert.accesses'])} "
+        f"fast_hit_ratio={t.get('expert.fast_hit_ratio', 0.0):.4f} "
+        f"prefetch_promotes={int(t['expert.prefetch_promotes'])} "
+        f"prefetch_hits={int(t['expert.prefetch_hits'])} "
+        f"promoted={int(t['expert.promoted'])} "
+        f"demoted={int(t['expert.demoted'])} "
+        f"movesched_rounds={int(t['movesched.rounds'])} "
+        f"arbiter_rebalances={int(t['arbiter_rebalances'])} "
+        f"record_routing={count['calls']} calls over {count['rows']} "
+        f"live rows ({count['record_s']:.3f} s) "
+        f"expert steps {count['step_s']:.3f} s; one routed-ids copy "
+        f"({ids.numel() * 4} bytes) from an idle card "
+        f"{count['copy_ms']:.4f} ms (median of 20) launches={launches}")
+    return {"summary": s, "wall_s": wall, "launches": launches,
+            "telemetry": t, "routing": count}
 
 
 def profile_phase(cfg, params) -> dict:
@@ -988,6 +1177,12 @@ def serve_model(arch: str, profile: bool) -> dict:
             out[f"adaptive {path}"] = adaptive_phase(
                 f"{arch} adaptive {path}", cfg, params, prompts,
                 path == "fused", out[path])
+        out["control planes"] = control_planes_phase(
+            f"{arch} staged, control planes", cfg, params, prompts,
+            out["staged"])
+    if arch == EXPERT_ARCH:
+        out["experts"] = experts_phase(f"{arch} fused, experts", cfg,
+                                       params, prompts, out["fused"])
     if profile:
         out["profile"] = profile_phase(cfg, params)
     return out

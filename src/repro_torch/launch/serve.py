@@ -14,6 +14,20 @@ out:
         --trace-out t.jsonl --metrics-out m.prom --audit-out a.json \\
         --device cpu
 
+The control planes: the predictive arbiter and move scheduler
+(``--predictive``), cost-model calibration (``--calibrate``), a
+topology testbed (``--topology``; ``h100-node`` is built from transfer
+probes of this machine's memory kinds), interference-class QoS
+(``--qos`` with a decode SLO) and MoE expert residency
+(``--expert-policy`` on a MoE arch):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --smoke --adaptive --predictive --calibrate --topology far-socket \
+        --qos --slo-p99-decode 1e-3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --smoke --fused-gather --adaptive \
+        --predictive --expert-policy predictive --device cpu
+
 Only the continuous scheduler is ported; ``--scheduler oneshot`` (the
 FlexGen path of ``repro.launch.serve``) raises until ROADMAP queue 1,
 item 7 ports it.  Weights are random, drawn from seed 0.
@@ -41,6 +55,19 @@ def _rate(text: str) -> float:
         raise argparse.ArgumentTypeError(
             f"--sample-rate must be in (0, 1], got {val} (use a small "
             "rate like 1e-6 to minimize profiling, not 0)")
+    return val
+
+
+def _fraction(text: str) -> float:
+    """argparse type: the fast-resident share of experts, in [0, 1]."""
+    try:
+        val = float(text)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(
+            f"--expert-fast-frac must be a number, got {text!r}") from e
+    if not 0.0 <= val <= 1.0:
+        raise argparse.ArgumentTypeError(
+            f"--expert-fast-frac must be in [0, 1], got {val}")
     return val
 
 
@@ -74,6 +101,16 @@ def run_continuous(args, cfg, params) -> None:
           f"demoted={rep.tiering['demoted']} "
           f"hint_faults={rep.tiering['hint_faults']}")
     t = rep.telemetry
+    if t.get("audit.matched", 0.0) > 0:
+        acc = {k.split("prediction.accuracy.", 1)[1]: v
+               for k, v in sorted(t.items())
+               if k.startswith("prediction.accuracy.")}
+        print("audit: "
+              + f"joins={int(t['audit.matched'])} "
+              + " ".join(f"acc[{m}]={v:.2f}" for m, v in acc.items())
+              + (f" probes={int(t['calibration.probes'])} "
+                 f"obs={int(t['calibration.observations'])}"
+                 if args.calibrate else ""))
     print(f"telemetry: events={int(t['trace_events'])} "
           f"samples={int(t['profiling_samples'])} "
           f"overhead={t['profiling_overhead_s']*1e3:.2f} ms "
@@ -83,7 +120,19 @@ def run_continuous(args, cfg, params) -> None:
              f"moved={t['moved_bytes']/1e6:.2f} MB "
              f"denied={t['denied_bytes']/1e6:.2f} MB "
              f"plan_cache_hits={int(t['plan_cache_hits'])}"
-             if args.adaptive else ""))
+             if args.adaptive else "")
+          + (f" prefetches={int(t['prefetches'])} "
+             f"budget_preemptions={int(t['budget_preemptions'])}"
+             if args.predictive else ""))
+    if args.expert_policy:
+        print(f"experts: policy={args.expert_policy} "
+              f"fast={int(t['expert.fast_residents'])} "
+              f"hit_ratio={t.get('expert.fast_hit_ratio', 0.0):.2f} "
+              f"promoted={int(t['expert.promoted'])} "
+              f"demoted={int(t['expert.demoted'])}"
+              + (f" prefetch_hit_ratio="
+                 f"{t['expert.prefetch_hit_ratio']:.2f}"
+                 if "expert.prefetch_hit_ratio" in t else ""))
     for tgt in rep.slo.get("targets", ()):
         rate = tgt.get("violation_rate")
         print(f"slo: {tgt['metric']} "
@@ -92,6 +141,14 @@ def run_continuous(args, cfg, params) -> None:
               f"{tgt['violations']} violation(s) over "
               f"{rep.slo['checks']} check(s)"
               + (f" rate={rate:.2f}" if rate is not None else ""))
+    if args.qos:
+        blame = rep.slo.get("blame", {})
+        print(f"qos: deferrals={int(t['qos_deferrals'])} "
+              f"slo_preemptions={int(t['slo_preemptions'])} "
+              f"excursions={blame.get('total_excursions', 0)}"
+              + (f" antagonist={blame['top_antagonist']} "
+                 f"link={blame['top_link']}"
+                 if blame.get("top_antagonist") else ""))
     for rid, row in rep.per_request:
         ttft = row.get("ttft_s")
         dec = row.get("decode_tok_s")
@@ -160,6 +217,38 @@ def main(argv=None):
                          "observed access telemetry")
     ap.add_argument("--replan-every", type=int, default=8,
                     help="scheduler iterations between adaptive replans")
+    ap.add_argument("--predictive", action="store_true",
+                    help="predictive control plane: key replans by "
+                         "phase recurrence signature, pre-stage the "
+                         "proven plan of a predicted next phase, "
+                         "rebalance the fast-tier grant and schedule "
+                         "moves in rounds (requires --adaptive)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="self-calibrating cost model: probe the pool's "
+                         "slow kind at start-up and keep correcting "
+                         "planning bandwidths online from prediction-"
+                         "audit residuals (requires --adaptive)")
+    from ..topology import TOPOLOGY_CHOICES
+    ap.add_argument("--topology", default=None,
+                    choices=list(TOPOLOGY_CHOICES),
+                    help="budget shared links in admission and (with "
+                         "--adaptive) price placements over this machine "
+                         "topology; h100-node is built from transfer "
+                         "probes of this machine's memory kinds")
+    ap.add_argument("--qos", action="store_true",
+                    help="interference-class QoS plane: blame ledger "
+                         "naming the noisy neighbour per tail excursion "
+                         "and violation-predictive admission (requires "
+                         "--topology and a decode SLO)")
+    ap.add_argument("--expert-policy", default=None,
+                    choices=["lru", "predictive"],
+                    help="MoE expert tier residency: experts become "
+                         "tiered objects with routing-driven heat; "
+                         "predictive also prefetches the predicted next "
+                         "phase's hot experts (MoE arch; the routing "
+                         "feed comes from --fused-gather)")
+    ap.add_argument("--expert-fast-frac", type=_fraction, default=0.25,
+                    help="share of experts that may be fast-resident")
     ap.add_argument("--sample-rate", type=_rate, default=1.0,
                     help="telemetry sampling rate (fraction of cache "
                          "lines; 1.0 = full instrumentation)")
@@ -197,6 +286,11 @@ def main(argv=None):
         validate_args(args)
     except ConfigError as e:
         ap.error(str(e))
+    if args.topology:
+        from ..topology import build_topology
+        for line in build_topology(args.topology,
+                                   device=args.device).describe():
+            print(line)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
     params = lm.init_params(cfg, seed=0, device=args.device)

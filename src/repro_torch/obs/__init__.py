@@ -6,13 +6,18 @@
              Prometheus text exporter
 - slo:       rolling-window SLO monitors and the lag-ratio monitor
 - audit:     prediction ledger joining planner forecasts with outcomes
-- calibrate: transfer probes of the memory kinds (``TierProbe``,
-             ``measure_transfer_probes``)
-
-The cost-model calibrator and the QoS plane are not ported yet.
+- calibrate: transfer probes of the memory kinds, and the cost-model
+             calibrator fitting per-link corrections from them and
+             online EWMA scales from audit residuals
+- qos:       interference-class QoS plane: blame attribution of SLO
+             violations to links and noisy neighbours, and
+             violation-predictive admission
 """
 from .audit import DriftDetector, PredictionLedger, PredictionRecord
-from .calibrate import measure_transfer_probes, TierProbe
+from .calibrate import (CostModelCalibrator, LinkCorrection,
+                        measure_transfer_probes, probe_testbed, TierProbe)
+from .qos import (BlameLedger, Excursion, QOS_VIOLATION_MODEL,
+                  QOS_VIOLATION_TOLERANCE, ViolationPredictor)
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        PercentileSketch)
 from .slo import LagRatioMonitor, SLOMonitor, SLOTarget
@@ -23,5 +28,8 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "PercentileSketch",
     "LagRatioMonitor", "SLOMonitor", "SLOTarget",
     "DriftDetector", "PredictionLedger", "PredictionRecord",
-    "measure_transfer_probes", "TierProbe",
+    "CostModelCalibrator", "LinkCorrection", "TierProbe",
+    "measure_transfer_probes", "probe_testbed",
+    "BlameLedger", "Excursion", "QOS_VIOLATION_MODEL",
+    "QOS_VIOLATION_TOLERANCE", "ViolationPredictor",
 ]

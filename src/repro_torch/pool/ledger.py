@@ -99,7 +99,22 @@ class ResidencyLedger:
         self._origin: Dict[Tuple[Namespace, str], str] = {}
         # tenant namespace -> {tier: budget bytes} (arbiter-assigned)
         self._budget: Dict[Namespace, Dict[str, int]] = {}
+        # tenant namespace -> {tier: bytes}: the sums of ``_res`` that
+        # ``bytes_on`` answers from, kept by every write to ``_res`` (a
+        # gate per move would otherwise sum over every object: tens of
+        # thousands of expert blocks at full MoE width)
+        self._tier_bytes: Dict[Namespace, Dict[str, int]] = {}
         self.counters = LedgerCounters()
+
+    def _tally(self, ns: Namespace, before: Mapping[str, int],
+               after: Mapping[str, int]) -> None:
+        """Account one object's bytes-per-tier change in its tenant's
+        per-tier sums."""
+        tot = self._tier_bytes.setdefault(ns, {})
+        for tier, b in before.items():
+            tot[tier] = tot.get(tier, 0) - b
+        for tier, b in after.items():
+            tot[tier] = tot.get(tier, 0) + b
 
     # ------------------------------------------------------------------ #
     # tenants                                                            #
@@ -162,6 +177,7 @@ class ResidencyLedger:
             raise LedgerError(f"{ns.with_obj(obj)} already registered")
         self._res[key] = {t: int(b) for t, b in placement.items()
                           if int(b) > 0}
+        self._tally(ns, {}, self._res[key])
         self._origin[key] = origin
         self.counters.allocs += 1
 
@@ -172,6 +188,7 @@ class ResidencyLedger:
         self._origin.pop(key, None)
         if res is None:
             return 0
+        self._tally(key[0], res, {})
         self.counters.frees += 1
         return sum(res.values())
 
@@ -192,6 +209,7 @@ class ResidencyLedger:
             self.counters.allocs += 1
         res = self._res[key]
         res[tier] = res.get(tier, 0) + int(nbytes)
+        self._tally(ns, {}, {tier: int(nbytes)})
 
     def record_free(self, tenant: TenantKey, obj: str, tier: str,
                     nbytes: int) -> None:
@@ -207,6 +225,7 @@ class ResidencyLedger:
             res.pop(tier, None)
         else:
             res[tier] = have - take
+        self._tally(ns, {tier: take}, {})
         if not res:
             self.retire(ns, obj)
 
@@ -228,6 +247,7 @@ class ResidencyLedger:
         if res[src] <= 0:
             res.pop(src, None)
         res[dst] = res.get(dst, 0) + moved
+        self._tally(key[0], {src: moved}, {dst: moved})
         self.counters.moves += 1
         self.counters.migrated_bytes += moved
         return moved
@@ -242,8 +262,10 @@ class ResidencyLedger:
         if key not in self._res:
             self.register(ns, obj, placement, origin="plan")
             return
+        before = self._res[key]
         self._res[key] = {t: int(b) for t, b in placement.items()
                           if int(b) > 0}
+        self._tally(ns, before, self._res[key])
 
     def resize(self, tenant: TenantKey, obj: str, new_total: int,
                grow_tier: Optional[str] = None) -> None:
@@ -263,6 +285,7 @@ class ResidencyLedger:
             tier = grow_tier if grow_tier is not None \
                 else max(res, key=res.get)
             res[tier] = res.get(tier, 0) + (new_total - old_total)
+            self._tally(key[0], {}, {tier: new_total - old_total})
             return
         scaled = {t: int(b * new_total / old_total) for t, b in res.items()}
         slack = new_total - sum(scaled.values())
@@ -270,6 +293,7 @@ class ResidencyLedger:
             # deterministic: remainder to the largest current holder
             scaled[max(scaled, key=scaled.get)] += slack
         self._res[key] = {t: b for t, b in scaled.items() if b > 0}
+        self._tally(key[0], res, self._res[key])
 
     # ------------------------------------------------------------------ #
     # queries                                                            #
@@ -278,14 +302,14 @@ class ResidencyLedger:
         """Bytes resident on ``tier`` — one tenant, a glob pattern
         (``"replica0/*"``), or all tenants when omitted."""
         if tenant is None:
-            return sum(res.get(tier, 0) for res in self._res.values())
+            return sum(tot.get(tier, 0)
+                       for tot in self._tier_bytes.values())
         if isinstance(tenant, str) and is_pattern(tenant):
-            return sum(res.get(tier, 0)
-                       for (tn, _), res in self._res.items()
+            return sum(tot.get(tier, 0)
+                       for tn, tot in self._tier_bytes.items()
                        if tn.matches(tenant))
         ns = Namespace.of(tenant).tenant_key()
-        return sum(res.get(tier, 0) for (tn, _), res in self._res.items()
-                   if tn == ns)
+        return self._tier_bytes.get(ns, {}).get(tier, 0)
 
     def aggregate(self, pattern: str = "*/*") -> Dict[str, int]:
         """Bytes-per-tier rolled up over every tenant matching a glob

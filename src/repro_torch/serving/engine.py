@@ -32,12 +32,29 @@ the live sequences' KV placement every ``replan_every`` iterations from
 the measured traffic (``ObjectLevelInterleave`` gated by the cost
 model) and moves their blocks through ``_move_seq_blocks``.  It plans
 over tiers built from transfer probes of this machine's memory kinds
-(``kind_bases``).  Replans change residency only, never a value: the
-tokens are those of the same run without ``adaptive``.
+(``kind_bases``), or over the testbed's tiers under a ``topology``.
+Replans change residency only, never a value: the tokens are those of
+the same run without ``adaptive``.
 
-The reference's other control planes (predictive arbitration,
-calibration, topology, QoS, MoE expert residency, the multi-host
-cluster) are not ported yet: their options raise
+The other control planes, wired as the reference wires them:
+
+  * ``topology``: a testbed graph (``topology.build_topology``) whose
+    fast and capacity nodes carry the pool's memory kinds; the
+    scheduler admits under a shared-link budget, and moves are priced
+    over the graph's paths;
+  * ``predictive``: a predictive ``TierBudgetArbiter`` rebalances this
+    tenant's fast-tier grant each replan epoch, replans key their plan
+    cache by phase signature and pre-stage the predicted next phase,
+    and replan deltas run through a ``MoveScheduler`` round;
+  * ``calibrate``: a ``CostModelCalibrator`` fitted at start-up to one
+    transfer probe of the slow kind, refreshed from audit residuals;
+  * ``qos``: blame attribution of decode-latency violations and
+    violation-predictive admission and preemption;
+  * ``expert_policy``: MoE expert residency (``ExpertPool``), fed with
+    the routed expert ids of the fused path.  Residency is ledger
+    bookkeeping: expert weights never move.
+
+The multi-host cluster is not ported yet: its option raises
 ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
@@ -58,11 +75,16 @@ from ..kernels import ops
 from ..launch import steps as steps_mod
 from ..models import lm
 from ..models import modules as M
-from ..obs import (LagRatioMonitor, measure_transfer_probes, MetricsRegistry,
-                   PredictionLedger, SLOMonitor, SLOTarget, TraceRecorder)
+from ..obs import (BlameLedger, CostModelCalibrator, LagRatioMonitor,
+                   measure_transfer_probes, MetricsRegistry, PredictionLedger,
+                   SLOMonitor, SLOTarget, TraceRecorder, ViolationPredictor)
+from ..pool import MoveScheduler, TierBudgetArbiter
 from ..telemetry import (AccessSampler, AccessTrace, AdaptiveReplanner,
                          PhaseDetector, ReplanConfig, SamplerConfig)
+from ..topology import build_topology
 from . import config as config_mod
+from .expert_pool import (expert_nbytes_from_config, ExpertPool,
+                          moe_layers_from_config)
 from .kv_pool import FAST_KIND, PagedKVPool, spec_from_config
 from .metrics import ServingMetrics
 from .scheduler import (ContinuousBatchingScheduler, plan_admission, Request,
@@ -72,11 +94,6 @@ from .tiering import KVBlockTierer
 # options of the reference ServingConfig whose planes are not ported
 # yet -> the ROADMAP queue-1 item that ports them
 _NOT_PORTED = {
-    "predictive": "item 5 (engine control planes)",
-    "calibrate": "item 5 (engine control planes)",
-    "topology": "item 5 (engine control planes)",
-    "qos": "item 5 (engine control planes)",
-    "expert_policy": "item 3 (serving/expert_pool.py)",
     "cluster": "item 9 (cluster)",
 }
 
@@ -309,17 +326,26 @@ class ServingConfig:
     # fused decode: pooled KV layout read through block tables by the
     # paged_decode_attention kernel (no staging copy)
     fused_gather: bool = False
-    # reference options whose planes are not ported yet (see
-    # _NOT_PORTED): setting any of them raises NotImplementedError
+    # predictive control plane: arbiter + move scheduler in-engine,
+    # plans keyed by phase signature (requires adaptive)
     predictive: bool = False
+    # topology testbed (topology.TOPOLOGY_CHOICES): link-budget
+    # admission and path-priced moves
     topology: Optional[str] = None
+    # interference-class QoS: blame + violation-predictive admission
+    # (requires topology and a decode SLO)
     qos: bool = False
     qos_class: str = "read"
+    # cost-model calibration from a start-up probe and audit residuals
+    # (requires adaptive)
     calibrate: bool = False
+    # MoE expert residency: "lru" | "predictive" (None = off), with the
+    # fraction of all (layer, expert) blocks the fast tier may hold
     expert_policy: Optional[str] = None
     expert_fast_fraction: float = 0.25
     # nested sections (serving.config): the grouped view of the flat
-    # fields above, kept coherent with them by __post_init__
+    # fields above, kept coherent with them by __post_init__; cluster
+    # is not ported (_NOT_PORTED)
     tiering: Optional[config_mod.TieringOptions] = None
     qos_options: Optional[config_mod.QoSOptions] = None
     experts: Optional[config_mod.ExpertOptions] = None
@@ -485,6 +511,16 @@ class ServingEngine:
             pooled=sv.fused_gather, device=self.device)
         self.ledger = self.pool.ledger
         self.tierer = KVBlockTierer(self.pool, sv.policy)
+        topo = None
+        tb = None
+        if sv.topology:
+            tb = build_topology(sv.topology, device=self.device)
+            topo = tb.graph
+            # the pool's memory kinds ride the testbed's fast node and
+            # its capacity-expander (CXL-class) node
+            topo.alias_tier(tb.fast, FAST_KIND)
+            topo.alias_tier(tb.capacity_tier, self.pool.slow_kind)
+        self.topo = topo
         # observability plane: one tracer + registry + audit ledger +
         # SLO monitor per engine, on the engine's run clock (_now),
         # created before the components they instrument
@@ -508,11 +544,37 @@ class ServingEngine:
         self.lag = LagRatioMonitor()
         self._lag_tokens = 0          # decode tokens at last epoch close
         self._lag_time = 0.0          # _now() at last epoch close
+        # interference-class QoS plane: blame attribution + predictive
+        # admission, both priced on the topology's class-aware
+        # contention model
+        self.blame = None
+        self.predictor = None
+        self._qos_last_key: Optional[int] = None
+        if sv.qos:
+            if topo is None:
+                raise ValueError("qos requires a topology (the blame "
+                                 "plane attributes violations to links)")
+            decode_slo = sv.slo_p99_decode_s or sv.slo_p95_decode_s
+            if decode_slo is None:
+                raise ValueError("qos requires a decode SLO "
+                                 "(slo_p99_decode_s or slo_p95_decode_s)")
+            self.blame = BlameLedger(topo, registry=self.registry,
+                                     tracer=self.tracer, clock=self._now)
+            self.predictor = ViolationPredictor(topo, blame=self.blame,
+                                                audit=self.audit)
+            self.predictor.set_target(sv.tenant, decode_slo)
+            # every decode-latency excursion is joined to its
+            # bottleneck link and antagonist when it fires
+            self.slo.add_violation_hook(
+                lambda t, v, now: self.blame.on_violation(
+                    sv.tenant, t.key, v, t.threshold_s, now=now)
+                if t.metric == "decode_latency" else None)
         self.sched = ContinuousBatchingScheduler(
             self.pool, SchedulerConfig(
                 max_batch=max_batch,
-                max_prefill_per_iter=sv.max_prefill_per_iter),
-            tracer=self.tracer)
+                max_prefill_per_iter=sv.max_prefill_per_iter,
+                flow_class=sv.qos_class),
+            topology=topo, tracer=self.tracer, predictor=self.predictor)
         self.metrics = ServingMetrics(registry=self.registry,
                                       slo=self.slo)
         # telemetry: the pool emits access events through a sampling
@@ -526,10 +588,33 @@ class ServingEngine:
         self.ledger.attach_trace(sv.tenant, self.trace)
         self.phases = PhaseDetector(self.trace)
         self.replanner: Optional[AdaptiveReplanner] = None
+        if sv.predictive and not sv.adaptive:
+            raise ValueError("predictive serving requires adaptive=True "
+                             "(prediction pre-stages the replanner's "
+                             "phase-cached plans)")
+        if sv.calibrate and not sv.adaptive:
+            raise ValueError("calibrate requires adaptive=True (the "
+                             "corrections feed the replanner's cost "
+                             "model)")
+        self.calibrator = None
         if sv.adaptive:
-            tiers = kind_tiers(self.pool)
+            if tb is not None:
+                tiers = kind_tiers(self.pool,
+                                   fast_base=tb.tiers[tb.fast],
+                                   slow_base=tb.tiers[tb.capacity_tier])
+            else:
+                tiers = kind_tiers(self.pool)
+            if sv.calibrate:
+                self.calibrator = CostModelCalibrator(tiers, graph=topo)
+                # start-up fit: one transfer probe of the pool's slow
+                # kind (tiers are named by memory kind, so the probe
+                # maps directly); the fast tier keeps its numbers
+                self.calibrator.fit_probes(measure_transfer_probes(
+                    kinds=(self.pool.slow_kind,), n_mb=16, iters=2,
+                    device=self.device))
             executor = MigrationExecutor(tiers,
-                                         move_fn=self._move_seq_blocks)
+                                         move_fn=self._move_seq_blocks,
+                                         topology=topo)
             # the staged path on the card moves block payloads between
             # HBM and host memory: audit each priced move time against
             # its wall time.  Pooled and CPU-engine moves are residency
@@ -541,10 +626,50 @@ class ServingEngine:
                 cfg=ReplanConfig(replan_every=max(sv.replan_every, 1),
                                  window_epochs=max(sv.replan_every, 1)),
                 executor=executor, default_tier=self.pool.slow_kind,
-                ledger=self.ledger, tenant=sv.tenant,
-                tracer=self.tracer, audit=self.audit)
+                topology=topo, ledger=self.ledger, tenant=sv.tenant,
+                tracer=self.tracer, audit=self.audit,
+                calibrator=self.calibrator)
             executor.tracer = self.tracer
             executor.audit = self.audit
+            executor.calibrator = self.calibrator
+            executor.recalibrate()
+        # predictive engines run the control plane in-engine: a
+        # predictive TierBudgetArbiter rebalances this tenant's
+        # fast-tier grant each replan epoch (capacity = the configured
+        # fast-block budget), and replan deltas defer to a MoveScheduler
+        # round so the trace shows the scheduled batch
+        self.arbiter = None
+        self.movesched = None
+        if sv.predictive:
+            self.arbiter = TierBudgetArbiter(
+                self.ledger, FAST_KIND,
+                capacity_bytes=fast_budget * self.pool.block_nbytes(),
+                objective="fair_share", predictive=True,
+                tracer=self.tracer, audit=self.audit)
+            self.movesched = MoveScheduler(
+                self.replanner.executor, self.ledger, tracer=self.tracer)
+            self.movesched.audit = self.audit
+            self.movesched.calibrator = self.calibrator
+            self.replanner.move_scheduler = self.movesched
+        # MoE expert tier residency: every (layer, expert) weight block
+        # is a tiered object with routing-driven heat, sharing the move
+        # scheduler when there is one but keeping its own residency
+        # namespace (the KV arbiter's grant is not split against expert
+        # bytes)
+        self.expert_pool = None
+        self._moe_per_unit = sum(1 for s in cfg.pattern if s.moe)
+        if sv.expert_policy:
+            n_moe = moe_layers_from_config(cfg)
+            if n_moe == 0:
+                raise ValueError(f"{cfg.name}: expert_policy set but "
+                                 "the model has no MoE layers")
+            total = n_moe * cfg.n_experts
+            budget = max(1, int(round(total * sv.expert_fast_fraction)))
+            self.expert_pool = ExpertPool(
+                n_moe, cfg.n_experts, expert_nbytes_from_config(cfg),
+                fast_expert_budget=budget, policy=sv.expert_policy,
+                tenant=f"{sv.tenant}.experts", slow_kind=sv.slow_kind,
+                movesched=self.movesched, tracer=self.tracer)
         self._units = (lm.unit_views(params, cfg)
                        if params is not None else None)
         self._prefill = steps_mod.make_prefill_step(cfg)
@@ -701,8 +826,8 @@ class ServingEngine:
     def _fused_decode_batch(self, batch):
         """Fused decode: no staging copy — the kernel reads the pooled
         stores through each sequence's block table.  Returns (logits,
-        new_k, new_v); routed expert ids are dropped (no expert
-        residency plane yet), router margins logged."""
+        new_k, new_v); router margins are logged, and the routed expert
+        ids of the live rows feed per-expert heat."""
         tbl, _ = self.pool.gather_tables([r.rid for r in batch],
                                          self.max_seq_blocks)
         n_pad = self.max_batch - len(batch)
@@ -711,7 +836,7 @@ class ServingEngine:
                 [tbl, np.zeros((n_pad, tbl.shape[1]), np.int32)])
         tokens, lengths = self._batch_inputs(batch)
         nears = [] if self._track_routes else None
-        logits, new_k, new_v, _ = _fused_paged_decode(
+        logits, new_k, new_v, routed = _fused_paged_decode(
             self.cfg, self.sv.block_tokens, self._units, self.params,
             tokens, self.pool.k_store, self.pool.v_store,
             torch.as_tensor(tbl, device=self.device), lengths,
@@ -719,6 +844,14 @@ class ServingEngine:
         if nears:
             self._route_log.append(([r.rid for r in batch],
                                     torch.stack(nears)))
+        if self.expert_pool is not None and routed.shape[1]:
+            ids = routed.cpu().numpy()     # (U, n_moe, B, K), one copy
+            for u in range(ids.shape[0]):
+                for m in range(ids.shape[1]):
+                    gl = u * self._moe_per_unit + m
+                    for i in range(len(batch)):
+                        self.expert_pool.record_routing(
+                            gl, ids[u, m, i], self._step)
         return logits, new_k, new_v
 
     def _decode_iteration(self, now: float) -> None:
@@ -768,8 +901,10 @@ class ServingEngine:
 
     def _replan_step(self) -> None:
         """One telemetry epoch: close the bucket, track phases, and (in
-        adaptive mode) attempt an object-level replan over the live
-        sequences, with plans cached per phase label."""
+        adaptive mode) attempt an object-level replan over live
+        sequences.  Predictive mode keys the plan cache by recurrence
+        signature and pre-stages the proven plan of a predicted
+        next-epoch phase during the current one's slack."""
         self.sampler.advance_epoch()
         self.phases.update()
         # live lag monitor: one (phase, tokens, time) sample per epoch
@@ -783,18 +918,87 @@ class ServingEngine:
         self.tracer.event("phase.update", cat="phase",
                           epoch=self._step, label=str(self.phases.label),
                           shifts=len(self.phases.shifts))
+        if self.expert_pool is not None:
+            # close the expert heat epoch and run promote/demote (and,
+            # under the predictive policy, next-phase prefetch)
+            self.expert_pool.step(self._step)
+        if self.blame is not None:
+            # keep this tenant's class-tagged offered flows current in
+            # the blame book *before* the SLO check, so a firing
+            # violation attributes against fresh loads
+            self.blame.publish_flows(self.sv.tenant,
+                                     self.sched._running_flows(),
+                                     now=now)
+            if self.expert_pool is not None:
+                # expert-gather traffic rides the same tier link as KV
+                # gathers: published class-tagged under the expert
+                # namespace, so blame splits demand reads from prefetch
+                self.blame.publish_flows(
+                    self.expert_pool.tenant,
+                    self.expert_pool.gather_flows(self.topo), now=now)
         if self.slo.targets and self._step % 16 == 0:
             self.slo.check()
+            if self.predictor is not None:
+                self._qos_audit_step()
         if (self.replanner is None or self.sv.replan_every <= 0
                 or self._step == 0
                 or self._step % self.sv.replan_every != 0):
             return
+        if self.arbiter is not None:
+            self.arbiter.rebalance(epoch=self._step)
+        if self.calibrator is not None:
+            # refresh the replanner's planning view from the online
+            # scale corrections the audit loop accumulated this epoch
+            self.replanner.recalibrate()
         bn = self.pool.block_nbytes()
         nbytes = {f"seq{sid}": len(tbl) * bn
                   for sid, tbl in self.pool.table.items() if tbl}
-        if nbytes:
+        if not nbytes:
+            return
+        try:
+            if self.sv.predictive and self.phases.signature is not None:
+                cur = self.phases.expected_signature(1)
+                nxt = self.phases.expected_signature(2)
+                if nxt is not None and nxt != cur:
+                    d = self.replanner.prefetch_phase(self._step, nbytes,
+                                                      nxt)
+                    if d is not None:
+                        return
+                self.replanner.maybe_replan(self._step, nbytes,
+                                            force=True, phase=cur)
+                return
+            # phase-conditioned plan cache: recurring detector labels
+            # reuse their plan
             self.replanner.maybe_replan(self._step, nbytes, force=True,
                                         phase=self.phases.label)
+        finally:
+            # deferred applies land this epoch: flush the move round so
+            # the realized residency is adopted before the next
+            # iteration reads the ledger
+            if self.movesched is not None and self.movesched.has_pending:
+                self.movesched.flush(epoch=self._step)
+
+    def _qos_audit_step(self) -> None:
+        """One predict/realize audit cycle for the ``qos.violation``
+        model: join the previous check's tail forecast with the window
+        p99 measured now, refresh the online baseline, and file the
+        forecast for the next check from the live flow set."""
+        sv = self.sv
+        q = 0.99 if sv.slo_p99_decode_s is not None else 0.95
+        observed = self.slo.quantile("decode_latency", q)
+        if observed is None:
+            return
+        if self._qos_last_key is not None:
+            self.predictor.realize(self._qos_last_key, sv.tenant,
+                                   observed)
+            self._qos_last_key = None
+        self.predictor.observe_p99(sv.tenant, observed)
+        pred = self.predictor.file_prediction(
+            self._step, sv.tenant,
+            extra_flows=self.sched._running_flows(),
+            exclude=sv.tenant, epoch=self._step)
+        if pred is not None:
+            self._qos_last_key = self._step
 
     def telemetry_summary(self) -> Dict[str, float]:
         out: Dict[str, float] = {
@@ -802,29 +1006,44 @@ class ServingEngine:
             "profiling_samples": float(self.sampler.samples),
             "profiling_overhead_s": self.sampler.overhead_s,
             "phase_shifts": float(len(self.phases.shifts)),
-            # link budgets and QoS admission are not ported: the port's
-            # scheduler never defers or evicts for them
-            "link_deferrals": 0.0,
+            "link_deferrals": float(self.sched.link_deferrals),
             "budget_preemptions": float(self.sched.budget_preemptions),
-            "qos_deferrals": 0.0,
-            "slo_preemptions": 0.0,
+            "qos_deferrals": float(self.sched.qos_deferrals),
+            "slo_preemptions": float(self.sched.slo_preemptions),
             "ledger_migrated_bytes": float(
                 self.ledger.counters.migrated_bytes),
         }
         if self.replanner is not None:
             out.update(self.replanner.summary())
+        if self.expert_pool is not None:
+            out.update(self.expert_pool.summary())
+        if self.movesched is not None:
+            for k, v in self.movesched.summary().items():
+                out[f"movesched.{k}"] = v
+        if self.arbiter is not None:
+            out["arbiter_rebalances"] = float(len(self.arbiter.decisions))
+            out["arbiter_predicted_grants"] = float(
+                self.arbiter.predicted_grants)
         lag = self.lag.ratio()
         if lag is not None:
             out["live_burst_entry_ratio"] = float(lag)
         out["trace_recorded_events"] = float(len(self.tracer))
         out["trace_dropped_events"] = float(self.tracer.dropped)
+        if self.blame is not None:
+            out.update(self.blame.summary())
         out.update(self.audit.summary())
+        if self.calibrator is not None:
+            out.update(self.calibrator.summary())
         return out
 
     def audit_report(self) -> Dict[str, object]:
         """Structured prediction-audit artifact (the ``--audit-out``
-        payload): per-model residual stats."""
-        return {"audit": self.audit.report()}
+        payload): per-model residual stats plus, when calibration is
+        on, the fitted/online correction state."""
+        out: Dict[str, object] = {"audit": self.audit.report()}
+        if self.calibrator is not None:
+            out["calibration"] = self.calibrator.summary()
+        return out
 
     # ------------------------------------------------------------------ #
     def _now(self) -> float:
@@ -838,7 +1057,14 @@ class ServingEngine:
         self._virtual_skew = 0.0
         while self.sched.active and self._step < max_iterations:
             now = self._now()
+            # an arbiter may have shrunk this tenant's fast budget in
+            # the shared ledger since the last iteration: enforce it
+            # before admitting new work (freed blocks re-admit victims)
             for v in self.sched.preempt_over_budget():
+                self.metrics.on_preempt(v.rid, now)
+            # predictive QoS: back off while any registered tenant's
+            # predicted tail exceeds its target under our live flows
+            for v in self.sched.preempt_predicted_violation():
                 self.metrics.on_preempt(v.rid, now)
             admitted = self.sched.admit(now_s=now)
             if not admitted and not self.sched.running:
@@ -881,8 +1107,13 @@ class ServingEngine:
         self.registry.set_gauges(telemetry, prefix="serving.telemetry")
         self.ledger.publish(self.registry)
         self.registry.set_gauges(self.audit.summary())
+        if self.calibrator is not None:
+            self.calibrator.publish(self.registry)
+        slo = self.slo.summary()
+        if self.blame is not None:
+            slo["blame"] = self.blame.blame_report()
         return ServingReport(
             summary=summary,
             per_request=self.metrics.per_request_rows(),
             tiering=tstats, policy=self.tierer.policy_name,
-            telemetry=telemetry, slo=self.slo.summary())
+            telemetry=telemetry, slo=slo)

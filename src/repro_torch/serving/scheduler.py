@@ -1,15 +1,23 @@
-"""Continuous-batching request scheduler over the paged KV pool.
+"""PyTorch-port copy of ``repro.serving.scheduler`` (without
+``submit_all``, which comes with the cluster plane).
 
-PyTorch-port copy of ``repro.serving.scheduler``, without the
-topology link budget and the QoS predictor (those planes are not ported
-yet).  Pure bookkeeping — no tensors.  The engine owns the model math; the
+Continuous-batching request scheduler over the paged KV pool.
+
+Pure bookkeeping — no tensors.  The engine owns the model math; the
 scheduler owns *which* requests prefill, decode, or get preempted each
 iteration, against the pool's block accounting:
 
   * FIFO admission from the wait queue, capped by (a) an admission
     budget derived from the cost model's capacity reasoning (LIO 3:
-    batch scales with memory capacity) and (b) the pool having enough
-    free blocks for the request's prompt plus a growth margin;
+    batch scales with memory capacity), (b) the pool having enough
+    free blocks for the request's prompt plus a growth margin, and
+    (c) — with a ``TopologyGraph`` attached — a *link budget*: each
+    running request's KV gather is a flow from its blocks' resident
+    kinds to the fast kind, and ``TopologyGraph.contended_flows``
+    fair-shares the PCIe/UPI links those flows cross; a candidate
+    whose admission would drag any flow below
+    ``link_efficiency_floor`` of its offered bandwidth stays queued
+    (block capacity alone does not see shared-link saturation);
   * prefill/decode interleaving: at most ``max_prefill_per_iter`` new
     admissions per iteration, so admission bursts cannot starve the
     running batch (the latency/throughput split of Fig. 11);
@@ -31,7 +39,7 @@ import dataclasses
 import enum
 import math
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
 
@@ -129,22 +137,46 @@ class SchedulerConfig:
     # free blocks a request must leave after admission (growth margin,
     # in blocks) before it is let in — crude decode headroom control
     admission_margin_blocks: int = 1
+    # contention-aware admission (repro.topology): a candidate is
+    # admitted only while every gather flow keeps at least this
+    # fraction of its offered bandwidth under fair link sharing
+    link_efficiency_floor: float = 0.5
+    # assumed iteration period for converting a request's KV gather
+    # bytes into an offered bandwidth (GB/s = bytes / period / 1e9)
+    gather_period_s: float = 0.05
+    # interference class this tenant's KV gather traffic presents to
+    # the class-aware contention model (read | write | prefetch)
+    flow_class: str = "read"
 
 
 class ContinuousBatchingScheduler:
-    """Queue + running set + preemption over a PagedKVPool."""
+    """Queue + running set + preemption over a PagedKVPool.
+
+    ``topology`` (a repro.topology.TopologyGraph whose tier nodes are
+    aliased to the pool's memory kinds) switches admission from pure
+    block capacity to capacity + shared-link budgeting.
+    """
 
     def __init__(self, pool: PagedKVPool,
-                 cfg: Optional[SchedulerConfig] = None, tracer=None):
+                 cfg: Optional[SchedulerConfig] = None,
+                 topology=None, tracer=None, predictor=None):
         self.pool = pool
         self.cfg = cfg or SchedulerConfig()
-        self.tracer = tracer          # trace recorder (obs plane), or None
+        self.topology = topology
+        self.tracer = tracer          # optional repro.obs.TraceRecorder
+        # optional repro.obs.ViolationPredictor: admission + preemption
+        # gate on predicted SLO violation instead of the flat
+        # link_efficiency_floor
+        self.predictor = predictor
         self.waiting: Deque[Request] = deque()
         self.running: List[Request] = []
         self.finished: List[Request] = []
         self._admit_stamp = 0
         self.preemption_events = 0
+        self.link_deferrals = 0       # admissions blocked by link budget
         self.budget_preemptions = 0   # evictions forced by ledger budget
+        self.qos_deferrals = 0        # blocked by predicted violation
+        self.slo_preemptions = 0      # evictions forced by predicted SLO
 
     # ------------------------------------------------------------------ #
     def submit(self, req: Request) -> None:
@@ -160,6 +192,103 @@ class ContinuousBatchingScheduler:
         """Blocks for the request's current context + one decode token."""
         return self.pool.blocks_for_tokens(req.context_len + 1)
 
+    # ------------------------------------------------------------------ #
+    def _gather_flow(self, kind: str, n_blocks: int):
+        """One KV-gather flow: ``n_blocks`` streamed from ``kind``'s
+        node to the fast kind's node each iteration (None if the
+        topology doesn't map the kinds or they share a node)."""
+        from ..topology import Flow
+        src = self.topology.node_of(kind)
+        dst = self.topology.node_of(FAST_KIND)
+        if src is None or dst is None or src == dst:
+            return None
+        offered = (n_blocks * self.pool.block_nbytes()
+                   / self.cfg.gather_period_s / 1e9)
+        if offered <= 0:
+            return None
+        return Flow(src, dst, offered, cls=self.cfg.flow_class,
+                    tenant=self.pool.tenant)
+
+    def _running_flows(self) -> List:
+        """Per-request gather flows for the running set, grouped by the
+        resident kind of each request's slow-tier blocks (read through
+        the pool's ledger-backed residency)."""
+        flows = []
+        for req in self.running:
+            per_kind: Dict[str, int] = {}
+            for b in self.pool.seq_blocks(req.rid):
+                if b.kind != FAST_KIND:
+                    per_kind[b.kind] = per_kind.get(b.kind, 0) + 1
+            for kind, n in per_kind.items():
+                f = self._gather_flow(kind, n)
+                if f is not None:
+                    flows.append(f)
+        return flows
+
+    def _link_budget_allows(self, req: Request, running: List,
+                            pending: List) -> bool:
+        """Does admitting ``req`` keep its own gather flow above the
+        efficiency floor without dragging any currently-healthy flow
+        below it?  Only the candidate's *marginal* effect counts: a
+        flow already below the floor (e.g. demotion-heavy residency on
+        an unrelated link) must not head-of-line-block admissions that
+        would not make it worse.  ``running`` is the admit-call's
+        snapshot of ``_running_flows()`` (residency cannot change
+        mid-admission); ``pending`` accumulates this call's admitted
+        candidates."""
+        cand = self._gather_flow(self.pool.default_kind,
+                                 self.blocks_needed(req))
+        if cand is None:
+            return True
+        floor = self.cfg.link_efficiency_floor
+        base = running + pending
+        healthy = [r.achieved_GBps >= floor * f.offered_GBps
+                   for f, r in zip(base,
+                                   self.topology.contended_flows(base))]
+        flows = base + [cand]
+        results = self.topology.contended_flows(flows,
+                                                tracer=self.tracer)
+        ok = results[-1].achieved_GBps >= floor * cand.offered_GBps \
+            and all(r.achieved_GBps >= floor * f.offered_GBps
+                    for (f, r), was in zip(zip(base, results), healthy)
+                    if was)
+        if ok:
+            pending.append(cand)
+        return ok
+
+    def _qos_allows(self, req: Request, running: List,
+                    pending: List) -> bool:
+        """Violation-predictive admission: would admitting ``req`` keep
+        every tenant with a registered SLO target (this one and the
+        neighbors in the blame book) under its predicted-p99 threshold?
+        Replaces the flat efficiency floor when a ``ViolationPredictor``
+        is attached — the floor is blind to *who* the lost bandwidth
+        hurts; the predictor prices the candidate against the victim's
+        actual tail budget."""
+        cand = self._gather_flow(self.pool.default_kind,
+                                 self.blocks_needed(req))
+        if cand is None:
+            return True
+        if not running and not pending:
+            # empty-pool bootstrap: with nothing running, deferring the
+            # sole workload protects no one — an unachievable own target
+            # must not starve the engine (liveness over forecast)
+            pending.append(cand)
+            return True
+        own = running + pending + [cand]
+        ok = self.predictor.admission_ok(own, exclude=self.pool.tenant)
+        if ok:
+            pending.append(cand)
+        elif self.tracer is not None:
+            viol = self.predictor.violations(own,
+                                             exclude=self.pool.tenant)
+            self.tracer.event(
+                "sched.qos_defer", cat="sched", rid=req.rid,
+                offered_GBps=cand.offered_GBps,
+                violations={t: {"predicted_s": p, "threshold_s": thr}
+                            for t, (p, thr) in viol.items()})
+        return ok
+
     def admit(self, now_s: float = 0.0) -> List[Request]:
         """Admit waiting requests FIFO under batch + block budgets.
 
@@ -168,6 +297,9 @@ class ContinuousBatchingScheduler:
         admitted requests — the engine must prefill each one.
         """
         admitted: List[Request] = []
+        pending_flows: List = []       # flows of this call's admissions
+        running_flows: List = (self._running_flows()
+                               if self.topology is not None else [])
         margin = self.cfg.admission_margin_blocks
         while (self.waiting
                and len(self.running) < self.cfg.max_batch
@@ -177,6 +309,16 @@ class ContinuousBatchingScheduler:
                 break
             need = self.blocks_needed(head)
             if not self.pool.can_alloc(need + margin):
+                break
+            if self.topology is not None and self.predictor is not None:
+                if not self._qos_allows(head, running_flows,
+                                        pending_flows):
+                    self.qos_deferrals += 1
+                    break
+            elif self.topology is not None and \
+                    not self._link_budget_allows(head, running_flows,
+                                                 pending_flows):
+                self.link_deferrals += 1
                 break
             self.waiting.popleft()
             head.state = RequestState.RUNNING
@@ -249,6 +391,43 @@ class ContinuousBatchingScheduler:
                          key=lambda r: (r.priority, -r.admit_order))
             self._evict(victim, reason="budget")
             self.budget_preemptions += 1
+            victims.append(victim)
+        return victims
+
+    def preempt_predicted_violation(self) -> List[Request]:
+        """Predictive QoS preemption: while this tenant's live gather
+        flows push any tenant with a registered SLO target past its
+        predicted-p99 threshold, evict the lowest-priority running
+        sequence still holding slow-tier blocks (the ones generating
+        cross-link traffic).  The flat-floor baseline only reacts after
+        the victim's tail has already blown; this backs off while the
+        violation is still a forecast."""
+        if self.predictor is None:
+            return []
+        victims: List[Request] = []
+        while self.running:
+            own = self._running_flows()
+            if not own:
+                break
+            viol = self.predictor.violations(own,
+                                             exclude=self.pool.tenant)
+            if not viol:
+                break
+            if set(viol) == {self.pool.tenant} and len(self.running) <= 1:
+                # self-inflicted forecast with nothing left to shed
+                # against: evicting the last sequence cannot improve its
+                # own tail (the work still has to run) — it only
+                # livelocks the engine through evict/readmit cycles
+                break
+            holders = [r for r in self.running
+                       if any(b.kind != FAST_KIND
+                              for b in self.pool.seq_blocks(r.rid))]
+            if not holders:
+                break
+            victim = min(holders,
+                         key=lambda r: (r.priority, -r.admit_order))
+            self._evict(victim, reason="slo")
+            self.slo_preemptions += 1
             victims.append(victim)
         return victims
 

@@ -42,3 +42,206 @@ def assert_close(got, want, tol=FP32) -> None:
 def normal(rs: np.random.RandomState, shape, scale=1.0,
            dtype=np.float32) -> np.ndarray:
     return (rs.standard_normal(shape) * scale).astype(dtype)
+
+
+# ===================================================================== #
+# framework-free planes: one scenario, run once on each package         #
+# ===================================================================== #
+# floats of the control planes: the same float64 arithmetic on both
+# sides, held to 1e-9 relative; integers, strings and decisions exactly
+PLANE_REL = 1e-9
+
+
+def package(root: str, *modules: str):
+    """A namespace holding ``root`` and the given submodules of it, as
+    attributes named with ``_`` for ``.`` (``"obs.qos"`` -> ``obs_qos``),
+    so that one scenario function runs against either package."""
+    import importlib
+    import types
+    ns = types.SimpleNamespace(root=root)
+    for m in modules:
+        setattr(ns, m.replace(".", "_"),
+                importlib.import_module(f"{root}.{m}"))
+    return ns
+
+
+def plain(x):
+    """A result as builtins: dataclasses as dicts of their fields, enums
+    by name, tuples as lists, numpy scalars and arrays as Python values,
+    other keys and objects by ``str`` — so the two packages' results,
+    which are instances of different classes, compare."""
+    import dataclasses
+    import enum
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: plain(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, enum.Enum):
+        return x.name
+    if isinstance(x, dict):
+        return {_key(k): plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [plain(v) for v in x]
+    if isinstance(x, (set, frozenset)):
+        return sorted((plain(v) for v in x), key=repr)
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    return str(x)
+
+
+def _key(k):
+    if isinstance(k, tuple):
+        return tuple(_key(v) for v in k)
+    if k is None or isinstance(k, (bool, int, float, str)):
+        return k
+    return str(k)
+
+
+def assert_same(got, want, rel=PLANE_REL, path="result") -> None:
+    """``got`` (the port's) equals ``want`` (the reference's) after
+    ``plain``: floats within ``rel`` relative (exactly for zero),
+    everything else exactly."""
+    got, want = plain(got), plain(want)
+    _same(got, want, rel, path)
+
+
+def _same(got, want, rel, path):
+    if isinstance(want, float) and isinstance(got, (int, float)) \
+            and not isinstance(got, bool):
+        if want != want:                            # NaN
+            assert got != got, f"{path}: {got} != NaN"
+            return
+        if want in (float("inf"), -float("inf")):
+            assert got == want, f"{path}: {got!r} != {want!r}"
+            return
+        assert abs(got - want) <= rel * abs(want), \
+            f"{path}: {got!r} != {want!r}"
+        return
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), \
+            f"{path}: keys {sorted(map(repr, got))} != " \
+            f"{sorted(map(repr, want))}"
+        for k in want:
+            _same(got[k], want[k], rel, f"{path}[{k!r}]")
+        return
+    if isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), \
+            f"{path}: length {len(got)} != {len(want)}"
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same(g, w, rel, f"{path}[{i}]")
+        return
+    assert got == want, f"{path}: {got!r} != {want!r}"
+
+
+def raised(fn, *args, **kw) -> str:
+    """The type name and message of what ``fn`` raises ("" if
+    nothing)."""
+    try:
+        fn(*args, **kw)
+    except Exception as e:   # the scenario records what the call raised
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+# ===================================================================== #
+# engines: the same requests through the reference's and the port's     #
+# ===================================================================== #
+# wall-clock outputs of telemetry_summary (never compared)
+TIMED = {"live_burst_entry_ratio"}
+
+
+class StepClock:
+    """An engine clock read off the engine's iteration counter: every
+    read within iteration ``s`` gives ``dt * (s + (s % 4) / 4)``, so two
+    engines that take the same decisions see the same times however
+    often each reads its clock, and the decode gaps vary (1.25 dt, or
+    0.25 dt every fourth iteration)."""
+
+    def __init__(self, dt: float = 0.01):
+        self.dt = dt
+        self.engine = None
+
+    def __call__(self) -> float:
+        s = 0 if self.engine is None else self.engine._step
+        return self.dt * (s + (s % 4) / 4)
+
+
+def tiny_model(arch: str, seed: int, lens):
+    """(reference config, reference params, port config, port params,
+    prompts) of ``arch``'s smoke config: the port's params are the
+    reference's, bit for bit; prompts drawn with numpy from ``seed``."""
+    import jax
+
+    from repro.configs import get_smoke_config as jsmoke
+    from repro.models import lm as jlm
+    from repro_torch.configs import get_smoke_config
+    jcfg = jsmoke(arch)
+    jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(0, jcfg.vocab, (n,)).astype(np.int32)
+               for n in lens]
+    return jcfg, jparams, get_smoke_config(arch), tree_to_torch(jparams), \
+        prompts
+
+
+def tpu_bases(pool):
+    """The reference's TPU descriptors of the three memory kinds as the
+    port's MemoryTier: the parity input the port's ``kind_bases`` is
+    monkeypatched with, so both engines plan over the same tiers."""
+    import dataclasses
+
+    from repro.core import tpu_v5e_tiers
+    from repro_torch.core.tiers import MemoryTier
+    t = tpu_v5e_tiers()
+    return {kind: MemoryTier(**dataclasses.asdict(t[name]))
+            for kind, name in (("device", "HBM"), ("pinned_host", "HOST"),
+                               ("unpinned_host", "HOST_UNPINNED"))}
+
+
+def serve_both(model, sv: dict, new_tokens: int):
+    """Serve ``model``'s prompts on the reference engine and on the
+    port's (CPU), each on its own ``StepClock``, with the serving
+    options ``sv``.  Returns (reference engine, its report, port engine,
+    its report)."""
+    from repro.serving import ServingConfig as JServingConfig
+    from repro.serving import ServingEngine as JServingEngine
+    from repro_torch.serving import ServingConfig, ServingEngine
+    jcfg, jparams, cfg, params, prompts = model
+    out = []
+    for cls, sv_cls, c, p, extra in (
+            (JServingEngine, JServingConfig, jcfg, jparams, {}),
+            (ServingEngine, ServingConfig, cfg, params, {"device": "cpu"})):
+        clock = StepClock()
+        eng = cls(c, p, sv_cls(**sv), clock=clock, **extra)
+        clock.engine = eng
+        for prompt in prompts:
+            eng.submit(prompt, max_new_tokens=new_tokens)
+        out += [eng, eng.run()]
+    return tuple(out)
+
+
+def engine_tokens(eng):
+    return {r.rid: list(r.out_tokens) for r in eng.sched.finished}
+
+
+def engine_trace(eng):
+    """The control-plane trace without its timestamps."""
+    return [(e.name, e.cat, e.ph, e.tid, e.args) for e in eng.tracer.events]
+
+
+def assert_engines_match(ref, ref_rep, eng, rep) -> None:
+    """Tokens, telemetry summary (wall-time keys excluded), replan
+    decisions, tiering counters, SLO report and the whole trace of the
+    port's engine equal the reference engine's."""
+    assert engine_tokens(eng) == engine_tokens(ref)
+    assert_same({k: v for k, v in rep.telemetry.items() if k not in TIMED},
+                {k: v for k, v in ref_rep.telemetry.items()
+                 if k not in TIMED})
+    assert rep.tiering == ref_rep.tiering
+    assert_same(rep.slo, ref_rep.slo)
+    if ref.replanner is not None:
+        assert_same(eng.replanner.decisions, ref.replanner.decisions)
+    assert_same(engine_trace(eng), engine_trace(ref))

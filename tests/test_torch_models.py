@@ -179,10 +179,11 @@ def test_moe_prefill_matches_reference(moe_smoke, B, S):
     _check_prefill(*moe_smoke, B, S)
 
 
-# codeqwen1.5-7b: QKV bias; stablelm-1.6b: LayerNorm and 25% rotary;
-# bert-large-offload: learned positions, tied embeddings, gelu
-@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "stablelm-1.6b",
-                                  "bert-large-offload"])
+# codeqwen1.5-7b and qwen1.5-32b: QKV bias; stablelm-1.6b: LayerNorm
+# and 25% rotary; bert-large-offload: learned positions, tied
+# embeddings, gelu; llama-65b-serve, opt-66b-serve: the serving
+# configs' smoke variants; qwen3-moe-235b-a22b: MoE
+@pytest.mark.parametrize("arch", COPIED)
 def test_copied_config_prefill_matches_reference(arch):
     """Biases start at zero; drawn at random here so the QKV-bias and
     LayerNorm-bias paths are held, not multiplied away."""
@@ -198,7 +199,10 @@ def test_copied_config_prefill_matches_reference(arch):
         draw_bias, jlm.init_params(jax.random.PRNGKey(0), jcfg))
     cfg = get_smoke_config(arch)
     lm.check_supported(cfg)
-    _check_prefill(jcfg, jparams, cfg, tree_to_torch(jparams), 2, 21)
+    # at S 21 opt-66b-serve's reference top-2 logits of row 0 tie
+    # exactly, so the argmax check would compare rounding
+    S = 24 if arch == "opt-66b-serve" else 21
+    _check_prefill(jcfg, jparams, cfg, tree_to_torch(jparams), 2, S)
 
 
 def test_unported_families_raise():

@@ -5,7 +5,10 @@ lag-ratio monitors, the prediction-audit ledger, and the serving
 metrics that publish into them — each scenario run once on each package
 under a fake clock, with equal events, files, texts and reports.  Also
 the port's transfer probes (``obs.calibrate``), which time copies with
-the engine's own clock and so have no reference result to equal."""
+the engine's own clock and so have no reference result to equal, and
+the cost-model calibrator (probe fits, calibrated tiers and graphs and
+what they price, the online EWMA loop) on ``tests/test_audit.py``'s
+inputs, floats within 1e-9 relative."""
 import dataclasses
 import importlib
 import json
@@ -15,6 +18,8 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+
+from _torch_parity import assert_same, package, plain  # noqa: E402
 
 
 def _pkg(root):
@@ -270,3 +275,124 @@ def test_transfer_probes_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         measure_transfer_probes(n_mb=1)
+
+
+# ===================================================================== #
+# the cost-model calibrator (``tests/test_audit.py`` inputs)            #
+# ===================================================================== #
+CAL_MODS = ("core", "obs", "topology", "telemetry", "pool")
+CREF, CPORT = package("repro", *CAL_MODS), package("repro_torch", *CAL_MODS)
+
+
+def _check(scenario):
+    got, want = scenario(CPORT), scenario(CREF)
+    assert_same(got, want)
+    return plain(got)
+
+
+def _cal_tiers(ns, ldram_gib=64):
+    t = {k: v for k, v in ns.core.paper_system("A").items()
+         if k in ("LDRAM", "CXL")}
+    t["LDRAM"] = dataclasses.replace(t["LDRAM"], capacity_GiB=ldram_gib)
+    return t
+
+
+def _perturbed_testbed(ns):
+    """Builder-belief (model) vs drifted-truth (true) tier/graph pairs."""
+    tb = ns.topology.two_socket_system("A")
+    model_tiers = {k: v for k, v in tb.tiers.items() if k != "NVMe"}
+    overrides = {}
+    for key, ln in tb.graph.links.items():
+        if ln.kind == "cxl":
+            overrides[key] = (ln.latency_ns * 2.0, ln.bw_GBps * 0.5)
+        elif ln.kind == "upi":
+            overrides[key] = (ln.latency_ns * 2.0, ln.bw_GBps)
+    true_graph = tb.graph.rebuilt(overrides)
+    true_tiers = dict(model_tiers)
+    true_tiers["CXL"] = dataclasses.replace(
+        true_tiers["CXL"],
+        peak_bw_GBps=true_tiers["CXL"].peak_bw_GBps * 0.5)
+    return model_tiers, tb.graph, true_tiers, true_graph
+
+
+@pytest.mark.parametrize("noise,samples", [(0.0, 1), (0.1, 3)])
+def test_calibrator_probe_fit_matches_reference(noise, samples):
+    """Probes of a perturbed testbed, the fitted corrections, the
+    calibrated tiers and graph, and what they price."""
+    def scenario(ns):
+        G = ns.core.GiB
+        model_tiers, model_graph, true_tiers, true_graph = \
+            _perturbed_testbed(ns)
+        probes = ns.obs.probe_testbed(true_graph, true_tiers,
+                                      origin="socket0", noise=noise,
+                                      samples=samples, seed=3)
+        calib = ns.obs.CostModelCalibrator(model_tiers, graph=model_graph)
+        n = calib.fit_probes(probes)
+        out = {"probes": probes, "n": n, "fitted": calib.fitted,
+               "tiers": calib.calibrated_tiers(origin="socket0"),
+               "graph": [(k, ln.latency_ns, ln.bw_GBps) for k, ln in
+                         calib.calibrated_graph().links.items()],
+               "summary": calib.summary()}
+        objs = [ns.core.DataObject("a", 32 * G, read_bytes_per_step=32 * G)]
+        plan = ns.core.PlacementPlan(
+            shares={"a": [("LDRAM", 0.6), ("CXL", 0.4)]}, policy="fixed",
+            tier_bytes={"LDRAM": int(0.6 * 32 * G),
+                        "CXL": int(0.4 * 32 * G)})
+        out["cost"] = ns.core.plan_step_cost(
+            objs, plan, model_tiers, topology=model_graph,
+            origin="socket0", calibrator=calib)
+        ex = ns.core.MigrationExecutor(model_tiers, topology=model_graph)
+        d = ex.delta({"a": [("LDRAM", 1.0)]}, {"a": [("CXL", 1.0)]},
+                     {"a": 8 * G})
+        before = ex.cost_s(d)
+        ex.calibrator = calib
+        ex.recalibrate()
+        out["move_cost"] = (before, ex.cost_s(ex.delta(
+            {"a": [("LDRAM", 1.0)]}, {"a": [("CXL", 1.0)]}, {"a": 8 * G})))
+        return out
+    got = _check(scenario)
+    assert got["fitted"] and got["n"] == 3 * samples
+
+
+def test_calibrator_descriptor_fit_and_bad_probes_match_reference():
+    def scenario(ns):
+        P = ns.obs.TierProbe
+        tiers = _cal_tiers(ns)
+        calib = ns.obs.CostModelCalibrator(tiers)
+        out = [calib.fit_probes([P("CXL", bw_GBps=19.2, latency_ns=371.0)]),
+               calib.calibrated_tiers(), calib.summary()]
+        bad = ns.obs.CostModelCalibrator(_cal_tiers(ns))
+        out += [bad.fit_probes([P("NOPE", 10.0), P("CXL", 0.0)]),
+                bad.fitted,
+                # a bandwidth-only probe, as the transfer probes give
+                bad.fit_probes([P("CXL", 12.5)]), bad.calibrated_tiers()]
+        return out
+    got = _check(scenario)
+    assert got[1]["CXL"]["peak_bw_GBps"] == 19.2
+
+
+def test_calibrator_online_loop_matches_reference():
+    def scenario(ns):
+        tiers = _cal_tiers(ns)
+        calib = ns.obs.CostModelCalibrator(tiers, ewma_alpha=0.5)
+        views = []
+        for _ in range(40):
+            view = calib.calibrated_tiers()
+            calib.observe_time_ratio(
+                view["CXL"].peak_bw_GBps
+                / (tiers["CXL"].peak_bw_GBps / 2.0), tiers=["CXL"])
+            views.append(view["CXL"].peak_bw_GBps)
+        clamp = ns.obs.CostModelCalibrator(_cal_tiers(ns), min_scale=0.1,
+                                           max_scale=2.0)
+        for bad in (0.0, -1.0, float("nan"), float("inf")):
+            clamp.observe_time_ratio(bad, tiers=["CXL"])
+        obs0 = clamp.observations
+        clamp.observe_time_ratio(2.0, tiers=["NOPE"])
+        for _ in range(200):
+            clamp.observe_time_ratio(1000.0, tiers=["CXL"])
+        reg = ns.obs.MetricsRegistry()
+        clamp.publish(reg)
+        return (views, calib.online_scale, calib.summary(), obs0,
+                clamp.online_scale, clamp.summary(), reg.snapshot())
+    got = _check(scenario)
+    assert got[3] == 0 and got[4]["CXL"] >= 0.1

@@ -314,14 +314,73 @@ def test_staged_prefill_kv_matches_reference_pool(tiny):
                  dict(rtol=3e-2, atol=3e-2))
 
 
-@pytest.mark.parametrize("option,value", [
-    ("predictive", True), ("calibrate", True),
-    ("topology", "far-socket"), ("qos", True), ("expert_policy", "lru"),
-    ("cluster", object()),
-])
+@pytest.mark.parametrize("option,value", [("cluster", object())])
 def test_unported_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingConfig(**{option: value})
+
+
+# each control-plane option with the options the reference requires
+# beside it
+PLANES = {
+    "predictive": dict(adaptive=True, predictive=True),
+    "calibrate": dict(adaptive=True, calibrate=True),
+    "topology": dict(topology="far-socket"),
+    "qos": dict(topology="far-socket", qos=True, slo_p95_decode_s=1e-3),
+    "expert_policy": dict(fused_gather=True, expert_policy="lru"),
+}
+
+
+@pytest.mark.parametrize("option", sorted(PLANES))
+def test_ported_planes_serve_with_reference_keys(option, tiny, tiny_moe,
+                                                 monkeypatch):
+    """The port's ServingConfig takes each control-plane option, and an
+    engine built with it serves and reports the reference engine's
+    telemetry and SLO keys."""
+    import repro_torch.serving.engine as engine_mod
+    from _torch_parity import serve_both, tpu_bases
+    monkeypatch.setattr(engine_mod, "kind_bases", tpu_bases)
+    kw = PLANES[option]
+    sv = ServingConfig(**kw)
+    assert getattr(sv, option) == kw[option]
+    model = tiny_moe if option == "expert_policy" else tiny
+    ref, ref_rep, eng, rep = serve_both(
+        model, dict(block_tokens=8, max_batch=3, max_context=32,
+                    replan_every=2, **kw), 4)
+    assert set(rep.telemetry) == set(ref_rep.telemetry)
+    assert set(rep.slo) == set(ref_rep.slo)
+    assert set(eng.audit_report()) == set(ref.audit_report())
+    assert rep.summary["finished"] == len(model[4])
+
+
+# prompt seeds whose greedy tokens keep every top-2 logit gap of the
+# port's run at 0.0078 or more (stablelm-1.6b: 0.0117) on both paths,
+# so that equality compares the function and not rounding at a tie
+COPIED_ENGINES = {"codeqwen1.5-7b": 24, "stablelm-1.6b": 37,
+                  "bert-large-offload": 12}
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["staged", "fused"])
+@pytest.mark.parametrize("arch", sorted(COPIED_ENGINES))
+def test_copied_config_engine_tokens_match_reference(arch, fused):
+    """The engines' greedy tokens on the smoke variants of the copied
+    configs: QKV bias (codeqwen1.5-7b), LayerNorm and partial rotary
+    (stablelm-1.6b), learned positions read at each sequence's own
+    length on the paged path (bert-large-offload)."""
+    from _torch_parity import engine_tokens, serve_both, tiny_model
+    model = tiny_model(arch, COPIED_ENGINES[arch], (12, 7, 9))
+    ref, _, eng, _ = serve_both(model, dict(
+        block_tokens=8, max_batch=3, max_context=32, fused_gather=fused), 8)
+    assert engine_tokens(eng) == engine_tokens(ref)
+    assert min(min(m) for m in eng.margins.values()) >= 0.0078
+    assert eng.pool.used_block_count() == 0
+
+
+def test_engine_topology_tpu_pod_names_h100_node(tiny):
+    _, _, cfg, params, _ = tiny
+    with pytest.raises(ValueError, match="h100-node"):
+        ServingEngine(cfg, params, ServingConfig(topology="tpu-pod"),
+                      device="cpu")
 
 
 def test_cuda_is_the_default_and_never_silently_cpu(monkeypatch, tiny):
