@@ -23,7 +23,12 @@ Phases, in order; any failure exits non-zero:
    the outputs are O(1).  Each split-KV decode kernel's row gives the
    pass-1 plan its wrapper computes (``split_tokens``, ``n_split``,
    ``pass1_blocks``), and the run fails if that plan has fewer blocks
-   than an H100's 132 SMs.  ``fused_expert_ffn``
+   than an H100's 132 SMs.  ``decode_attention`` and
+   ``flash_attention`` also run at the one-shot phase's own shapes
+   (``oneshot_kernels``: 8 rows of llama3-8b's geometry; the prefill
+   over 512 causal tokens, and the decode over the 544-position cache
+   at each step's kv_len, 513 to 543, the same on every row), each
+   timed and bounded there as a row of its own.  ``fused_expert_ffn``
    runs at qwen3-moe-30b-a3b's decode shapes (batch 4, d_model 2048,
    expert d_ff 768, 128 experts, top-8) on router-like ids, with one
    duplicated expert and one padded row, x of std 1 and weights at their
@@ -71,6 +76,22 @@ Phases, in order; any failure exits non-zero:
    once, flush at least one move-scheduler round and blame at least one
    excursion.  The calibrator's slow-tier rate is printed beside the
    topology's probe;
+4d. serve llama3-8b one-shot (``offload.FlexGenEngine``, the serve
+   CLI's default path) on the same weights: 8 prompts of 512 tokens
+   (seed 0), 32 new tokens, under three placements: all on the device,
+   the KV cache half on pinned host memory, and the weights and the KV
+   cache each half on pinned host memory.  Each prints prefill ms,
+   decode tok/s, the bytes on each kind and the seconds; prefill must
+   launch ``flash_attention`` once per layer and the decode
+   ``decode_attention`` once per layer per step, and nothing else; the
+   tokens must be the same under every placement, and the last decode
+   step's logits must match a prefill over the prompt and the tokens
+   before the last (relative error below ``FLEXGEN_REL``, argmax equal
+   up to a near tie).  ``decode_witness`` then shows what that check
+   sees: one decode step from a prefill cache on the kernels (below
+   ``FLEXGEN_REL``) and on the plain attention (printed: the bf16
+   model's own rounding), and under four planted cache and position
+   faults, each of which must read above ``FLEXGEN_REL``;
 5. serve qwen3-moe-30b-a3b the same way, once llama3-8b's weights are
    freed: staged (``moe_fwd``) then fused (``fused_expert_ffn`` on every
    MoE layer of every decode step), the same requests and the same
@@ -97,13 +118,34 @@ Phases, in order; any failure exits non-zero:
    times; ``fused_adam`` must launch once per parameter leaf per step,
    the losses must be finite and the loss must fall from step 1 to
    step 4;
+6b. the training launcher (``launch.train``, as ``python -m
+   repro_torch.launch.train`` runs it) on gpt2-xl-offload at full width
+   and depth, ``--adaptive --replan-every 2``, 6 steps of 8 x 128
+   tokens, with its trace, metrics and audit report written to a
+   temporary directory and read back: a replan beyond the initial one
+   must move the fp32 optimizer state's blocks, each block must sit on
+   the kind its tier label names, the ledger must hold the store's
+   bytes with the plan's fast share (within 0.05), the loss must fall
+   from step 0 to step 5, and no hand-written kernel may launch (the
+   launcher's step is the plain AdamW, as the reference's);
+6c. checkpoints through the launcher on bert-large-offload at full
+   width and depth: run A takes 4 steps, checkpointing every 2; run B
+   resumes A's directory to step 6 and must print ``restored step 4``;
+   run C takes 6 steps in a fresh directory; B's losses at steps 4-5
+   must equal C's within ``CKPT_RTOL`` relative, and A's checkpoint
+   resumed under each of three planted restore faults must not.  Bytes
+   written, save and restore seconds and the checksum-verified leaves
+   are printed;
 7. print the ``kernels`` JSON line, then the device line last.  The
    line has one row per kernel build the main paths launch: each
    attention kernel at each model's KV geometry (``decode_attention@KV8``
-   for llama3-8b, ``...@KV4`` for qwen3-moe-30b-a3b),
-   ``fused_expert_ffn`` and ``fused_adam``; each row's times, bound and
-   error come from its own build, and its launches from its own model's
-   serve or train phases.
+   for llama3-8b, ``...@KV4`` for qwen3-moe-30b-a3b), the two one-shot
+   kernels at that phase's shapes (``decode_attention@KV8/oneshot``,
+   ``flash_attention@KV8/oneshot``), ``fused_expert_ffn`` and
+   ``fused_adam``; each row's times, bound and error come from its own
+   build and shapes, and its launches from the phases that run it at
+   those shapes: a ``/oneshot`` row's from the one-shot phase, the other
+   attention rows' from their model's other serve phases.
 
 The kernel phase also holds ``fused_adam`` against its plain version at
 gpt2-xl-offload's largest leaf (bf16 g) and at a ragged n of 70001 (fp32
@@ -128,12 +170,14 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -170,6 +214,21 @@ MODELS = {"llama3-8b": 8, "qwen3-moe-30b-a3b": 4}   # served, and KV heads
 D_MOE, F_MOE, E_MOE, K_MOE = 2048, 768, 128, 8   # qwen3-moe-30b-a3b
 PROMPTS, NEW_TOKENS, N_REQ = (512, 256), 32, 8
 ADAPTIVE_ARCH, REPLAN_EVERY = "llama3-8b", 8
+# the one-shot FlexGen phase: weight and KV share lists per placement
+FLEXGEN_ARCH, FLEXGEN_BATCH, FLEXGEN_PROMPT = "llama3-8b", 8, 512
+HALF_PINNED = (("device", 0.5), ("pinned_host", 0.5))
+FLEXGEN_PLACEMENTS = (("all device", (("device", 1.0),), (("device", 1.0),)),
+                      ("kv half pinned", (("device", 1.0),), HALF_PINNED),
+                      ("weights+kv half pinned", HALF_PINNED, HALF_PINNED))
+FLEXGEN_REL = 2e-2     # test_decode_matches_prefill's tolerance; each of
+# decode_witness's planted cache and position faults must read above it
+# the training launcher (adaptive) and its checkpoints, at full size
+LAUNCHER_ARCH, LAUNCHER_STEPS = "gpt2-xl-offload", 6
+CKPT_ARCH = "bert-large-offload"
+# resumed vs uninterrupted loss, relative: rounding headroom (8 fp32
+# ulps of a loss near 10) over runs that read equal; every planted
+# restore fault of checkpoint_phase must read above it
+CKPT_RTOL = 1e-6
 EXPERT_ARCH, EXPERT_FAST_FRACTION = "qwen3-moe-30b-a3b", 0.25
 # the control-plane phase's p99 decode SLO, as a fraction of the p95
 # decode gap its path's non-adaptive phase measured in the same call:
@@ -447,6 +506,72 @@ def attention_kernels(dev, gen, KV: int) -> dict:
     return out
 
 
+def oneshot_kernels(dev, gen, KV: int) -> dict:
+    """``decode_attention`` and ``flash_attention`` at the one-shot
+    FlexGen phase's shapes (``FLEXGEN_BATCH`` rows, H heads, ``KV`` KV
+    heads): the prefill over ``FLEXGEN_PROMPT`` causal tokens, and every
+    decode step over the ``pad_to`` cache, whose ``kv_len`` is the same
+    on every row (``FLEXGEN_PROMPT + 1`` to ``FLEXGEN_PROMPT + NEW_TOKENS
+    - 1``); timed at the last step."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_split_plan)
+    from repro_torch.kernels._launch import sm_count
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rnd = functools.partial(randn_bf16, gen)
+    Bf, L = FLEXGEN_BATCH, FLEXGEN_PROMPT
+    S = L + NEW_TOKENS            # the engine's pad_to
+    tag = f"KV={KV} B={Bf}"
+    out = {}
+
+    q = rnd(Bf, H, HD, std=QK_STD)
+    kc, vc = rnd(Bf, S, KV, HD, std=QK_STD), rnd(Bf, S, KV, HD)
+    err = 0.0
+    for n in range(L + 1, S):
+        kv_len = torch.full((Bf,), n, dtype=torch.int32, device=dev)
+        err = max(err, compare(f"decode_attention {tag} S={S} kv_len={n}",
+                               decode_attention(q, kc, vc, kv_len),
+                               ref.decode_attention(q, kc, vc, kv_len)))
+    n = S - 1
+    kv_len = torch.full((Bf,), n, dtype=torch.int32, device=dev)
+    mask = (torch.arange(S, device=dev)[None, None, None, :]
+            < kv_len[:, None, None, None])
+    t_b, by = bound(2 * Bf * n * KV * HD * 2 + 2 * Bf * H * HD * 2 + 4 * Bf,
+                    4 * Bf * n * H * HD)
+    T, n_split = decode_split_plan(S, Bf, KV,
+                                   sm_count(torch.cuda.current_device()))
+    out["decode_attention"] = dict(
+        max_abs_err=err, **cold_times(
+            lambda: decode_attention(q, kc, vc, kv_len),
+            sdpa(q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                 attn_mask=mask)),
+        warm_ms=time_ms(lambda: decode_attention(q, kc, vc, kv_len),
+                        cold=False),
+        plain_ms=time_ms(lambda: ref.decode_attention(q, kc, vc, kv_len)),
+        bound_ms=t_b, bound_by=by, split_tokens=T, n_split=n_split,
+        pass1_blocks=Bf * KV * n_split)
+
+    qq, kk = rnd(Bf, L, H, HD, std=QK_STD), rnd(Bf, L, KV, HD, std=QK_STD)
+    vv = rnd(Bf, L, KV, HD)
+    err = compare(f"flash_attention {tag} L={L}",
+                  flash_attention(qq, kk, vv, causal=True),
+                  ref.flash_attention(qq, kk, vv, causal=True))
+    t_b, by = bound(Bf * (2 * L * H * HD + 2 * L * KV * HD) * 2,
+                    Bf * 4 * H * HD * L * (L + 1) / 2)
+    out["flash_attention"] = dict(
+        max_abs_err=err, **cold_times(
+            lambda: flash_attention(qq, kk, vv, causal=True),
+            sdpa(*(x.transpose(1, 2) for x in (qq, kk, vv)),
+                 is_causal=True)),
+        warm_ms=time_ms(lambda: flash_attention(qq, kk, vv, causal=True),
+                        cold=False),
+        plain_ms=time_ms(lambda: ref.flash_attention(qq, kk, vv,
+                                                     causal=True)),
+        bound_ms=t_b, bound_by=by)
+    return out
+
+
 def split_plans(KV: int) -> dict:
     """The pass-1 plan of each split-KV decode kernel at the main path's
     shapes and ``KV`` KV heads: the plan call its wrapper makes, with
@@ -615,17 +740,25 @@ def adam_kernel(dev, gen) -> dict:
 
 
 def kernel_phase(dev, gen) -> dict:
-    """Rows of the ``kernels`` line, one per kernel build the main paths
-    launch: each attention kernel at both models' KV geometry
-    (``decode_attention@KV8``, ``...@KV4``), the expert kernel and the
-    Adam kernel.  Each row names its ``kernel`` and the ``model`` whose
-    serve or train phases run it."""
+    """Rows of the ``kernels`` line, one per kernel build and shape the
+    main paths launch: each attention kernel at both models' KV geometry
+    and the continuous paths' shapes (``decode_attention@KV8``,
+    ``...@KV4``), the two the one-shot path runs at its own shapes
+    (``decode_attention@KV8/oneshot``, ``flash_attention@KV8/oneshot``),
+    the expert kernel and the Adam kernel.  Each row names its
+    ``kernel`` and the ``model`` whose serve or train phases run it;
+    ``oneshot`` rows count the one-shot phases' launches, the others
+    the rest of the model's phases."""
     rows = {}
     for arch, KV in MODELS.items():
         plans = split_plans(KV)
         for name, row in attention_kernels(dev, gen, KV).items():
             rows[f"{name}@KV{KV}"] = dict(row, **plans.get(name, {}),
                                           kernel=name, model=arch)
+        if arch == FLEXGEN_ARCH:
+            for name, row in oneshot_kernels(dev, gen, KV).items():
+                rows[f"{name}@KV{KV}/oneshot"] = dict(
+                    row, kernel=name, model=arch, oneshot=True)
     rows["fused_expert_ffn"] = dict(expert_kernel(dev, gen),
                                     kernel="fused_expert_ffn",
                                     model="qwen3-moe-30b-a3b")
@@ -655,14 +788,19 @@ def kernel_phase(dev, gen) -> dict:
 
 def kernels_line(kernels: dict, runs: dict) -> list:
     """The ``kernels`` line's rows.  Each row's launches are those of
-    its own model's serve phases (staged and fused) or train phases
-    (both placements), the only runs that launch its build."""
+    its own model's serve phases (staged, fused, adaptive, control
+    planes and experts; or, for an ``oneshot`` row, the one-shot FlexGen
+    placements) or train phases (both placements), the only runs that
+    launch its build at its shapes."""
     return [{"name": name, "route": "cuda",
              "source": SOURCES[row["kernel"]],
              "replaces": REPLACES[row["kernel"]],
-             "launches": sum(phase["launches"][row["kernel"]]
-                             for key, phase in runs[row["model"]].items()
-                             if key != "profile"),
+             "launches": sum(
+                 phase["launches"][row["kernel"]]
+                 for label, phase in runs[row["model"]].items()
+                 if "launches" in phase
+                 and label.startswith("flexgen ") == row.get("oneshot",
+                                                             False)),
              "max_abs_err": row["max_abs_err"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
@@ -1080,68 +1218,291 @@ def experts_phase(label: str, cfg, params, prompts, plain: dict) -> dict:
             "telemetry": t, "routing": count}
 
 
+def flexgen_phase(cfg, params) -> dict:
+    """The one-shot FlexGen path (``offload.FlexGenEngine``) under each
+    of ``FLEXGEN_PLACEMENTS``, in turns (each placement, then each again
+    in reverse order, so that every placement has one reading before
+    and one after the others): ``FLEXGEN_BATCH`` prompts of
+    ``FLEXGEN_PROMPT`` tokens, ``NEW_TOKENS`` new tokens each.  Prefill
+    must launch ``flash_attention`` once per layer and the decode
+    ``decode_attention`` once per layer per step; the tokens must not
+    depend on the placement; the last decode step's logits must match a
+    prefill over the prompt and the tokens before the last (relative
+    error below ``FLEXGEN_REL``, equal argmax up to a near tie)."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    from repro_torch.offload import FlexGenEngine, ServeConfig
+    prompts = np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (FLEXGEN_BATCH, FLEXGEN_PROMPT)).astype(np.int32)
+    layers = cfg.n_units * len(cfg.pattern)
+    want = {"flash_attention": layers,
+            "decode_attention": layers * (NEW_TOKENS - 1)}
+    out, first = {}, None
+    base = FLEXGEN_PLACEMENTS[0][0]
+    turns = FLEXGEN_PLACEMENTS + FLEXGEN_PLACEMENTS[::-1]
+    for turn, (name, w_shares, kv_shares) in enumerate(turns):
+        label = f"{name} ({1 + turn // len(FLEXGEN_PLACEMENTS)})"
+        t0 = time.perf_counter()
+        eng = FlexGenEngine(cfg, params, ServeConfig(
+            max_new_tokens=NEW_TOKENS, prompt_len=FLEXGEN_PROMPT,
+            weight_shares=w_shares, kv_shares=kv_shares), device="cuda")
+        last = {}
+        step = eng.decode_step
+
+        def recording_step(*a, **kw):
+            logits, cache = step(*a, **kw)
+            last["logits"] = logits
+            return logits, cache
+        eng.decode_step = recording_step
+        w_on = {k: sum(ta.bytes_on(k)
+                       for ta in pytree.tree_leaves(eng.params_tiered))
+                for k in ("device", "pinned_host")}
+        torch.cuda.synchronize()
+        build.reset_launches()
+        st = eng.run(prompts)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        secs = time.perf_counter() - t0
+        kv_on = {k: eng.kv_home.bytes_on(k)
+                 for k in ("device", "pinned_host", "unpinned_host")}
+        log(f"flexgen {cfg.name} {label}: prefill={st.prefill_s * 1e3:.2f} ms"
+            f" decode={st.decode_tok_s:.2f} tok/s "
+            f"(decode {st.decode_s:.3f} s for {NEW_TOKENS - 1} steps x "
+            f"{FLEXGEN_BATCH}) weights on {w_on} KV ledger {kv_on} "
+            f"decode_attention={launches['decode_attention']} "
+            f"flash_attention={launches['flash_attention']} "
+            f"{secs:.1f} s, {memory()}")
+        for name, n in want.items():
+            if launches[name] != n:
+                fail(f"flexgen {label}: {launches[name]} {name} launches, "
+                     f"expected {n}")
+        others = {k: v for k, v in launches.items() if v and k not in want}
+        if others:
+            fail(f"flexgen {label}: other kernels launched {others}")
+        tokens = eng.tokens
+        if tuple(tokens.shape) != (FLEXGEN_BATCH, NEW_TOKENS):
+            fail(f"flexgen {label}: tokens of shape {tuple(tokens.shape)}")
+        if not torch.isfinite(last["logits"]).all():
+            fail(f"flexgen {label}: non-finite logits")
+        if first is None:
+            first = (tokens, last["logits"])
+        elif not torch.equal(tokens, first[0]):
+            bad = (tokens != first[0]).nonzero()[0].tolist()
+            fail(f"flexgen {label}: tokens differ from {base} (1)'s first at "
+                 f"(row, step) {bad}")
+        else:
+            log(f"flexgen {label}: tokens equal {base} (1)'s; "
+                f"last logits bit-equal: "
+                f"{torch.equal(last['logits'], first[1])}")
+        out[label] = {"weight_shares": w_shares, "kv_shares": kv_shares,
+                      "prefill_s": st.prefill_s, "decode_s": st.decode_s,
+                      "decode_tok_s": st.decode_tok_s, "seconds": secs,
+                      "weights_on": w_on, "kv_on": kv_on,
+                      "launches": launches}
+        del eng, step, recording_step, last
+        gc.collect()
+        torch.cuda.empty_cache()
+    # decode against prefill: the prompt and the tokens before the last
+    tokens, logits_d = first
+    seq = torch.cat([torch.from_numpy(prompts).long().cuda(),
+                     tokens[:, :-1]], dim=1)
+    logits_p, _ = lm.prefill(params, cfg, seq)
+    a, b = logits_d.float(), logits_p.float()
+    rel = rel_err(a, b)
+    top = torch.topk(b, 2, dim=-1).values
+    margin = (top[:, 0] - top[:, 1])
+    flips = (a.argmax(-1) != b.argmax(-1)).nonzero().flatten().tolist()
+    log(f"flexgen {cfg.name}: last decode step vs prefill of "
+        f"{seq.shape[1]} tokens: rel err {rel:.3g} (limit {FLEXGEN_REL}), "
+        f"argmax differs in rows {flips}, smallest top-2 margin "
+        f"{margin.min().item():.4g}")
+    if not rel < FLEXGEN_REL:
+        fail(f"flexgen: decode vs prefill rel err {rel:.4g}")
+    for r in flips:
+        if margin[r].item() >= NEAR_TIE:
+            fail(f"flexgen: row {r} argmax differs from the prefill's with "
+                 f"a top-2 margin of {margin[r].item():.4g}")
+    out["decode_vs_prefill"] = {"rel_err": rel, "argmax_flips": flips,
+                                "min_margin": margin.min().item()}
+    out["decode_witness"] = decode_witness(cfg, params, seq, logits_p)
+    return out
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|: the decode-vs-prefill measure."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / (b.abs().max() + 1e-9)).item()
+
+
+def decode_witness(cfg, params, seq: torch.Tensor, logits_p) -> dict:
+    """What the decode-vs-prefill check of ``flexgen_phase`` sees.  From
+    a prefill of ``seq`` but its last token, its cache padded to the
+    engine's ``pad_to``, one decode step of the last token is held
+    against ``logits_p``, the prefill of the whole ``seq``: on the
+    kernels (below ``FLEXGEN_REL``, like the engine's reading); on the
+    plain attention of ``kernels.ref`` for both the prefill and the step
+    (printed: the part of the reading that the bf16 model makes without
+    any kernel); and under planted cache and position faults, each of
+    which must read above ``FLEXGEN_REL``: the RoPE position one late,
+    the step's K/V written one slot late (the index one ahead), the
+    previous position's K/V lost (a stale restore) and ``kv_len`` one
+    short (the step does not see its own K/V)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    from repro_torch.models import modules as M
+    idx = seq.shape[1] - 1
+    pad_to = FLEXGEN_PROMPT + NEW_TOKENS
+
+    def cache_of(c):
+        out = {"index": c["index"]}
+        for k in ("kv_k", "kv_v"):
+            shape = list(c[k].shape)
+            shape[3] = pad_to
+            out[k] = c[k].new_zeros(shape)
+            out[k][:, :, :, :idx] = c[k]
+        return out
+
+    def step(c, index=idx):
+        c = {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in c.items()}
+        c["index"] = index
+        return lm.decode_step(params, cfg, c, seq[:, -1:])[0]
+
+    plain = (mock.patch.object(ops, "flash_attention", ref.flash_attention),
+             mock.patch.object(ops, "decode_attention",
+                               ref.decode_attention))
+    cache = cache_of(lm.prefill(params, cfg, seq[:, :-1])[1])
+    readings = {"kernels": rel_err(step(cache), logits_p)}
+    with plain[0], plain[1]:
+        plain_p = lm.prefill(params, cfg, seq)[0]
+        plain_cache = cache_of(lm.prefill(params, cfg, seq[:, :-1])[1])
+        readings["plain"] = rel_err(step(plain_cache), plain_p)
+        readings["plain prefill vs kernel prefill"] = rel_err(plain_p,
+                                                              logits_p)
+    del plain_cache
+    rope, dec = M.apply_rope, ops.decode_attention
+    stale = {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in cache.items()}
+    stale["kv_k"][:, :, :, idx - 1] = 0
+    stale["kv_v"][:, :, :, idx - 1] = 0
+    faults = {}
+    with mock.patch.object(M, "apply_rope", lambda x, pos, *a, **kw:
+                           rope(x, pos + 1, *a, **kw)):
+        faults["rope position + 1"] = rel_err(step(cache), logits_p)
+    faults["K/V one slot late"] = rel_err(step(cache, idx + 1), logits_p)
+    faults["previous K/V lost"] = rel_err(step(stale), logits_p)
+    with mock.patch.object(ops, "decode_attention", lambda q, k, v, n:
+                           dec(q, k, v, n - 1)):
+        faults["kv_len - 1"] = rel_err(step(cache), logits_p)
+    log(f"flexgen {cfg.name} decode witness (one step at index {idx} vs "
+        f"the prefill of {idx + 1}): "
+        + " ".join(f"{k}={v:.4g}" for k, v in readings.items())
+        + "; planted faults: "
+        + " ".join(f"{k}={v:.4g}" for k, v in faults.items())
+        + f" (limit {FLEXGEN_REL})")
+    if not readings["kernels"] < FLEXGEN_REL:
+        fail(f"flexgen: one decode step vs prefill rel err "
+             f"{readings['kernels']:.4g}")
+    for name, r in faults.items():
+        if not r > FLEXGEN_REL:
+            fail(f"flexgen: the decode-vs-prefill check does not see the "
+                 f"planted fault '{name}' (rel err {r:.4g})")
+    return {"readings": readings, "faults": faults}
+
+
+PROFILE_GROUPS = (("port kernels", ("decode_split_kernel",
+                                     "decode_merge_kernel",
+                                     "paged_decode_split_kernel",
+                                     "paged_decode_merge_kernel",
+                                     "flash_attention_kernel",
+                                     "expert_up_kernel",
+                                     "expert_down_kernel")),
+                  ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet",
+                              "cublas")),
+                  ("copy", ("memcpy", "copy")))
+
+
+def profiled(label: str, run) -> dict:
+    """``run()`` under torch.profiler: device time by category
+    (``PROFILE_GROUPS``), the top kernels, and the device's idle share
+    of the run's wall time.  Returns {} where the profiler saw no device
+    time."""
+    from torch.profiler import profile, ProfilerActivity
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        iterations = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels, memcpy, memset): the host ops
+    # that launched them report the same time again
+    rows = [(e.key, e.self_device_time_total / 1e6, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    if busy <= 0:
+        log(f"profile {label}: the profiler saw no device time")
+        return {}
+    cats = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    cats["other"] = 0.0
+    port = []
+    for key, sec, n in rows:
+        low = key.lower()
+        name = next((g for g, keys in PROFILE_GROUPS
+                     if any(k in low for k in keys)), "other")
+        cats[name] += sec
+        if name == "port kernels":
+            port.append((key, sec, n))
+    rows.sort(key=lambda r: -r[1])
+    log(f"profile {label}: wall={wall:.3f} s device_busy={busy:.3f} s "
+        f"idle_share={1.0 - busy / wall:.3f} iterations={iterations} "
+        + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in cats.items()))
+    for key, sec, n in rows[:8]:
+        log(f"  {sec * 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
+    for key, sec, n in port:
+        log(f"  port kernel {sec * 1e3:8.3f} ms  {n:6d}x  {key[:70]}")
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "iterations": iterations, "categories_s": cats,
+            "top": rows[:15], "port_kernels": port}
+
+
 def profile_phase(cfg, params) -> dict:
     """Where a serve run's time goes (``--profile``): one torch.profiler
     trace over a short run of each path (4 requests, prompts 512 and
-    256, 8 new tokens); device time by category and the device's idle
-    share of the run's wall time."""
-    from torch.profiler import profile, ProfilerActivity
-    groups = (("port kernels", ("decode_split_kernel",
-                                "decode_merge_kernel",
-                                "paged_decode_split_kernel",
-                                "paged_decode_merge_kernel",
-                                "flash_attention_kernel",
-                                "expert_up_kernel", "expert_down_kernel")),
-              ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet",
-                          "cublas")),
-              ("copy", ("memcpy", "copy")))
+    256, 8 new tokens) and, for ``FLEXGEN_ARCH``, over a one-shot run
+    (all on the device, ``FLEXGEN_BATCH`` prompts of ``FLEXGEN_PROMPT``,
+    8 new tokens); device time by category and the device's idle share
+    of the run's wall time."""
     out = {}
     for fused in (False, True):
         label = "fused" if fused else "staged"
         eng = serve(cfg, params, prompts_for(cfg, 4, PROMPTS), 8, "cuda",
                     fused_gather=fused)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+
+        def run():
             eng.run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # device-side events only (kernels, memcpy, memset): the host
-        # ops that launched them report the same time again
-        rows = [(e.key, e.self_device_time_total / 1e6, e.count)
-                for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")
-                and e.self_device_time_total > 0]
-        busy = sum(r[1] for r in rows)
-        if busy <= 0:
-            log(f"profile {cfg.name} {label}: the profiler saw no device time")
-            continue
-        cats = {name: 0.0 for name, _ in groups}
-        cats["other"] = 0.0
-        port = []
-        for key, sec, n in rows:
-            low = key.lower()
-            name = next((g for g, keys in groups
-                         if any(k in low for k in keys)), "other")
-            cats[name] += sec
-            if name == "port kernels":
-                port.append((key, sec, n))
-        rows.sort(key=lambda r: -r[1])
-        out[label] = {"wall_s": wall, "device_busy_s": busy,
-                      "device_idle_share": 1.0 - busy / wall,
-                      "iterations": eng._step,
-                      "categories_s": cats, "top": rows[:15],
-                      "port_kernels": port}
-        log(f"profile {cfg.name} {label}: wall={wall:.3f} s "
-            f"device_busy={busy:.3f} s "
-            f"idle_share={1.0 - busy / wall:.3f} "
-            f"iterations={eng._step} "
-            + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in cats.items()))
-        for key, sec, n in rows[:8]:
-            log(f"  {sec * 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
-        for key, sec, n in port:
-            log(f"  port kernel {sec * 1e3:8.3f} ms  {n:6d}x  {key[:70]}")
+            return eng._step
+        got = profiled(f"{cfg.name} {label}", run)
+        if got:
+            out[label] = got
+    if cfg.name == FLEXGEN_ARCH:
+        from repro_torch.offload import FlexGenEngine, ServeConfig
+        eng = FlexGenEngine(cfg, params, ServeConfig(
+            max_new_tokens=8, prompt_len=FLEXGEN_PROMPT), device="cuda")
+        prompts = np.random.RandomState(SEED).randint(
+            0, cfg.vocab, (FLEXGEN_BATCH, FLEXGEN_PROMPT)).astype(np.int32)
+
+        def run():
+            eng.run(prompts)
+            return 8
+        got = profiled(f"{cfg.name} one-shot", run)
+        if got:
+            out["one-shot"] = got
     return out
 
 
@@ -1180,6 +1541,12 @@ def serve_model(arch: str, profile: bool) -> dict:
         out["control planes"] = control_planes_phase(
             f"{arch} staged, control planes", cfg, params, prompts,
             out["staged"])
+    if arch == FLEXGEN_ARCH:
+        t0 = time.perf_counter()
+        flex = flexgen_phase(cfg, params)
+        out.update({f"flexgen {k}": v for k, v in flex.items()})
+        log(f"flexgen {arch}: {time.perf_counter() - t0:.1f} s, "
+            f"{memory()}")
     if arch == EXPERT_ARCH:
         out["experts"] = experts_phase(f"{arch} fused, experts", cfg,
                                        params, prompts, out["fused"])
@@ -1333,6 +1700,322 @@ def train_model(arch: str) -> dict:
     return out
 
 
+def launcher_lr(arch: str) -> float:
+    """The launcher's ``--lr`` at ``arch``'s full width: AdamW's default
+    rate scaled by the smoke width over the full one (``train_engine``);
+    the launcher's own default (3e-3) diverges at full width."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.optim import AdamConfig
+    return AdamConfig.lr * get_smoke_config(arch).d_model \
+        / get_config(arch).d_model
+
+
+def run_launcher(argv) -> tuple:
+    """``launch.train`` on ``argv``, the launch counters set to 0 just
+    before; returns (its ``TrainRun``, launches, wall s, its standard
+    output, which is also echoed)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_cli
+    args = train_cli.parse_args(argv)
+    build.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = train_cli.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    return res, dict(build.LAUNCHES), wall, text
+
+
+def prefetch_check(leaves) -> dict:
+    """``TieredArray.prefetch_blocks`` on the card: the largest leaf of
+    the launcher's optimizer state, re-placed in 8 blocks alternating
+    pinned and pageable host memory, streamed to the device while each
+    block is reduced on the current stream; the blocks must come out in
+    order and equal the leaf.  The stream's time is printed beside that
+    of ``gather`` and one reduction of the same blocks."""
+    from repro_torch.core import TieredArray
+    ta = max((ta for ta, _ in leaves), key=lambda t: t.nbytes)
+    x = ta.gather()
+    rows = math.ceil(x.shape[0] / 8)
+    host = TieredArray.place(x, [("pinned_host", 0.5),
+                                 ("unpinned_host", 0.5)], rows,
+                             device="cuda")
+    times = {}
+    for name, fn in (("prefetch", lambda: [b.sum() for b in
+                                           host.prefetch_blocks()]),
+                     ("gather", lambda: host.gather().sum())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    got = torch.cat(list(host.prefetch_blocks()))
+    if not torch.equal(got, x.reshape(got.shape)):
+        fail("prefetch_blocks: the streamed blocks differ from the leaf")
+    log(f"prefetch_blocks: {len(host.blocks)} blocks of {x.nbytes / 1e6:.1f}"
+        f" MB ({host.kinds}) equal the leaf; streamed {times['prefetch']:.4f}"
+        f" s, gathered {times['gather']:.4f} s")
+    return {"nbytes": x.nbytes, "kinds": host.kinds, **times}
+
+
+def launcher_phase() -> dict:
+    """``launch.train --adaptive`` on ``LAUNCHER_ARCH`` at full width and
+    depth: the fp32 optimizer state starts on pinned host memory in a
+    ``TieredStateStore`` and the replanner's moves copy its blocks to
+    the card.  At least one replan must be applied beyond the initial
+    plan and move bytes; every block must sit on the kind its tier label
+    names; the ledger must hold the store's bytes, its fast share within
+    0.05 of the plan's; the trace, metrics and audit report must read
+    back non-empty; the loss at the last step must be below step 0's; no
+    hand-written kernel may launch (the launcher's step is the plain
+    AdamW and attention, as the reference's)."""
+    from repro_torch.obs import TraceRecorder
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        arts = {n: str(Path(tmp) / n) for n in ("t.jsonl", "m.prom",
+                                                 "a.json")}
+        res, launches, wall, text = run_launcher([
+            "--arch", LAUNCHER_ARCH, "--steps", str(LAUNCHER_STEPS),
+            "--batch", "8", "--seq", "128", "--adaptive",
+            "--replan-every", "2", "--lr", repr(launcher_lr(LAUNCHER_ARCH)),
+            "--trace-out", arts["t.jsonl"], "--metrics-out", arts["m.prom"],
+            "--audit-out", arts["a.json"]])
+        events = TraceRecorder.read_jsonl(arts["t.jsonl"])
+        prom = Path(arts["m.prom"]).read_text()
+        audit = json.loads(Path(arts["a.json"]).read_text())
+    peak = torch.cuda.max_memory_allocated()
+    telem, label = res.telem, f"launcher {LAUNCHER_ARCH}"
+    prefetch = prefetch_check(telem.store.leaves(telem.OPT_OBJ))
+    if any(launches.values()):
+        fail(f"{label}: hand-written kernels launched {launches}")
+    moved = [d for d in telem.replanner.decisions
+             if d.applied and d.reason != "initial" and d.moved_bytes > 0]
+    if not moved:
+        fail(f"{label}: no replan beyond the initial one moved bytes")
+    led, store, obj = telem.ledger, telem.store, telem.OPT_OBJ
+    if led.counters.migrated_bytes <= 0:
+        fail(f"{label}: the ledger recorded no migrated bytes")
+    kinds = {"device": 0, "pinned_host": 0, "unpinned_host": 0}
+    for ta, labels in store.leaves(obj):
+        for blk, kind, tier in zip(ta.blocks, ta.kinds, labels):
+            where = ("device" if blk.is_cuda else
+                     "pinned_host" if blk.is_pinned() else "unpinned_host")
+            if kind != store._kind(tier) or where != kind:
+                fail(f"{label}: a block labelled {tier} is on {where} "
+                     f"(kind {kind})")
+            kinds[where] += blk.nbytes
+    place = led.placement(telem.tenant, obj)
+    if sum(place.values()) != store.nbytes(obj):
+        fail(f"{label}: ledger {place} != store {store.nbytes(obj)} bytes")
+    plan_fast = telem.replanner.plan.fraction_on(obj, telem.fast)
+    got_fast = telem.opt_bytes_on(telem.fast) / store.nbytes(obj)
+    if abs(got_fast - plan_fast) > 0.05:
+        fail(f"{label}: fast share {got_fast:.3f}, plan {plan_fast:.3f}")
+    if not events or "# TYPE" not in prom or not audit.get("audit"):
+        fail(f"{label}: an artifact read back empty")
+    losses = res.losses
+    last = LAUNCHER_STEPS - 1
+    if not all(math.isfinite(x) for x in losses.values()) \
+            or not losses[last] < losses[0]:
+        fail(f"{label}: losses {losses}")
+    tiers = {k: (t.peak_bw_GBps, t.capacity_GiB)
+             for k, t in telem.replanner.tiers.items()}
+    log(f"{label}: wall={wall:.2f} s step_s="
+        + " ".join(f"{res.step_s[i]:.3f}" for i in sorted(res.step_s))
+        + f" losses={[round(losses[i], 5) for i in sorted(losses)]} "
+        f"replans applied={telem.replanner.replans_applied}/"
+        f"{len(telem.replanner.decisions)} moved "
+        f"{[(d.epoch, d.moved_bytes) for d in moved]} "
+        f"migrated_bytes={led.counters.migrated_bytes} placement={place} "
+        f"fast share {got_fast:.4f} (plan {plan_fast:.4f}) blocks by kind "
+        f"{kinds} planning tiers (GB/s, GiB) {tiers} "
+        f"max_memory_allocated={peak / 2**30:.2f} GiB; artifacts: "
+        f"{len(events)} trace events, {prom.count('# TYPE')} series, "
+        f"audit models {sorted(audit['audit'].get('models', {}))}")
+    out = {"wall_s": wall, "step_s": res.step_s, "losses": losses,
+           "launches": launches, "moved": [(d.epoch, d.moved_bytes)
+                                           for d in moved],
+           "migrated_bytes": led.counters.migrated_bytes,
+           "placement": place, "fast_share": got_fast,
+           "plan_fast_share": plan_fast, "blocks_by_kind": kinds,
+           "planning_tiers": tiers, "peak_bytes": peak,
+           "prefetch": prefetch}
+    del res, telem, store, led
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def launcher_profile() -> dict:
+    """Where a launcher step's time goes (``--profile``): the train step
+    the launcher runs (``launch.steps.make_train_step``, plain AdamW) on
+    ``LAUNCHER_ARCH`` at full size, batches of 8 x 128, one warm-up
+    step, then two steps under torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamConfig, init_state
+    cfg = get_config(LAUNCHER_ARCH)
+    acfg = AdamConfig(lr=launcher_lr(LAUNCHER_ARCH))
+    state = {"params": lm.init_params(cfg, seed=SEED, device="cuda")}
+    state["opt"] = init_state(state["params"], acfg)
+    step = steps.make_train_step(cfg, acfg)
+    it = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                 global_batch=8))
+
+    def one():
+        b = next(it)
+        state["params"], state["opt"], loss = step(
+            state["params"], state["opt"],
+            {k: torch.from_numpy(b[k]).cuda() for k in ("tokens", "labels")})
+        return float(loss)
+
+    one()
+
+    def run():
+        one()
+        one()
+        return 2
+    out = profiled(f"launcher step {LAUNCHER_ARCH}", run)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_phase() -> dict:
+    """Checkpoints through the launcher on ``CKPT_ARCH`` at full width
+    and depth: run A takes 4 steps, checkpointing every 2; run B resumes
+    from A's directory to step 6 and must print ``restored step 4``; run
+    C takes the 6 steps uninterrupted in a fresh directory.  B's losses
+    at steps 4-5 must equal C's within ``CKPT_RTOL`` relative (rounding
+    headroom; the CPU tests ask for equality).  Every save and restore
+    is timed; a restore verifies every leaf's checksum.  Before B, A's
+    last checkpoint is resumed to step 6 under each planted restore
+    fault (the optimizer's m and v lost, its step counter lost, the data
+    iterator left at step 0; nothing saved), and each must part from C's
+    losses by more than ``CKPT_RTOL``.  Runs resume from A's last
+    checkpoint, never from a periodic one: as in the reference, the
+    checkpoint taken every ``--ckpt-every`` steps at step i holds the
+    state after step i's update, so a resume from it takes step i
+    again."""
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import train as train_cli
+    saves, restores = [], []
+    save, restore = store.save, store.restore
+
+    def timed_save(ckpt_dir, step, tree, *a, **kw):
+        t0 = time.perf_counter()
+        path = save(ckpt_dir, step, tree, *a, **kw)
+        nbytes = sum(p.stat().st_size for p in Path(path).iterdir())
+        saves.append((step, nbytes, time.perf_counter() - t0))
+        return path
+
+    def timed_restore(ckpt_dir, target, *a, **kw):
+        t0 = time.perf_counter()
+        got = restore(ckpt_dir, target, *a, **kw)
+        torch.cuda.synchronize()
+        step = store.latest_step(ckpt_dir)
+        manifest = json.loads((Path(ckpt_dir) / f"step_{step:08d}"
+                               / "manifest.json").read_text())
+        restores.append((step, len(manifest["leaves"]),
+                         kw.get("verify", True), time.perf_counter() - t0))
+        return got
+
+    lr = repr(launcher_lr(CKPT_ARCH))
+    base = ["--arch", CKPT_ARCH, "--batch", "8", "--seq", "128",
+            "--ckpt-every", "2", "--lr", lr]
+    label = f"checkpoint {CKPT_ARCH}"
+    store.save, store.restore = timed_save, timed_restore
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ab, c = str(Path(tmp) / "ab"), str(Path(tmp) / "c")
+            runs, faulty = {}, {}
+
+            def launch(name, steps, d):
+                runs[name] = run_launcher(
+                    base + ["--steps", str(steps), "--ckpt-dir", d])
+                log(f"{label} run {name}: {runs[name][2]:.1f} s, "
+                    f"{memory()}")
+            launch("A", 4, ab)
+            # A's last checkpoint under each planted fault, saving nothing
+            store.save, store.restore = (lambda *a, **kw: None), restore
+            for name, patch in planted_restore_faults(restore, train_cli):
+                with patch:
+                    faulty[name] = run_launcher(
+                        base + ["--steps", "6", "--ckpt-dir", ab])[0]
+            store.save, store.restore = timed_save, timed_restore
+            launch("B", 6, ab)
+            if "restored step 4" not in runs["B"][3]:
+                fail(f"{label}: run B did not print 'restored step 4'")
+            shutil.rmtree(ab)
+            launch("C", 6, c)
+    finally:
+        store.save, store.restore = save, restore
+    faults = {name: max(abs(got.losses[i] - runs["C"][0].losses[i])
+                        / abs(runs["C"][0].losses[i]) for i in (4, 5))
+              for name, got in faulty.items()}
+    if any(v for r in runs.values() for v in r[1].values()):
+        fail(f"{label}: hand-written kernels launched")
+    b, c = runs["B"][0], runs["C"][0]
+    if b.start != 4 or sorted(b.losses) != [4, 5]:
+        fail(f"{label}: run B resumed at {b.start} with steps "
+             f"{sorted(b.losses)}")
+    rel = {i: abs(b.losses[i] - c.losses[i]) / abs(c.losses[i])
+           for i in (4, 5)}
+    if not all(r <= CKPT_RTOL for r in rel.values()):
+        fail(f"{label}: resumed losses {b.losses} vs uninterrupted "
+             f"{c.losses}")
+    if not restores or not all(r[2] for r in restores):
+        fail(f"{label}: no verified restore")
+    log(f"{label}: B losses {b.losses} vs C "
+        f"{ {i: c.losses[i] for i in (4, 5)} } (rel {rel}); saves (step, "
+        f"bytes, s) {saves}; restores (step, leaves checksum-verified, "
+        f"verify, s) {restores}; bytes written "
+        f"{sum(s[1] for s in saves)}; planted restore faults, largest "
+        f"rel at steps 4-5: {faults} (limit {CKPT_RTOL})")
+    for name, r in faults.items():
+        if not r > CKPT_RTOL:
+            fail(f"{label}: resuming under the planted fault '{name}' "
+                 f"reads rel {r:.4g}, inside the limit")
+    return {"saves": saves, "restores": restores, "rel": rel,
+            "faults": faults,
+            "losses": {k: r[0].losses for k, r in runs.items()},
+            "wall_s": {k: r[2] for k, r in runs.items()},
+            "launches": {k: r[1] for k, r in runs.items()}}
+
+
+def planted_restore_faults(restore, train_cli) -> list:
+    """(name, patch) pairs of ``checkpoint_phase``'s planted faults: the
+    checkpoint ``restore`` returning the optimizer state without its m
+    and v or without its step counter, and the launcher's data iterator
+    ignoring the restored step."""
+    def faulty(*keys):
+        def wrapped(*a, **kw):
+            state, meta = restore(*a, **kw)
+            for key in keys:
+                for t in torch.utils._pytree.tree_leaves(state["opt"][key]):
+                    t.zero_()
+            return state, meta
+        return wrapped
+    from repro_torch.checkpoint import store
+    return [("m and v lost", mock.patch.object(store, "restore",
+                                               faulty("m", "v"))),
+            ("step counter lost", mock.patch.object(store, "restore",
+                                                    faulty("step"))),
+            ("data iterator at step 0", mock.patch.object(
+                train_cli.DataIterator, "restore",
+                lambda self, state: None))]
+
+
 def sass_counts(libs: dict) -> dict:
     """Per kernel library: how many tensor-core mma (``HMMA``), ldmatrix
     (``LDSM``), ``cp.async`` (``LDGSTS``) and fp32 FMA (``FFMA``)
@@ -1363,8 +2046,9 @@ def memory() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace short serve runs with torch.profiler "
-                         "(device time by category, idle share)")
+                    help="also trace short serve runs and two launcher "
+                         "train steps with torch.profiler (device time "
+                         "by category, idle share)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU")
@@ -1410,6 +2094,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     record["train"] = {TRAIN_ARCH: train_model(TRAIN_ARCH)}
+    for name, phase in (("launcher", launcher_phase),
+                        ("checkpoint", checkpoint_phase)):
+        t0 = time.perf_counter()
+        record[name] = phase()
+        log(f"{name} phase: {time.perf_counter() - t0:.1f} s, {memory()}")
+    if args.profile:
+        record["launcher_profile"] = launcher_profile()
     rows = kernels_line(kernels, {**record["serve"], **record["train"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

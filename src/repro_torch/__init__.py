@@ -11,16 +11,19 @@ Subpackages (imported lazily so ``import repro_torch`` stays light):
   core      tier descriptors, data objects, placement policies, the
             cost model, migration policies, memory kinds, TieredArray
   cluster   namespaced ledger keys
-  pool      residency ledger
+  pool      residency ledger, tier arbiter, move scheduler, tiered
+            training state (TieredStateStore)
   telemetry access traces, sampling, phase detection, adaptive replan
   obs       control-plane trace, metrics registry, SLOs, audit, probes
   kernels   CUDA kernels, their plain PyTorch versions, dispatch
-  models    model blocks and the pattern LM (prefill, training loss)
+  models    model blocks and the pattern LM (prefill, decode step,
+            training loss)
   data      deterministic synthetic token pipeline
   optim     AdamW (clipping, bf16 compression, fused kernel path)
-  offload   ZeRO-Offload training engine
+  offload   ZeRO-Offload training and FlexGen one-shot serving engines
   serving   continuous-batching paged-KV serving
-  launch    step builders and the serving CLI
+  checkpoint atomic, checksummed checkpoints in the reference's format
+  launch    step builders, the serving CLI and the training CLI
 """
 import importlib
 
@@ -28,7 +31,7 @@ __version__ = "0.1.0"
 
 _LAZY_SUBPACKAGES = ("configs", "core", "cluster", "pool", "telemetry",
                      "obs", "kernels", "models", "data", "optim",
-                     "offload", "serving", "launch")
+                     "offload", "serving", "checkpoint", "launch")
 
 
 def __getattr__(name):

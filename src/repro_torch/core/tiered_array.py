@@ -20,6 +20,9 @@ block on one kind (the paper's page interleaving, at block grain):
 
   ta = TieredArray.place(x, [("device", .5), ("pinned_host", .5)])
   y  = ta.gather()          # the whole tensor in device memory
+  it = ta.prefetch_blocks() # the blocks in device memory, one at a time,
+                            # block i+1's copy in flight while i is used
+  ta.move_block(i, kind)    # re-place one block onto another kind
   ta.update(new_x)          # write back into the same blocks, in place
 
 Unlike the reference, whose ``update`` re-places every block, ``update``
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.utils._pytree as pytree
@@ -221,6 +224,55 @@ class TieredArray:
             out[start:stop].copy_(blk, non_blocking=True)
             start = stop
         return out
+
+    def prefetch_blocks(self) -> Iterator[torch.Tensor]:
+        """The blocks in device memory, in order: block i+1's copy is
+        issued on a side stream before block i is handed out, so it is
+        in flight while block i is used (the ZeRO-Offload bucket
+        pipeline).  A block already in device memory is handed out
+        itself (treat it as read-only).  Each copy is made ready for
+        the current stream before it is yielded.  Under a CPU engine
+        the blocks are handed out as they are."""
+        if self.device.type != "cuda":
+            yield from self.blocks
+            return
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+
+        def issue(blk):
+            if blk.device == self.device:
+                return blk, None
+            side.wait_stream(main)      # the block's last writes first
+            with torch.cuda.stream(side):
+                out = blk.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+            return out, done
+
+        nxt = issue(self.blocks[0])
+        for i in range(len(self.blocks)):
+            cur, done = nxt
+            if i + 1 < len(self.blocks):
+                nxt = issue(self.blocks[i + 1])
+            if done is not None:
+                main.wait_event(done)
+                cur.record_stream(main)
+            yield cur
+
+    def move_block(self, i: int, kind: str) -> int:
+        """Re-place block ``i`` onto memory kind ``kind``: a copy into a
+        new block of that kind (device, pinned or pageable host memory;
+        CPU memory for every kind under a CPU engine).  Returns the
+        bytes moved (0 when the block already lives there)."""
+        if self.kinds[i] == kind:
+            return 0
+        blk = self.blocks[i]
+        new = empty_on(kind, blk.shape, blk.dtype, self.device)
+        new.copy_(blk)
+        self.blocks[i] = new
+        self.kinds[i] = kind
+        per_row = self.nbytes // max(self.shape[0], 1)
+        return blk.shape[0] * per_row
 
     def update(self, x: torch.Tensor, non_blocking: bool = False
                ) -> "TieredArray":

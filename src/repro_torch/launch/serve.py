@@ -1,17 +1,25 @@
-"""Serving CLI of the port: continuous batching over the paged,
-tier-migrating KV pool, on CUDA unless ``--device cpu``.
+"""Serving CLI of the port: one-shot batch or tier-aware continuous
+batching, on CUDA unless ``--device cpu``.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
-        --smoke --scheduler continuous --policy tiering08 \\
+One-shot (FlexGen-style, statically split weights and KV; the default):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --smoke --batch 4 --prompt-len 32 --new-tokens 16 \
+        --kv-host-frac 0.5 --device cpu
+
+Continuous batching over the paged, tier-migrating KV pool:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --smoke --scheduler continuous --policy tiering08 \
         --num-requests 6 --device cpu
 
 Adaptive object-level re-interleaving from observed access telemetry,
 with the control-plane trace, the metrics and the audit report written
 out:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
-        --smoke --scheduler continuous --adaptive --replan-every 8 \\
-        --trace-out t.jsonl --metrics-out m.prom --audit-out a.json \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --smoke --scheduler continuous --adaptive --replan-every 8 \
+        --trace-out t.jsonl --metrics-out m.prom --audit-out a.json \
         --device cpu
 
 The control planes: the predictive arbiter and move scheduler
@@ -22,15 +30,17 @@ probes of this machine's memory kinds), interference-class QoS
 (``--expert-policy`` on a MoE arch):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
-        --smoke --adaptive --predictive --calibrate --topology far-socket \
-        --qos --slo-p99-decode 1e-3 --device cpu
+        --smoke --scheduler continuous --adaptive --predictive \
+        --calibrate --topology far-socket --qos --slo-p99-decode 1e-3 \
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch qwen3-moe-30b-a3b --smoke --fused-gather --adaptive \
-        --predictive --expert-policy predictive --device cpu
+        --arch qwen3-moe-30b-a3b --smoke --scheduler continuous \
+        --fused-gather --adaptive --predictive --expert-policy predictive \
+        --device cpu
 
-Only the continuous scheduler is ported; ``--scheduler oneshot`` (the
-FlexGen path of ``repro.launch.serve``) raises until ROADMAP queue 1,
-item 7 ports it.  Weights are random, drawn from seed 0.
+Weights are random, drawn from seed 0.  The multi-host cluster plane
+(``--replicas``, ``--router``) is not ported yet (ROADMAP queue 1,
+item 9).
 """
 from __future__ import annotations
 
@@ -58,17 +68,38 @@ def _rate(text: str) -> float:
     return val
 
 
-def _fraction(text: str) -> float:
-    """argparse type: the fast-resident share of experts, in [0, 1]."""
-    try:
-        val = float(text)
-    except ValueError as e:
-        raise argparse.ArgumentTypeError(
-            f"--expert-fast-frac must be a number, got {text!r}") from e
-    if not 0.0 <= val <= 1.0:
-        raise argparse.ArgumentTypeError(
-            f"--expert-fast-frac must be in [0, 1], got {val}")
-    return val
+def _fraction(name: str):
+    """argparse type: a float that must land in [0, 1]."""
+    def parse(text: str) -> float:
+        try:
+            val = float(text)
+        except ValueError as e:
+            raise argparse.ArgumentTypeError(
+                f"{name} must be a number, got {text!r}") from e
+        if not 0.0 <= val <= 1.0:
+            raise argparse.ArgumentTypeError(
+                f"{name} must be in [0, 1], got {val}")
+        return val
+    return parse
+
+
+def run_oneshot(args, cfg, params) -> None:
+    from ..offload.serve_engine import FlexGenEngine, ServeConfig
+
+    w = args.weights_host_frac
+    k = args.kv_host_frac
+    eng = FlexGenEngine(cfg, params, ServeConfig(
+        max_new_tokens=args.new_tokens, prompt_len=args.prompt_len,
+        weight_shares=[("device", 1 - w), ("pinned_host", w)],
+        kv_shares=[("device", 1 - k), ("pinned_host", k)]),
+        device=args.device)
+    prompts = np.random.RandomState(0).randint(
+        0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
+    st = eng.run(prompts)
+    print(f"batch={st.batch} prefill={st.prefill_s*1e3:.1f} ms "
+          f"decode={st.decode_tok_s:.1f} tok/s "
+          f"({st.new_tokens} new tokens/seq; weights {w:.0%} host, "
+          f"KV {k:.0%} host)")
 
 
 def run_continuous(args, cfg, params) -> None:
@@ -192,13 +223,19 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--weights-host-frac",
+                    type=_fraction("--weights-host-frac"), default=0.0,
+                    help="fraction of weights resident on the host tier")
+    ap.add_argument("--kv-host-frac",
+                    type=_fraction("--kv-host-frac"), default=0.0,
+                    help="fraction of the KV cache on the host tier")
     ap.add_argument("--scheduler", choices=["oneshot", "continuous"],
-                    default="continuous",
-                    help="continuous = paged-KV continuous batching; "
-                         "oneshot is not ported yet")
+                    default="oneshot",
+                    help="oneshot = FlexGen batch; continuous = "
+                         "paged-KV continuous batching")
     ap.add_argument("--policy", default="tiering08",
                     choices=["static", "autonuma", "tiering08", "tpp"],
-                    help="KV-block tiering policy")
+                    help="KV-block tiering policy (continuous only)")
     ap.add_argument("--num-requests", type=int, default=6)
     ap.add_argument("--arrival-gap-s", type=float, default=0.0)
     ap.add_argument("--block-tokens", type=int, default=16)
@@ -247,7 +284,8 @@ def main(argv=None):
                          "predictive also prefetches the predicted next "
                          "phase's hot experts (MoE arch; the routing "
                          "feed comes from --fused-gather)")
-    ap.add_argument("--expert-fast-frac", type=_fraction, default=0.25,
+    ap.add_argument("--expert-fast-frac",
+                    type=_fraction("--expert-fast-frac"), default=0.25,
                     help="share of experts that may be fast-resident")
     ap.add_argument("--sample-rate", type=_rate, default=1.0,
                     help="telemetry sampling rate (fraction of cache "
@@ -277,10 +315,6 @@ def main(argv=None):
     ap.add_argument("--slo-window", type=int, default=512,
                     help="rolling SLO window size in samples")
     args = ap.parse_args(argv)
-    if args.scheduler == "oneshot":
-        raise NotImplementedError(
-            "--scheduler oneshot is not ported to repro_torch yet "
-            "(ROADMAP queue 1, item 7)")
     from ..serving.config import ConfigError, validate_args
     try:
         validate_args(args)
@@ -294,7 +328,10 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
     params = lm.init_params(cfg, seed=0, device=args.device)
-    run_continuous(args, cfg, params)
+    if args.scheduler == "continuous":
+        run_continuous(args, cfg, params)
+    else:
+        run_oneshot(args, cfg, params)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Step builders (counterpart of ``repro.launch.steps``): the training
-loss, forward+backward, a whole train step, and prefill.  Gradients come
-from torch autograd in place of ``jax.value_and_grad``; the serving
-decode step lives in ``serving.engine``."""
+loss, forward+backward, a whole train step, prefill and the serving
+decode step.  Gradients come from torch autograd in place of
+``jax.value_and_grad``."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -63,3 +63,9 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     def prefill_step(params, batch, units=None):
         return lm.prefill(params, cfg, batch["tokens"], units=units)
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    def serve_step(params, cache, tokens, units=None):
+        return lm.decode_step(params, cfg, cache, tokens, units=units)
+    return serve_step

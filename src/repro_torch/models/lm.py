@@ -1,6 +1,7 @@
 """Pattern language model in PyTorch (counterpart of ``repro.models.lm``)
-for attention-only families, dense or MoE: parameters, prefill, the
-training loss, and the conversion of the reference's parameters.
+for attention-only families, dense or MoE, with bf16 KV caches:
+parameters, prefill, the decode step and its cache, the training loss,
+and the conversion of the reference's parameters.
 
 Parameters keep the reference's pytree layout — nested dicts and
 tuples, with the repeating unit's layers stacked on a leading ``units``
@@ -9,7 +10,13 @@ reference's ``lax.scan`` over units becomes a Python loop over that
 axis (``unit_views``).  Prefill attention runs through
 ``kernels.ops.flash_attention``: the CUDA kernel on the card, its plain
 version on the CPU; training attention through the plain
-``chunked_attention``, as in the reference's train mode.
+``chunked_attention``, as in the reference's train mode.  A one-token
+decode step attends through ``kernels.ops.decode_attention`` (the
+kernel on the card); a step of several tokens through the plain
+``dense_attention``, as the reference's decode mode does.
+
+Cache layout (the reference's): ``kv_k``/``kv_v`` (U, n_attn, B, S_max,
+KV, hd) bf16, plus ``index``, the tokens already in the cache (an int).
 """
 from __future__ import annotations
 
@@ -38,6 +45,8 @@ def _unsupported(cfg: ModelConfig) -> Optional[str]:
         return "encoder-decoder models"
     if cfg.pos_emb not in ("rope", "learned", "none"):
         return f"pos_emb {cfg.pos_emb!r}"
+    if cfg.kv_cache_dtype == "int8":
+        return "int8 KV caches"
     return None
 
 
@@ -45,8 +54,9 @@ def check_supported(cfg: ModelConfig) -> None:
     why = _unsupported(cfg)
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attention-only models; "
-            f"{why} are not ported yet")
+            f"{cfg.name}: the port runs attention-only models with bf16 "
+            f"KV caches; {why} are not ported yet (ROADMAP queue 1, "
+            "item 8)")
 
 
 # ====================================================================== #
@@ -64,9 +74,10 @@ def tensor_from_numpy(a, device: DeviceLike = "cpu") -> torch.Tensor:
     """One numpy array as a tensor.  bf16 arrays (``ml_dtypes``, what
     ``np.asarray`` of a JAX bf16 array gives) cross bit-exactly through
     an int16 view, since torch cannot read that dtype directly."""
-    a = np.ascontiguousarray(np.asarray(a))
-    if not a.flags.writeable:       # e.g. a view of a JAX buffer
-        a = a.copy()
+    a = np.asarray(a)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        # e.g. a view of a JAX buffer; a 0-d array stays 0-d
+        a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
@@ -179,11 +190,18 @@ def unit_views(params: Params, cfg: ModelConfig) -> List[Params]:
 # ====================================================================== #
 # Forward                                                                #
 # ====================================================================== #
-def _embed_tokens(p: Params, cfg: ModelConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
+def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  index: Optional[int] = None) -> torch.Tensor:
+    """Token embeddings, plus the learned position embeddings of
+    positions ``index`` onwards (0 onwards without ``index``).  The
+    start is clamped so that the S rows fit, as the reference's
+    ``lax.dynamic_slice`` clamps it."""
     x = p["embed"][tokens].to(torch.bfloat16)
     if cfg.pos_emb == "learned":
-        x = x + p["pos_emb"][:tokens.shape[1]][None].to(x.dtype)
+        S = tokens.shape[1]
+        i = 0 if index is None else min(max(int(index), 0),
+                                        p["pos_emb"].shape[0] - S)
+        x = x + p["pos_emb"][i:i + S][None].to(x.dtype)
     return x
 
 
@@ -273,6 +291,89 @@ def prefill(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cache = {"kv_k": torch.stack(kk), "kv_v": torch.stack(vv),
              "index": S}
     return logits, cache
+
+
+# ====================================================================== #
+# Decode                                                                 #
+# ====================================================================== #
+def _decode_unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
+                     kv_k: torch.Tensor, kv_v: torch.Tensor, idx: int,
+                     lens: Optional[torch.Tensor]) -> torch.Tensor:
+    """One unit of a decode step over its caches kv_k/kv_v (n_attn, B,
+    S_max, KV, hd): each attention layer writes the step's K/V at
+    ``idx`` in place, then attends over ``idx + S`` positions without a
+    causal mask, as the reference's decode mode does.  ``lens`` (B,)
+    int32 holds ``idx + 1`` for a one-token step, which runs
+    ``ops.decode_attention``; None for longer steps (``dense_attention``)."""
+    B, S, _ = x.shape
+    positions = idx + torch.arange(S, device=x.device)
+    for li, spec in enumerate(cfg.pattern):
+        lp = up["layers"][li]
+        h = M.apply_norm(cfg.norm, lp["norm1"], x)
+        q, k, v = project_qkv(cfg, lp["attn"], h)
+        if cfg.pos_emb == "rope":
+            q = M.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+            k = M.apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+        ck, cv = kv_k[li], kv_v[li]                  # (B, S_max, KV, hd)
+        ck[:, idx:idx + S] = k.to(ck.dtype)
+        cv[:, idx:idx + S] = v.to(cv.dtype)
+        if lens is not None:
+            att = ops.decode_attention(q[:, 0].contiguous(), ck, cv, lens)
+        else:
+            att = M.dense_attention(q, ck, cv, causal=False,
+                                    kv_len=idx + S)
+        x = x + att.reshape(B, S, cfg.n_heads * cfg.head_dim) \
+            @ lp["attn"]["wo"]
+        h = M.apply_norm(cfg.norm, lp["norm2"], x)
+        out, _ = ffn(cfg, spec, lp, h)
+        x = x + out
+    return x
+
+
+@torch.no_grad()
+def decode_step(p: Params, cfg: ModelConfig, cache: Params,
+                tokens: torch.Tensor,
+                units: Optional[List[Params]] = None
+                ) -> Tuple[torch.Tensor, Params]:
+    """One decode step: tokens (B, S) -> (logits (B, V) fp32, cache).
+
+    The step's K/V are written into the cache's ``kv_k``/``kv_v``
+    buffers in place (the reference returns updated copies; its callers
+    drop the old cache), and the returned cache holds those buffers and
+    ``index + S``.  As in the reference, the logits are those of the
+    step's first token."""
+    check_supported(cfg)
+    dev = p["embed"].device
+    tokens = tokens.to(device=dev, dtype=torch.int64)
+    idx = int(cache["index"])
+    B, S = tokens.shape
+    kv_k, kv_v = cache["kv_k"], cache["kv_v"]
+    if idx + S > kv_k.shape[3]:
+        raise ValueError(f"decode step of {S} token(s) at index {idx} "
+                         f"overflows a cache of {kv_k.shape[3]} positions")
+    x = _embed_tokens(p, cfg, tokens, index=idx)
+    lens = (torch.full((B,), idx + 1, dtype=torch.int32, device=dev)
+            if S == 1 else None)
+    for u, up in enumerate(units if units is not None
+                           else unit_views(p, cfg)):
+        x = _decode_unit_fwd(cfg, up, x, kv_k[u], kv_v[u], idx, lens)
+    x = M.apply_norm(cfg.norm, p["final_norm"], x)
+    logits = (x[:, 0] @ _lm_head(p, cfg).T).float()
+    return logits, {"kv_k": kv_k, "kv_v": kv_v, "index": idx + S}
+
+
+def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                      device: DeviceLike = None) -> Params:
+    """Zero-initialized decode cache on ``device`` (CUDA unless
+    ``device="cpu"``): ``kv_k``/``kv_v`` (U, n_attn, B, max_seq, KV, hd)
+    bf16 and ``index`` 0."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_units, len(cfg.unit_attn_layers), batch, max_seq,
+             cfg.n_kv, cfg.head_dim)
+    return {"index": 0,
+            "kv_k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            "kv_v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
 
 
 # ====================================================================== #

@@ -126,6 +126,34 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0,
+                    kv_len=None) -> torch.Tensor:
+    """Direct softmax attention (the decode path's plain attention and
+    the small-S oracle), in the grouped (KV, rep) layout: the cache is
+    never repeated to H heads.  Scores in fp32; masked positions get
+    -1e30 (``causal``: key position <= ``q_offset`` + query position;
+    ``kv_len``, an int or 0-d tensor: key position < ``kv_len``).
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd).  Returns (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    qf = q.reshape(B, Sq, KV, rep, hd).float()
+    s = torch.einsum("bqgrh,bkgh->bgrqk", qf, k.float()) / math.sqrt(hd)
+    k_pos = torch.arange(Sk, device=q.device)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if kv_len is not None:
+        mask = mask & (k_pos[None, :] < kv_len)
+    s = torch.where(mask[None, None, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrqk,bkgh->bgrqh", p, v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
 # ====================================================================== #
 # MLP (SwiGLU / GELU)                                                    #
 # ====================================================================== #

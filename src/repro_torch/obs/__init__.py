@@ -15,7 +15,8 @@
 """
 from .audit import DriftDetector, PredictionLedger, PredictionRecord
 from .calibrate import (CostModelCalibrator, LinkCorrection,
-                        measure_transfer_probes, probe_testbed, TierProbe)
+                        measure_transfer_probes, probe_testbed,
+                        probed_kind_bases, TierProbe)
 from .qos import (BlameLedger, Excursion, QOS_VIOLATION_MODEL,
                   QOS_VIOLATION_TOLERANCE, ViolationPredictor)
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
@@ -29,7 +30,7 @@ __all__ = [
     "LagRatioMonitor", "SLOMonitor", "SLOTarget",
     "DriftDetector", "PredictionLedger", "PredictionRecord",
     "CostModelCalibrator", "LinkCorrection", "TierProbe",
-    "measure_transfer_probes", "probe_testbed",
+    "measure_transfer_probes", "probe_testbed", "probed_kind_bases",
     "BlameLedger", "Excursion", "QOS_VIOLATION_MODEL",
     "QOS_VIOLATION_TOLERANCE", "ViolationPredictor",
 ]

@@ -51,7 +51,7 @@ from ..core.tiered_array import DeviceLike, empty_on, resolve_device
 from ..core.tiers import MemoryTier
 
 __all__ = ["TierProbe", "LinkCorrection", "CostModelCalibrator",
-           "probe_testbed", "measure_transfer_probes"]
+           "probe_testbed", "measure_transfer_probes", "probed_kind_bases"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +144,34 @@ def measure_transfer_probes(kinds: Iterable[str] = ("pinned_host",
                                f"{dt} s for {n} copies")
         out.append(TierProbe(kind, bw_GBps=n * nbytes / dt / 1e9))
     return out
+
+
+def probed_kind_bases(kinds: Iterable[str], device: DeviceLike = None
+                      ) -> Dict[str, MemoryTier]:
+    """MemoryTier descriptors of memory ``kinds`` of ``device``, built
+    from transfer probes (``measure_transfer_probes``).
+
+    A bulk copy observes bandwidth only, so every other field is
+    derived from it:
+
+      * ``peak_bw_GBps`` and ``stream_bw_GBps``: the probed copy rate.
+        One copy stream reaches it, so ``saturation_streams`` is 1;
+      * ``unloaded_latency_ns``: the time of one 64-byte line at that
+        rate (64 / rate).  It is not a latency: it orders the tiers by
+        the one thing the probe saw, fastest first.  The planner uses
+        latency only for random access, and the traffic it plans
+        streams;
+      * ``capacity_GiB``: 0; the caller sets it;
+      * ``kind``: ``hbm`` for the device, ``host`` for host memory.
+
+    Under a CPU engine the kinds are logical CPU memory and the probes
+    time CPU copies.
+    """
+    probes = measure_transfer_probes(kinds=tuple(kinds), device=device)
+    return {p.tier: MemoryTier(p.tier, 64.0 / p.bw_GBps, p.bw_GBps,
+                               p.bw_GBps, 0.0,
+                               kind="hbm" if p.tier == "device" else "host")
+            for p in probes}
 
 
 class CostModelCalibrator:

@@ -23,6 +23,9 @@ from ..kernels import ref as kref
 
 Params = Any
 
+# fp32 elements per chunk of the plain update (256 MiB per temporary)
+CHUNK_ELEMS = 1 << 26
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamConfig:
@@ -58,6 +61,41 @@ def init_state(params: Params, cfg: AdamConfig) -> Dict[str, Any]:
     return state
 
 
+def init_state_shapes(param_shapes: Params, cfg: AdamConfig
+                      ) -> Dict[str, Any]:
+    """The twin of ``init_state`` without storage: every leaf a tensor
+    on the ``meta`` device, fp32 in the shape of its parameter (anything
+    with a ``shape``), and ``step`` a 0-d int32."""
+    def f32(p):
+        return torch.empty(tuple(p.shape), dtype=torch.float32,
+                           device="meta")
+
+    state = {
+        "master": pytree.tree_map(f32, param_shapes),
+        "m": pytree.tree_map(f32, param_shapes),
+        "v": pytree.tree_map(f32, param_shapes),
+        "step": torch.empty((), dtype=torch.int32, device="meta"),
+    }
+    if cfg.compress_grads:
+        state["err"] = pytree.tree_map(f32, param_shapes)
+    return state
+
+
+def _chunked(update, ma, m, v, g, scale, kw):
+    """``update`` over row chunks of at most ``CHUNK_ELEMS`` elements of
+    one leaf (a 0-d leaf whole); returns (master', m', v') whole."""
+    if ma.dim() == 0:
+        return update(ma, m, v, g.float() * scale, **kw)
+    rows = max(1, CHUNK_ELEMS // max(1, ma[0].numel()))
+    outs = tuple(torch.empty_like(ma) for _ in range(3))
+    for r0 in range(0, ma.shape[0], rows):
+        sl = slice(r0, r0 + rows)
+        for out, part in zip(outs, update(ma[sl], m[sl], v[sl],
+                                          g[sl].float() * scale, **kw)):
+            out[sl] = part
+    return outs
+
+
 def _global_norm(leaves) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                           for g in leaves))
@@ -85,9 +123,7 @@ def apply_update(params: Params, state: Dict[str, Any], grads: Params,
     # bias corrections in fp32 from the step counter, as the reference
     b1c = 1.0 - torch.pow(cfg.b1, step.float())
     b2c = 1.0 - torch.pow(cfg.b2, step.float())
-    update = kref.fused_adam
     if cfg.use_fused_kernel:
-        update = kops.fused_adam
         # read once: the kernel takes them as float arguments
         b1c, b2c = float(b1c), float(b2c)
     kw = dict(lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
@@ -97,7 +133,12 @@ def apply_update(params: Params, state: Dict[str, Any], grads: Params,
     for p, ma, m, v, g in zip(flat_p, spec.flatten_up_to(state["master"]),
                               spec.flatten_up_to(state["m"]),
                               spec.flatten_up_to(state["v"]), flat_g):
-        nm_, m2_, v2_ = update(ma, m, v, g.float() * scale, **kw)
+        if cfg.use_fused_kernel:
+            nm_, m2_, v2_ = kops.fused_adam(ma, m, v, g.float() * scale,
+                                            **kw)
+        else:
+            nm_, m2_, v2_ = _chunked(kref.fused_adam, ma, m, v, g, scale,
+                                     kw)
         new_mast.append(nm_)
         new_m.append(m2_)
         new_v.append(v2_)

@@ -1,5 +1,5 @@
-"""Multi-tenant residency ledger and tier arbitration (counterpart of
-``repro.pool``; copies):
+"""Multi-tenant residency ledger, tier arbitration and tiered training
+state (counterpart of ``repro.pool``):
 
 - ledger:    ``ResidencyLedger``, the single source of truth for
              bytes-per-tier-per-tenant
@@ -8,14 +8,16 @@
 - movesched: ``MoveScheduler`` batches every tenant's placement deltas
              per round, coalesces them, and orders them
              priority-weighted over the links their paths share
-
-``TieredStateStore`` (adaptive training state) is not ported yet.
+- state_store: ``TieredStateStore`` holds tensor trees (the fp32
+             optimizer state) as TieredArrays and executes replanner
+             deltas as real block re-placements recorded in the ledger
 """
 from .arbiter import (ArbiterDecision, OBJECTIVES, PhaseDemand,
                       PhaseDemandTable, TenantDemand, TierBudgetArbiter)
 from .ledger import (LedgerCounters, LedgerError, ResidencyLedger, Tenant,
                      UNBOUNDED)
 from .movesched import MoveRound, MoveScheduler, ScheduledMove
+from .state_store import TieredStateStore
 
 __all__ = [
     "LedgerCounters", "LedgerError", "ResidencyLedger", "Tenant",
@@ -23,4 +25,5 @@ __all__ = [
     "OBJECTIVES", "ArbiterDecision", "PhaseDemand", "PhaseDemandTable",
     "TenantDemand", "TierBudgetArbiter",
     "MoveRound", "MoveScheduler", "ScheduledMove",
+    "TieredStateStore",
 ]

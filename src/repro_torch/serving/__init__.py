@@ -7,7 +7,7 @@ from .config import (ClusterOptions, ConfigError, ExpertOptions,
 from .engine import (check_paged_support, kind_bases, kind_tiers,
                      ServingConfig, ServingEngine, ServingReport)
 from .kv_pool import (FAST_KIND, KVBlock, KVBlockSpec, PagedKVPool,
-                      PoolExhausted, spec_from_config)
+                      PoolExhausted, spec_from_config, TieredKVCache)
 from .metrics import percentile, PoolSample, RequestMetrics, ServingMetrics
 from .scheduler import (AdmissionPlan, ContinuousBatchingScheduler,
                         plan_admission, Request, RequestState,
@@ -22,5 +22,5 @@ __all__ = [
     "POLICIES", "PoolExhausted", "PoolSample", "QoSOptions", "Request",
     "RequestMetrics", "RequestState", "ROUTER_POLICIES", "SchedulerConfig",
     "ServingConfig", "ServingEngine", "ServingMetrics", "ServingReport",
-    "spec_from_config", "TieringOptions", "validate_args",
+    "spec_from_config", "TieredKVCache", "TieringOptions", "validate_args",
 ]

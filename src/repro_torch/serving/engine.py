@@ -77,7 +77,8 @@ from ..models import lm
 from ..models import modules as M
 from ..obs import (BlameLedger, CostModelCalibrator, LagRatioMonitor,
                    measure_transfer_probes, MetricsRegistry, PredictionLedger,
-                   SLOMonitor, SLOTarget, TraceRecorder, ViolationPredictor)
+                   probed_kind_bases, SLOMonitor, SLOTarget, TraceRecorder,
+                   ViolationPredictor)
 from ..pool import MoveScheduler, TierBudgetArbiter
 from ..telemetry import (AccessSampler, AccessTrace, AdaptiveReplanner,
                          PhaseDetector, ReplanConfig, SamplerConfig)
@@ -413,33 +414,12 @@ class ServingReport:
 
 def kind_bases(pool: PagedKVPool) -> Dict[str, MemoryTier]:
     """MemoryTier descriptors of the pool's fast and slow memory kinds,
-    built from transfer probes of this machine
-    (``obs.measure_transfer_probes`` on the pool's device: on the card,
-    copies from the device into each kind, timed with CUDA events).
-
-    A bulk copy observes bandwidth only, so every other field is
-    derived from it:
-
-      * ``peak_bw_GBps`` and ``stream_bw_GBps``: the probed copy rate.
-        One copy stream reaches it, so ``saturation_streams`` is 1;
-      * ``unloaded_latency_ns``: the time of one 64-byte line at that
-        rate (64 / rate).  It is not a latency: it orders the tiers by
-        the one thing the probe saw, fastest first.  The planner uses
-        latency only for random access, and KV reads stream;
-      * ``capacity_GiB``: 0 here; ``kind_tiers`` sets it from the
-        pool's block budgets;
-      * ``kind``: ``hbm`` for the device, ``host`` for host memory.
-
-    Under a CPU engine the kinds are logical CPU memory and the probes
-    time CPU copies.
-    """
-    probes = measure_transfer_probes(kinds=(FAST_KIND, pool.slow_kind),
-                                     device=pool.device)
-    return {p.tier: MemoryTier(p.tier, 64.0 / p.bw_GBps, p.bw_GBps,
-                               p.bw_GBps, 0.0,
-                               kind="hbm" if p.tier == FAST_KIND
-                               else "host")
-            for p in probes}
+    built from transfer probes of this machine on the pool's device
+    (``obs.probed_kind_bases``: on the card, copies from the device into
+    each kind, timed with CUDA events; every field follows from the
+    probed rate).  Capacities are 0 here; ``kind_tiers`` sets them from
+    the pool's block budgets."""
+    return probed_kind_bases((FAST_KIND, pool.slow_kind), pool.device)
 
 
 def kind_tiers(pool: PagedKVPool,

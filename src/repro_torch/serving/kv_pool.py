@@ -1,5 +1,6 @@
-"""Paged KV-cache block pool with tier-resident blocks (counterpart of
-``repro.serving.kv_pool``; ``TieredKVCache`` is not ported yet).
+"""Paged KV-cache block pool with tier-resident blocks, and the one-shot
+engine's whole-cache residency ``TieredKVCache`` (counterpart of
+``repro.serving.kv_pool``).
 
 A block holds ``block_tokens`` tokens of K and V for every attention
 layer: k/v each ``(U, n_attn, block_tokens, KV, hd)``.  Each block
@@ -35,7 +36,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.tiered_array import DeviceLike, resolve_device, to_kind
+from ..core.tiered_array import (DeviceLike, LOGICAL_KINDS, resolve_device,
+                                 TieredArray, to_kind)
 from ..pool.ledger import ResidencyLedger
 
 FAST_KIND = "device"
@@ -492,6 +494,83 @@ class PagedKVPool:
         self._free = list(range(self.num_blocks - 1, len(live) - 1, -1))
         self.counters.defrags += 1
         return moved
+
+
+# ---------------------------------------------------------------------- #
+# TieredKVCache: whole-cache tier residency for the one-shot engine.      #
+# ---------------------------------------------------------------------- #
+class TieredKVCache:
+    """Static-split KV residency for ``FlexGenEngine`` (one-shot path).
+
+    Owns the tier placement of a contiguous decode cache between steps:
+    ``stash`` places the cache's buffers on their tier shares (split
+    along the unit axis, as ``TieredArray`` blocks), ``restore`` gathers
+    them back into device memory and ``update`` writes a stepped cache
+    into the same blocks.  With no share off the device all three are
+    no-ops and the cache stays where it is.  Memory kinds are those of
+    an engine on ``device`` (CUDA unless ``"cpu"``).
+    """
+
+    def __init__(self, shares: Sequence[Tuple[str, float]],
+                 keys: Sequence[str] = ("kv_k", "kv_v"),
+                 ledger=None, tenant: str = "oneshot_kv",
+                 device: DeviceLike = None):
+        self.shares = list(shares)
+        self.keys = list(keys)
+        self.device = resolve_device(device)
+        self._tiered: Dict[str, TieredArray] = {}
+        self.ledger = ledger if ledger is not None else ResidencyLedger()
+        self.tenant = tenant
+        self.ledger.register_tenant(tenant)
+
+    @property
+    def offloaded(self) -> bool:
+        return any(f > 0 for kind, f in self.shares if kind != FAST_KIND)
+
+    def _sync_ledger(self, key: str) -> None:
+        """Mirror one buffer's realized per-kind bytes into the ledger
+        (the TieredArray's block rounding is the truth, not the asked
+        shares)."""
+        ta = self._tiered[key]
+        placement = {k: ta.bytes_on(k)
+                     for k in sorted(set(LOGICAL_KINDS) | set(ta.kinds))
+                     if ta.bytes_on(k) > 0}
+        if self.ledger.has(self.tenant, key):
+            self.ledger.retire(self.tenant, key)
+        self.ledger.register(self.tenant, key, placement)
+
+    def stash(self, cache: Dict[str, object]) -> None:
+        """Place the cache's KV buffers across the configured shares."""
+        if not self.offloaded:
+            return
+        for key in self.keys:
+            if key in cache:
+                arr = cache[key]
+                self._tiered[key] = TieredArray.place(
+                    arr.reshape(arr.shape[0], -1), self.shares,
+                    device=self.device)
+                self._sync_ledger(key)
+
+    def restore(self, cache: Dict[str, object]) -> Dict[str, object]:
+        """Gather the tier-resident KV back into the cache dict, in
+        device memory."""
+        if not self.offloaded:
+            return cache
+        for key, ta in self._tiered.items():
+            cache[key] = ta.gather().reshape(cache[key].shape)
+        return cache
+
+    def update(self, cache: Dict[str, object]) -> None:
+        """Write a stepped cache back into its blocks, keeping the
+        placement."""
+        if not self.offloaded:
+            return
+        for key, ta in self._tiered.items():
+            ta.update(cache[key].reshape(cache[key].shape[0], -1))
+
+    def bytes_on(self, kind: str) -> int:
+        """Tier occupancy, read through the ledger (single source)."""
+        return self.ledger.bytes_on(kind, self.tenant)
 
 
 def spec_from_config(cfg, block_tokens: int) -> KVBlockSpec:

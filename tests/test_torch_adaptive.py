@@ -266,8 +266,8 @@ def _cli(*args, cwd):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "llama3-8b", "--smoke", "--device", "cpu", "--num-requests", "4",
-         "--new-tokens", "8", *args],
+         "llama3-8b", "--smoke", "--scheduler", "continuous", "--device",
+         "cpu", "--num-requests", "4", "--new-tokens", "8", *args],
         capture_output=True, text=True, env=env, timeout=300, cwd=cwd)
 
 
@@ -275,8 +275,9 @@ def _cli_in_process(*args, cwd, monkeypatch):
     """The same CLI run in this process (no interpreter start-up)."""
     from repro_torch.launch import serve
     monkeypatch.chdir(cwd)
-    serve.main(["--arch", "llama3-8b", "--smoke", "--device", "cpu",
-                "--num-requests", "4", "--new-tokens", "8", *args])
+    serve.main(["--arch", "llama3-8b", "--smoke", "--scheduler",
+                "continuous", "--device", "cpu", "--num-requests", "4",
+                "--new-tokens", "8", *args])
 
 
 def _check_artifacts(out: str, cwd: Path) -> None:
@@ -363,7 +364,8 @@ def test_cli_topology_qos_printouts(tmp_path, monkeypatch, capsys):
 def test_cli_expert_policy_printout(tmp_path, monkeypatch, capsys):
     from repro_torch.launch import serve
     monkeypatch.chdir(tmp_path)
-    serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu",
+    serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--scheduler",
+                "continuous", "--device", "cpu",
                 "--num-requests", "3", "--new-tokens", "6",
                 "--fused-gather", "--expert-policy", "predictive",
                 "--expert-fast-frac", "0.5"])

@@ -128,6 +128,26 @@ def test_apply_update_matches_reference(case, stacked):
             assert_close(tp[name], jp[name], dict(rtol=1e-2, atol=1e-6))
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 32, 1 << 26])
+def test_plain_update_in_row_chunks_is_bit_exact(monkeypatch, chunk):
+    """The plain update runs over row chunks of at most ``CHUNK_ELEMS``
+    elements of a leaf (one row where a row is larger); it is
+    elementwise, so every chunking gives the whole-leaf update bit for
+    bit."""
+    from repro_torch.optim import adam
+    cfg = AdamConfig(lr=1e-2, grad_clip=0.05)
+    rs = np.random.RandomState(5)
+    params = {k: to_torch(v) for k, v in _tree(rs, stacked=True).items()}
+    grads = {k: to_torch(normal(rs, tuple(v.shape))) for k, v in
+             params.items()}
+    want = apply_update(params, init_state(params, cfg), grads, cfg)
+    monkeypatch.setattr(adam, "CHUNK_ELEMS", chunk)
+    got = apply_update(params, init_state(params, cfg), grads, cfg)
+    for a, b in zip(torch.utils._pytree.tree_leaves(got),
+                    torch.utils._pytree.tree_leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_grad_clip_bounds_the_first_moment():
     cfg = AdamConfig(lr=1.0, grad_clip=0.001, weight_decay=0.0)
     params = {"w": torch.zeros(4, dtype=torch.bfloat16)}

@@ -420,13 +420,8 @@ def test_cli_continuous_cpu():
 
 
 def test_cli_moe_fused_cpu():
-    res = _cli("--arch", "qwen3-moe-30b-a3b", "--smoke", "--fused-gather",
-               "--device", "cpu", "--num-requests", "3", "--new-tokens", "4")
+    res = _cli("--arch", "qwen3-moe-30b-a3b", "--smoke", "--scheduler",
+               "continuous", "--fused-gather", "--device", "cpu",
+               "--num-requests", "3", "--new-tokens", "4")
     assert res.returncode == 0, res.stderr
     assert "policy=tiering08 requests=3 finished=3" in res.stdout
-
-
-def test_cli_oneshot_not_ported():
-    res = _cli("--smoke", "--scheduler", "oneshot", "--device", "cpu")
-    assert res.returncode != 0
-    assert "ROADMAP queue 1, item 7" in res.stderr
