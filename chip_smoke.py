@@ -157,6 +157,35 @@ and llama3-8b smoke configs for 3 steps on the card and on the CPU from
 the same weights and batches: step-1 losses must agree within
 ``TRAIN_LOSS_ATOL``.
 
+The families phase follows the serve phases: llama-3.2-vision-11b (8
+prompts of 512 over 1600 stubbed image embeddings, its tanh gates drawn
+away from 0), rwkv6-7b (8 prompts of 512) and whisper-large-v3 (8
+prompts of 128 over 1500 stubbed frames; the encoder's own ms printed),
+each at full width and depth through ``FlexGenEngine.run(prompts,
+frames)`` under two placements (``FAMILY_ARCHS``), with random weights
+from ``SEED``.  Each run must launch the flash kernel once per causal
+self-attention layer and the decode kernel once per self- and
+cross-attention layer and step (rwkv6-7b: none); tokens must not depend
+on the placement; the last decode step must match a prefill as in the
+one-shot phase, except rwkv6-7b's, whose recurrent state carries each
+step's bf16 rounding forward: it is printed, and one step from a prefill
+cache is held to the limit beside three planted state faults
+(``recurrent_witness``), and so is the last of the same steps
+teacher-forced with the whole model in fp32 (``recurrent_drift``).
+Vision and Whisper hold one step from a prefill cache beside three
+planted cross-cache faults (``cross_witness``).  Then jamba's smoke
+variant (widened to head_dim 64, one unit; two units printed) one-shot
+on the card against the CPU, tokens equal up to near ties; jamba's Mamba layer alone at full width, its
+chunked scan over 8 x 512 tokens and 32 one-token steps against one
+scan of all (``MAMBA_TOL``); and an int8 KV cache at the model level
+(``INT8_REL``).
+The kernel phase adds the attention kernels at these shapes
+(``family_kernels``: ``flash_attention@whisper``,
+``decode_attention@whisper-self``, ``@whisper-cross`` and
+``@vision-cross``); a row with a ``shape`` also counts the families
+phase's launches at that shape (``build.SHAPE_LAUNCHES``), so the
+vision model's self-attention adds to the ``/oneshot`` rows.
+
 Launch counters are set to 0 just before each serve or train phase and
 read just after it; a kernel of the path that did not launch fails the
 run.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -164,6 +193,7 @@ run.  Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -176,6 +206,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 from unittest import mock
 
@@ -222,6 +253,25 @@ FLEXGEN_PLACEMENTS = (("all device", (("device", 1.0),), (("device", 1.0),)),
                       ("weights+kv half pinned", HALF_PINNED, HALF_PINNED))
 FLEXGEN_REL = 2e-2     # test_decode_matches_prefill's tolerance; each of
 # decode_witness's planted cache and position faults must read above it
+# the families phase: one-shot at full width and depth, (prompt length,
+# placements) per model
+FAMILY_BATCH, WHISPER_PROMPT = 8, 128
+ALL_DEVICE = (("device", 1.0),)
+FAMILY_ARCHS = {
+    "llama-3.2-vision-11b": (512, (
+        ("all device", ALL_DEVICE, ALL_DEVICE),
+        ("kv half pinned", ALL_DEVICE, HALF_PINNED))),
+    "rwkv6-7b": (512, (
+        ("all device", ALL_DEVICE, ALL_DEVICE),
+        ("weights half pinned", HALF_PINNED, ALL_DEVICE))),
+    "whisper-large-v3": (WHISPER_PROMPT, (
+        ("all device", ALL_DEVICE, ALL_DEVICE),
+        ("kv half pinned", ALL_DEVICE, HALF_PINNED))),
+}
+JAMBA_ARCH, JAMBA_SMOKE_PROMPT, MAMBA_PROMPT = "jamba-1.5-large-398b", 64, 512
+DRIFT_STEPS = (1, 2, 5, 16, NEW_TOKENS - 1)   # recurrent_drift's readings
+MAMBA_TOL = 2e-2       # test_mamba_chunk_vs_step_recurrence's rtol = atol
+INT8_REL = 0.1         # test_int8_kv_cache_decode's limit
 # the training launcher (adaptive) and its checkpoints, at full size
 LAUNCHER_ARCH, LAUNCHER_STEPS = "gpt2-xl-offload", 6
 CKPT_ARCH = "bert-large-offload"
@@ -506,42 +556,36 @@ def attention_kernels(dev, gen, KV: int) -> dict:
     return out
 
 
-def oneshot_kernels(dev, gen, KV: int) -> dict:
-    """``decode_attention`` and ``flash_attention`` at the one-shot
-    FlexGen phase's shapes (``FLEXGEN_BATCH`` rows, H heads, ``KV`` KV
-    heads): the prefill over ``FLEXGEN_PROMPT`` causal tokens, and every
-    decode step over the ``pad_to`` cache, whose ``kv_len`` is the same
-    on every row (``FLEXGEN_PROMPT + 1`` to ``FLEXGEN_PROMPT + NEW_TOKENS
-    - 1``); timed at the last step."""
+def decode_row(gen, Bd: int, S: int, Hd: int, KV: int, hd: int,
+               lens: range, tag: str) -> dict:
+    """``decode_attention`` over (Bd, S) caches of ``KV`` heads with
+    ``Hd`` query heads of ``hd``: held against its plain version at
+    every ``kv_len`` of ``lens`` (the same on every row), and timed,
+    bounded and set beside SDPA at the last."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_split_plan)
     from repro_torch.kernels._launch import sm_count
-    from repro_torch.kernels.flash_attention import flash_attention
 
+    dev = gen.device
     rnd = functools.partial(randn_bf16, gen)
-    Bf, L = FLEXGEN_BATCH, FLEXGEN_PROMPT
-    S = L + NEW_TOKENS            # the engine's pad_to
-    tag = f"KV={KV} B={Bf}"
-    out = {}
-
-    q = rnd(Bf, H, HD, std=QK_STD)
-    kc, vc = rnd(Bf, S, KV, HD, std=QK_STD), rnd(Bf, S, KV, HD)
+    q = rnd(Bd, Hd, hd, std=QK_STD)
+    kc, vc = rnd(Bd, S, KV, hd, std=QK_STD), rnd(Bd, S, KV, hd)
     err = 0.0
-    for n in range(L + 1, S):
-        kv_len = torch.full((Bf,), n, dtype=torch.int32, device=dev)
+    for n in lens:
+        kv_len = torch.full((Bd,), n, dtype=torch.int32, device=dev)
         err = max(err, compare(f"decode_attention {tag} S={S} kv_len={n}",
                                decode_attention(q, kc, vc, kv_len),
                                ref.decode_attention(q, kc, vc, kv_len)))
-    n = S - 1
-    kv_len = torch.full((Bf,), n, dtype=torch.int32, device=dev)
+    n = lens[-1]
+    kv_len = torch.full((Bd,), n, dtype=torch.int32, device=dev)
     mask = (torch.arange(S, device=dev)[None, None, None, :]
             < kv_len[:, None, None, None])
-    t_b, by = bound(2 * Bf * n * KV * HD * 2 + 2 * Bf * H * HD * 2 + 4 * Bf,
-                    4 * Bf * n * H * HD)
-    T, n_split = decode_split_plan(S, Bf, KV,
+    t_b, by = bound(2 * Bd * n * KV * hd * 2 + 2 * Bd * Hd * hd * 2
+                    + 4 * Bd, 4 * Bd * n * Hd * hd)
+    T, n_split = decode_split_plan(S, Bd, KV,
                                    sm_count(torch.cuda.current_device()))
-    out["decode_attention"] = dict(
+    return dict(
         max_abs_err=err, **cold_times(
             lambda: decode_attention(q, kc, vc, kv_len),
             sdpa(q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
@@ -550,16 +594,25 @@ def oneshot_kernels(dev, gen, KV: int) -> dict:
                         cold=False),
         plain_ms=time_ms(lambda: ref.decode_attention(q, kc, vc, kv_len)),
         bound_ms=t_b, bound_by=by, split_tokens=T, n_split=n_split,
-        pass1_blocks=Bf * KV * n_split)
+        pass1_blocks=Bd * KV * n_split, shape=(Bd, S, Hd, KV, hd))
 
-    qq, kk = rnd(Bf, L, H, HD, std=QK_STD), rnd(Bf, L, KV, HD, std=QK_STD)
-    vv = rnd(Bf, L, KV, HD)
+
+def flash_row(gen, Bf: int, L: int, Hf: int, KV: int, hd: int,
+              tag: str) -> dict:
+    """``flash_attention`` over ``Bf`` causal prompts of ``L`` tokens:
+    held against its plain version, timed, bounded and set beside SDPA."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rnd = functools.partial(randn_bf16, gen)
+    qq, kk = rnd(Bf, L, Hf, hd, std=QK_STD), rnd(Bf, L, KV, hd, std=QK_STD)
+    vv = rnd(Bf, L, KV, hd)
     err = compare(f"flash_attention {tag} L={L}",
                   flash_attention(qq, kk, vv, causal=True),
                   ref.flash_attention(qq, kk, vv, causal=True))
-    t_b, by = bound(Bf * (2 * L * H * HD + 2 * L * KV * HD) * 2,
-                    Bf * 4 * H * HD * L * (L + 1) / 2)
-    out["flash_attention"] = dict(
+    t_b, by = bound(Bf * (2 * L * Hf * hd + 2 * L * KV * hd) * 2,
+                    Bf * 4 * Hf * hd * L * (L + 1) / 2)
+    return dict(
         max_abs_err=err, **cold_times(
             lambda: flash_attention(qq, kk, vv, causal=True),
             sdpa(*(x.transpose(1, 2) for x in (qq, kk, vv)),
@@ -568,8 +621,57 @@ def oneshot_kernels(dev, gen, KV: int) -> dict:
                         cold=False),
         plain_ms=time_ms(lambda: ref.flash_attention(qq, kk, vv,
                                                      causal=True)),
-        bound_ms=t_b, bound_by=by)
-    return out
+        bound_ms=t_b, bound_by=by, shape=(Bf, L, L, Hf, KV, hd, 1))
+
+
+def oneshot_kernels(dev, gen, KV: int) -> dict:
+    """``decode_attention`` and ``flash_attention`` at the one-shot
+    FlexGen phase's shapes (``FLEXGEN_BATCH`` rows, H heads, ``KV`` KV
+    heads): the prefill over ``FLEXGEN_PROMPT`` causal tokens, and every
+    decode step over the ``pad_to`` cache, whose ``kv_len`` is the same
+    on every row (``FLEXGEN_PROMPT + 1`` to ``FLEXGEN_PROMPT + NEW_TOKENS
+    - 1``); timed at the last step.  The vision model's self-attention
+    (``FAMILY_ARCHS``) runs at these shapes too."""
+    Bf, L = FLEXGEN_BATCH, FLEXGEN_PROMPT
+    tag = f"KV={KV} B={Bf}"
+    return {"decode_attention": decode_row(gen, Bf, L + NEW_TOKENS, H, KV,
+                                           HD, range(L + 1, L + NEW_TOKENS),
+                                           tag),
+            "flash_attention": flash_row(gen, Bf, L, H, KV, HD, tag)}
+
+
+def family_kernels(gen) -> dict:
+    """The attention kernels at the shapes the families phase adds:
+    Whisper's prefill (``FAMILY_BATCH`` x ``WHISPER_PROMPT``, 20 heads of
+    64, one query head per KV head) and one-token steps over its
+    self-attention cache (``pad_to`` = prompt + ``NEW_TOKENS``, every
+    step's kv_len) and its 1500-frame cross cache, and the vision
+    model's one-token steps over its 1600-token cross cache (32 heads,
+    8 KV heads, hd 128).  Rows keyed ``<kernel>@<model>-<use>``."""
+    from repro_torch.configs import get_config
+    w = get_config("whisper-large-v3")
+    v = get_config("llama-3.2-vision-11b")
+    Bf, L = FAMILY_BATCH, WHISPER_PROMPT
+    Hw, Kw, hw = w.n_heads, w.n_kv, w.head_dim
+    rows = {
+        "flash_attention@whisper": (
+            "flash_attention", w.name,
+            flash_row(gen, Bf, L, Hw, Kw, hw, "whisper")),
+        "decode_attention@whisper-self": (
+            "decode_attention", w.name,
+            decode_row(gen, Bf, L + NEW_TOKENS, Hw, Kw, hw,
+                       range(L + 1, L + NEW_TOKENS), "whisper self")),
+        "decode_attention@whisper-cross": (
+            "decode_attention", w.name,
+            decode_row(gen, Bf, w.n_frontend_tokens, Hw, Kw, hw,
+                       [w.n_frontend_tokens], "whisper cross")),
+        "decode_attention@vision-cross": (
+            "decode_attention", v.name,
+            decode_row(gen, Bf, v.n_frontend_tokens, v.n_heads, v.n_kv,
+                       v.head_dim, [v.n_frontend_tokens], "vision cross")),
+    }
+    return {name: dict(row, kernel=kernel, model=model)
+            for name, (kernel, model, row) in rows.items()}
 
 
 def split_plans(KV: int) -> dict:
@@ -759,6 +861,7 @@ def kernel_phase(dev, gen) -> dict:
             for name, row in oneshot_kernels(dev, gen, KV).items():
                 rows[f"{name}@KV{KV}/oneshot"] = dict(
                     row, kernel=name, model=arch, oneshot=True)
+    rows.update(family_kernels(gen))
     rows["fused_expert_ffn"] = dict(expert_kernel(dev, gen),
                                     kernel="fused_expert_ffn",
                                     model="qwen3-moe-30b-a3b")
@@ -786,21 +889,29 @@ def kernel_phase(dev, gen) -> dict:
     return rows
 
 
-def kernels_line(kernels: dict, runs: dict) -> list:
+def kernels_line(kernels: dict, runs: dict, shape_launches: dict) -> list:
     """The ``kernels`` line's rows.  Each row's launches are those of
     its own model's serve phases (staged, fused, adaptive, control
     planes and experts; or, for an ``oneshot`` row, the one-shot FlexGen
     placements) or train phases (both placements), the only runs that
-    launch its build at its shapes."""
+    launch its build at its shapes; plus, for a row with a ``shape``,
+    the families phase's launches at that shape (``shape_launches``,
+    (kernel, shape) -> count)."""
+    def launches(row):
+        n = sum(phase["launches"][row["kernel"]]
+                for label, phase in runs.get(row["model"], {}).items()
+                if "launches" in phase
+                and label.startswith("flexgen ") == row.get("oneshot",
+                                                            False))
+        if "shape" in row:
+            n += shape_launches.get((row["kernel"], tuple(row["shape"])),
+                                    0)
+        return n
+
     return [{"name": name, "route": "cuda",
              "source": SOURCES[row["kernel"]],
              "replaces": REPLACES[row["kernel"]],
-             "launches": sum(
-                 phase["launches"][row["kernel"]]
-                 for label, phase in runs[row["model"]].items()
-                 if "launches" in phase
-                 and label.startswith("flexgen ") == row.get("oneshot",
-                                                             False)),
+             "launches": launches(row),
              "max_abs_err": row["max_abs_err"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
@@ -1309,25 +1420,32 @@ def flexgen_phase(cfg, params) -> dict:
     seq = torch.cat([torch.from_numpy(prompts).long().cuda(),
                      tokens[:, :-1]], dim=1)
     logits_p, _ = lm.prefill(params, cfg, seq)
+    out["decode_vs_prefill"] = decode_vs_prefill(
+        f"flexgen {cfg.name}", logits_d, logits_p, seq.shape[1])
+    out["decode_witness"] = decode_witness(cfg, params, seq, logits_p)
+    return out
+
+
+def decode_vs_prefill(label: str, logits_d, logits_p, n: int) -> dict:
+    """The last decode step's logits against a prefill of the ``n``
+    tokens before it: relative error below ``FLEXGEN_REL``, and equal
+    argmax except where the prefill's top-2 margin is a near tie."""
     a, b = logits_d.float(), logits_p.float()
     rel = rel_err(a, b)
     top = torch.topk(b, 2, dim=-1).values
     margin = (top[:, 0] - top[:, 1])
     flips = (a.argmax(-1) != b.argmax(-1)).nonzero().flatten().tolist()
-    log(f"flexgen {cfg.name}: last decode step vs prefill of "
-        f"{seq.shape[1]} tokens: rel err {rel:.3g} (limit {FLEXGEN_REL}), "
-        f"argmax differs in rows {flips}, smallest top-2 margin "
-        f"{margin.min().item():.4g}")
+    log(f"{label}: last decode step vs prefill of {n} tokens: rel err "
+        f"{rel:.3g} (limit {FLEXGEN_REL}), argmax differs in rows "
+        f"{flips}, smallest top-2 margin {margin.min().item():.4g}")
     if not rel < FLEXGEN_REL:
-        fail(f"flexgen: decode vs prefill rel err {rel:.4g}")
+        fail(f"{label}: decode vs prefill rel err {rel:.4g}")
     for r in flips:
         if margin[r].item() >= NEAR_TIE:
-            fail(f"flexgen: row {r} argmax differs from the prefill's with "
+            fail(f"{label}: row {r} argmax differs from the prefill's with "
                  f"a top-2 margin of {margin[r].item():.4g}")
-    out["decode_vs_prefill"] = {"rel_err": rel, "argmax_flips": flips,
-                                "min_margin": margin.min().item()}
-    out["decode_witness"] = decode_witness(cfg, params, seq, logits_p)
-    return out
+    return {"rel_err": rel, "argmax_flips": flips,
+            "min_margin": margin.min().item()}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1410,6 +1528,557 @@ def decode_witness(cfg, params, seq: torch.Tensor, logits_p) -> dict:
             fail(f"flexgen: the decode-vs-prefill check does not see the "
                  f"planted fault '{name}' (rel err {r:.4g})")
     return {"readings": readings, "faults": faults}
+
+
+# ---------------------------------------------------------------------- #
+# families phase: vision, RWKV6, Whisper, jamba, int8 KV                  #
+# ---------------------------------------------------------------------- #
+def family_params(cfg):
+    """Random weights of ``cfg`` from ``SEED`` on the card.  The vision
+    model's tanh gates, 0 at init (which silences every cross layer),
+    are drawn from N(0, 1)."""
+    from repro_torch.models import lm
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 1)
+    for lp in params["units"]["layers"]:
+        for k in ("gate_attn", "gate_mlp"):
+            if k in lp:
+                lp[k] = torch.randn(lp[k].shape, generator=g, device="cuda")
+    return params
+
+
+def family_frames(cfg):
+    """(``FAMILY_BATCH``, n_frontend_tokens, d_model) bf16 N(0, 1)
+    stubbed image embeddings or encoder frames on the card, as a bf16
+    frontend emits them; None for a model without cross-attention.
+    (fp32 embeddings give the prefill fp32 cross K/V against the decode
+    steps' bf16 cross cache: the reference's design, which adds that
+    rounding to the decode-vs-prefill reading.)"""
+    if not cfg.n_frontend_tokens:
+        return None
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 2)
+    return randn_bf16(g, FAMILY_BATCH, cfg.n_frontend_tokens, cfg.d_model)
+
+
+def path_launches(cfg) -> dict:
+    """The attention launches of one one-shot run of ``cfg``: a prefill
+    flash launch per causal self-attention layer, and per decode step a
+    decode launch per self-attention and per cross-attention layer."""
+    n_attn = cfg.n_units * len(cfg.unit_attn_layers)
+    n_cross = cfg.n_units * sum(s.kind == "cross" or s.cross_attn
+                                for s in cfg.pattern)
+    return {"flash_attention": n_attn,
+            "decode_attention": (NEW_TOKENS - 1) * (n_attn + n_cross)}
+
+
+def family_phase(arch: str) -> dict:
+    """``arch`` at full width and depth through ``FlexGenEngine.run(
+    prompts, frames)`` under each of its placements in
+    ``FAMILY_ARCHS``: ``FAMILY_BATCH`` prompts, ``NEW_TOKENS`` new
+    tokens each.  Each run must launch ``path_launches`` and nothing
+    else; the tokens must not depend on the placement; the last decode
+    step must match a prefill (``decode_vs_prefill``).  Prints prefill
+    ms, decode tok/s and the bytes placed on each memory kind, and, for
+    Whisper, the encoder's own ms."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    from repro_torch.offload import FlexGenEngine, ServeConfig
+    cfg = get_config(arch)
+    prompt, placements = FAMILY_ARCHS[arch]
+    t0 = time.perf_counter()
+    params = family_params(cfg)
+    frames = family_frames(cfg)
+    torch.cuda.synchronize()
+    log(f"{arch} params ({cfg.n_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers"
+           if cfg.encoder_layers else "")
+        + f", d_model {cfg.d_model}, vocab {cfg.vocab}): "
+        f"{time.perf_counter() - t0:.1f} s, {memory()}")
+    prompts = np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (FAMILY_BATCH, prompt)).astype(np.int32)
+    want = path_launches(cfg)
+    out, first, shapes = {}, None, Counter()
+    for name, w_shares, kv_shares in placements:
+        t0 = time.perf_counter()
+        eng = FlexGenEngine(cfg, params, ServeConfig(
+            max_new_tokens=NEW_TOKENS, prompt_len=prompt,
+            weight_shares=w_shares, kv_shares=kv_shares), device="cuda")
+        last = {}
+        step = eng.decode_step
+
+        def recording_step(*a, **kw):
+            logits, cache = step(*a, **kw)
+            last["logits"] = logits
+            return logits, cache
+        eng.decode_step = recording_step
+        w_on = {k: sum(ta.bytes_on(k)
+                       for ta in pytree.tree_leaves(eng.params_tiered))
+                for k in ("device", "pinned_host")}
+        torch.cuda.synchronize()
+        build.reset_launches()
+        st = eng.run(prompts, frames)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        shapes.update(build.SHAPE_LAUNCHES)
+        secs = time.perf_counter() - t0
+        kv_on = {k: eng.kv_home.bytes_on(k)
+                 for k in ("device", "pinned_host", "unpinned_host")}
+        label = f"{arch} {name}"
+        log(f"family {label}: prefill={st.prefill_s * 1e3:.2f} ms "
+            f"decode={st.decode_tok_s:.2f} tok/s (decode {st.decode_s:.3f}"
+            f" s for {NEW_TOKENS - 1} steps x {FAMILY_BATCH}) weights on "
+            f"{w_on} KV ledger {kv_on} launches "
+            f"{ {k: v for k, v in launches.items() if v} } "
+            f"(expected {want}) {secs:.1f} s, {memory()}")
+        for kernel, n in want.items():
+            if launches[kernel] != n:
+                fail(f"family {label}: {launches[kernel]} {kernel} "
+                     f"launches, expected {n}")
+        others = {k: v for k, v in launches.items() if v and k not in want}
+        if others:
+            fail(f"family {label}: other kernels launched {others}")
+        tokens = eng.tokens
+        if tuple(tokens.shape) != (FAMILY_BATCH, NEW_TOKENS):
+            fail(f"family {label}: tokens of shape {tuple(tokens.shape)}")
+        if not torch.isfinite(last["logits"]).all():
+            fail(f"family {label}: non-finite logits")
+        if first is None:
+            first = (tokens, last["logits"])
+        elif not torch.equal(tokens, first[0]):
+            bad = (tokens != first[0]).nonzero()[0].tolist()
+            fail(f"family {label}: tokens differ from "
+                 f"{placements[0][0]}'s first at (row, step) {bad}")
+        else:
+            log(f"family {label}: tokens equal {placements[0][0]}'s")
+        out[name] = {"weight_shares": w_shares, "kv_shares": kv_shares,
+                     "prefill_s": st.prefill_s, "decode_s": st.decode_s,
+                     "decode_tok_s": st.decode_tok_s, "seconds": secs,
+                     "weights_on": w_on, "kv_on": kv_on,
+                     "launches": launches}
+        del eng, step, recording_step, last
+        gc.collect()
+        torch.cuda.empty_cache()
+    tokens, logits_d = first
+    seq = torch.cat([torch.from_numpy(prompts).long().cuda(),
+                     tokens[:, :-1]], dim=1)
+    logits_p, _ = lm.prefill(params, cfg, seq, frames)
+    if cfg.unit_rwkv_layers:
+        # the recurrent state carries every step's bf16 rounding forward:
+        # the last step's reading is printed; one step from a prefill
+        # cache is held to the limit (recurrent_witness), and so is the
+        # last step with the whole model in fp32 (recurrent_drift)
+        out["last_step_vs_prefill"] = rel_err(logits_d, logits_p)
+        log(f"family {arch}: last decode step vs prefill of "
+            f"{seq.shape[1]} tokens: rel err "
+            f"{out['last_step_vs_prefill']:.4g} ({NEW_TOKENS - 1} steps "
+            "of the recurrence's bf16 rounding; held in fp32 below)")
+        out["decode_vs_prefill"] = recurrent_witness(cfg, params, seq,
+                                                     logits_p)
+        out["drift"] = recurrent_drift(cfg, params, seq, prompt, logits_p)
+    else:
+        out["decode_vs_prefill"] = decode_vs_prefill(
+            f"family {arch}", logits_d, logits_p, seq.shape[1])
+    if frames is not None:
+        out["cross_witness"] = cross_witness(cfg, params, seq, frames,
+                                             logits_p)
+    if cfg.encoder_layers:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                lm.encode(params, cfg, frames)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["encoder_ms"] = times
+        log(f"family {arch}: encoder over {cfg.n_frontend_tokens} frames x "
+            f"{FAMILY_BATCH}: {min(times):.2f} ms (of {times})")
+    out["shape_launches"] = [[k, list(s), n] for (k, s), n in shapes.items()]
+    return out
+
+
+def recurrent_witness(cfg, params, seq, logits_p) -> dict:
+    """Decode vs prefill for a recurrent model, one step at a time: from
+    a prefill of ``seq`` but its last token, one decode step of the last
+    token against ``logits_p``, the prefill of the whole ``seq``: below
+    ``FLEXGEN_REL`` (argmax equal up to a near tie, as
+    ``decode_vs_prefill`` reads it), and every planted state fault above
+    it: the middle unit's wkv state lost, the token-shift states lost,
+    and a state one token stale (the prefill cache of ``seq`` but its
+    last two tokens)."""
+    from repro_torch.models import lm
+
+    def step(c):
+        c = {k: v.clone() if torch.is_tensor(v) else v for k, v in c.items()}
+        c["index"] = seq.shape[1] - 1
+        return lm.decode_step(params, cfg, c, seq[:, -1:])[0]
+
+    cache = lm.prefill(params, cfg, seq[:, :-1])[1]
+    reading = decode_vs_prefill(f"family {cfg.name} one step",
+                                step(cache), logits_p, seq.shape[1])
+    lost = dict(cache, wkv=cache["wkv"].clone())
+    lost["wkv"][cfg.n_units // 2] = 0
+    shifts = dict(cache, shift_t=torch.zeros_like(cache["shift_t"]),
+                  shift_c=torch.zeros_like(cache["shift_c"]))
+    faults = {"wkv state of one unit lost": rel_err(step(lost), logits_p),
+              "token-shift states lost": rel_err(step(shifts), logits_p),
+              "state one token stale": rel_err(step(
+                  lm.prefill(params, cfg, seq[:, :-2])[1]), logits_p)}
+    log(f"family {cfg.name} planted state faults: "
+        + " ".join(f"{k}={v:.4g}" for k, v in faults.items())
+        + f" (limit {FLEXGEN_REL})")
+    for name, r in faults.items():
+        if not r > FLEXGEN_REL:
+            fail(f"family {cfg.name}: the one-step check does not see the "
+                 f"planted fault '{name}' (rel err {r:.4g})")
+    return dict(reading, faults=faults)
+
+
+@contextlib.contextmanager
+def fp32_activations():
+    """The model's activations in fp32 (with fp32 weights, the whole
+    model): the token embeddings, which the model rounds to bf16, kept
+    fp32, and the RWKV layers' token-shift states carried in the input's
+    dtype, not rounded to the cache's bf16."""
+    from repro_torch.models import lm
+    from repro_torch.models import modules as M
+    embed, tmix, cmix = lm._embed_tokens, M.rwkv_tmix_fwd, M.rwkv_cmix_fwd
+
+    def tmix_fp32(p, x, dims, **kw):
+        out, (state, _) = tmix(p, x, dims, **kw)
+        return out, (state, x[:, -1])
+
+    def cmix_fp32(p, x, shift_state=None):
+        return cmix(p, x, shift_state)[0], x[:, -1]
+    with mock.patch.object(lm, "_embed_tokens",
+                           lambda *a, **kw: embed(*a, **kw).float()), \
+            mock.patch.object(M, "rwkv_tmix_fwd", tmix_fp32), \
+            mock.patch.object(M, "rwkv_cmix_fwd", cmix_fp32):
+        yield
+
+
+def recurrent_drift(cfg, params, seq, prompt: int, logits_p) -> dict:
+    """Decode vs prefill for a recurrent model over the served run's
+    steps, teacher-forced: from a prefill of ``seq``'s first ``prompt``
+    tokens, the model decodes the rest of ``seq`` one token at a time,
+    and after each of ``DRIFT_STEPS`` steps its logits are read against
+    a prefill of the sequence so far.  In bf16, as served (printed), and
+    with the whole model in fp32 (``fp32_activations``), where the last
+    step must read below ``FLEXGEN_REL``: the witness that the bf16
+    reading is each step's rounding carried forward in the state, not a
+    fault of the recurrence."""
+    from repro_torch.models import lm
+
+    def readings(p, last):
+        _, cache = lm.prefill(p, cfg, seq[:, :prompt])
+        out = {}
+        for i in range(prompt, seq.shape[1]):
+            logits, cache = lm.decode_step(p, cfg, cache, seq[:, i:i + 1])
+            n = i + 1 - prompt
+            if n in DRIFT_STEPS:
+                want = (last if i + 1 == seq.shape[1]
+                        else lm.prefill(p, cfg, seq[:, :i + 1])[0])
+                out[n] = rel_err(logits, want)
+        return out
+
+    with torch.no_grad():
+        out = {"bf16": readings(params, logits_p)}
+        p32 = lm.tree_map(lambda t: t.float(), params)
+        with fp32_activations():
+            out["fp32"] = readings(p32, lm.prefill(p32, cfg, seq)[0])
+        del p32
+    torch.cuda.empty_cache()
+    log(f"family {cfg.name} teacher-forced decode vs prefill after steps "
+        + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.4g}" for n, v in r.items())
+                    for k, r in out.items())
+        + f" (fp32's last step held to {FLEXGEN_REL})")
+    last = out["fp32"][max(DRIFT_STEPS)]
+    if not last < FLEXGEN_REL:
+        fail(f"family {cfg.name}: fp32 decode vs prefill after "
+             f"{max(DRIFT_STEPS)} steps rel err {last:.4g}")
+    return out
+
+
+def cross_witness(cfg, params, seq, frames, logits_p) -> dict:
+    """What the decode-vs-prefill check sees on the cross-attention path.
+    From a prefill of ``seq`` but its last token over ``frames``, one
+    decode step of the last token is held against ``logits_p``, the
+    prefill of the whole ``seq``: on the kernels (as
+    ``decode_vs_prefill`` reads it); on the plain attention of
+    ``kernels.ref`` for both the prefill and the step (printed: the part
+    of the reading that the bf16 model makes without any kernel); and
+    under planted cross-cache faults, each of which must read above
+    ``FLEXGEN_REL``: every cross layer reading the next unit's cross
+    K/V, the cross cache left at zero, and the cross ``kv_len`` set to
+    the self-attention's.  The cross ``kv_len`` one short (one of the
+    S_enc frames lost) is printed beside them."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    idx, S_enc = seq.shape[1] - 1, frames.shape[1]
+
+    def cache_of(c):
+        return dict(c, **{k: torch.nn.functional.pad(
+            c[k], (0, 0, 0, 0, 0, 1)) for k in ("kv_k", "kv_v")})
+
+    def step(c):
+        c = {k: v.clone() if torch.is_tensor(v) else v for k, v in c.items()}
+        return lm.decode_step(params, cfg, c, seq[:, -1:])[0]
+
+    dec = ops.decode_attention
+
+    def cross_len(fn):
+        """``ops.decode_attention`` with the cross layers' kv_len
+        ``fn(kv_len)``; a self-attention cache is shorter than S_enc."""
+        return mock.patch.object(
+            ops, "decode_attention", lambda q, k, v, n: dec(
+                q, k, v, fn(n) if k.shape[1] == S_enc else n))
+
+    with torch.no_grad():
+        cache = cache_of(lm.prefill(params, cfg, seq[:, :-1], frames)[1])
+        reading = decode_vs_prefill(f"family {cfg.name} one step",
+                                    step(cache), logits_p, seq.shape[1])
+        with mock.patch.object(ops, "flash_attention",
+                               ref.flash_attention), \
+                mock.patch.object(ops, "decode_attention",
+                                  ref.decode_attention):
+            plain_p = lm.prefill(params, cfg, seq, frames)[0]
+            plain = rel_err(step(cache_of(lm.prefill(
+                params, cfg, seq[:, :-1], frames)[1])), plain_p)
+        faults = {
+            "next unit's cross K/V": rel_err(step(dict(
+                cache, cross_k=cache["cross_k"].roll(1, 0),
+                cross_v=cache["cross_v"].roll(1, 0))), logits_p),
+            "cross cache zero": rel_err(step(dict(
+                cache, cross_k=torch.zeros_like(cache["cross_k"]),
+                cross_v=torch.zeros_like(cache["cross_v"]))), logits_p)}
+        with cross_len(lambda n: torch.full_like(n, idx + 1)):
+            faults["cross kv_len = self's"] = rel_err(step(cache), logits_p)
+        with cross_len(lambda n: n - 1):
+            one_short = rel_err(step(cache), logits_p)
+    log(f"family {cfg.name} cross witness (one step at index {idx} over "
+        f"{S_enc} frames): plain attention {plain:.4g}; planted faults: "
+        + " ".join(f"{k}={v:.4g}" for k, v in faults.items())
+        + f" (limit {FLEXGEN_REL}); cross kv_len - 1 {one_short:.4g} "
+        "(not held)")
+    for name, r in faults.items():
+        if not r > FLEXGEN_REL:
+            fail(f"family {cfg.name}: the one-step check does not see the "
+                 f"planted fault '{name}' (rel err {r:.4g})")
+    return dict(reading, plain=plain, faults=faults,
+                cross_kv_len_one_short=one_short)
+
+
+def greedy_run(cfg, params, prompts, device) -> tuple:
+    """One-shot greedy tokens of ``cfg`` on ``device``, each step's top-2
+    logit margin per row ((B, NEW_TOKENS) each), and the prefill's
+    logits (on the CPU)."""
+    from repro_torch.offload import FlexGenEngine, ServeConfig
+    eng = FlexGenEngine(cfg, params, ServeConfig(
+        max_new_tokens=NEW_TOKENS, prompt_len=prompts.shape[1]),
+        device=device)
+    margins, first = [], []
+
+    def recording(fn):
+        def run(*a, **kw):
+            logits, cache = fn(*a, **kw)
+            if not first:
+                first.append(logits.float().cpu())
+            top = torch.topk(logits.float(), 2, dim=-1).values
+            margins.append((top[:, 0] - top[:, 1]).cpu())
+            return logits, cache
+        return run
+    eng.prefill_step = recording(eng.prefill_step)
+    eng.decode_step = recording(eng.decode_step)
+    eng.run(prompts)
+    return eng.tokens.cpu(), torch.stack(margins, dim=1), first[0]
+
+
+def jamba_smoke_phase() -> dict:
+    """jamba's smoke variant (Mamba-2, MoE and attention layers),
+    widened to head_dim 64 for the attention kernels and cut to one unit
+    (its whole 8-layer pattern), one-shot on the card (kernels) and on
+    the CPU (plain versions) from the same weights: each row's tokens
+    must agree up to its first near tie (a top-2 margin below
+    ``NEAR_TIE`` on the card).  At two units (the smoke variant's depth)
+    rounding alone parts the logits further than a near tie: the stacked
+    Mamba blocks amplify it, and the MoE routing flips on it.  The
+    prefill logits of two units, card against CPU, are printed beside
+    the one unit's; the JAX package's own compiled and op-by-op runs of
+    two units part further still on the CPU (``tests/
+    test_torch_families.py::test_jamba_reference_rounding_spread``)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    smoke = get_smoke_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(smoke, head_dim=64,
+                              n_layers=len(smoke.pattern))
+    cpu = lm.init_params(cfg, seed=SEED, device="cpu")
+    gpu = lm.tree_map(lambda t: t.cuda(), cpu)
+    prompts = np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (FAMILY_BATCH, JAMBA_SMOKE_PROMPT)).astype(np.int32)
+    want_toks, _, want_logits = greedy_run(cfg, cpu, prompts, "cpu")
+    build.reset_launches()
+    toks, margins, logits = greedy_run(cfg, gpu, prompts, "cuda")
+    prefill_rel = rel_err(logits, want_logits)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    want = path_launches(cfg)
+    if {k: launches[k] for k in want} != want:
+        fail(f"jamba smoke: launches {launches}, expected {want}")
+    ties = []
+    for r in range(FAMILY_BATCH):
+        diff = (toks[r] != want_toks[r]).nonzero().flatten().tolist()
+        if not diff:
+            continue
+        m = margins[r, diff[0]].item()
+        if m >= NEAR_TIE:
+            fail(f"jamba smoke: row {r} differs from the CPU's at step "
+                 f"{diff[0]} with a top-2 margin of {m:.4g}")
+        ties.append({"row": r, "step": diff[0], "margin": m})
+    two = dataclasses.replace(cfg, n_layers=2 * len(smoke.pattern))
+    cpu = lm.init_params(two, seed=SEED, device="cpu")
+    toks = torch.from_numpy(prompts).long()
+    with torch.no_grad():
+        two_rel = rel_err(lm.prefill(lm.tree_map(lambda t: t.cuda(), cpu),
+                                     two, toks.cuda())[0].cpu(),
+                          lm.prefill(cpu, two, toks)[0])
+    del cpu
+    log(f"jamba smoke (head_dim 64, one unit) card vs CPU: prefill logits "
+        f"rel err {prefill_rel:.4g} (two units: {two_rel:.4g}, not held); "
+        f"{FAMILY_BATCH - len(ties)}/"
+        f"{FAMILY_BATCH} rows identical, near ties {ties}, smallest "
+        f"margin {margins.min().item():.4g}, "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    return {"ties": ties, "launches": launches, "prefill_rel": prefill_rel,
+            "two_units_prefill_rel": two_rel,
+            "min_margin": margins.min().item()}
+
+
+def mamba_layer_phase() -> dict:
+    """jamba's Mamba-2 layer alone at full width (d_model 8192, d_inner
+    16384, 256 heads of 64, d_state 16, chunk 128): ``mamba_fwd``'s
+    chunked scan over ``FAMILY_BATCH`` x ``MAMBA_PROMPT`` tokens, then
+    ``NEW_TOKENS`` one-token steps from its states, against one chunked
+    scan of all the tokens; y and the final ssm state within the
+    reference test's chunk-vs-step limit (``MAMBA_TOL`` absolute plus
+    relative).  Prints the prefill's ms and one step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import modules as M
+    cfg = get_config(JAMBA_ARCH)
+    dims = M.mamba_dims(cfg.d_model, cfg.mamba_expand, cfg.mamba_head_dim,
+                        cfg.mamba_d_state, cfg.mamba_d_conv, cfg.ssd_chunk)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    p = M.init_mamba(dims, g, "cuda")
+    P, n = MAMBA_PROMPT, NEW_TOKENS
+    x = randn_bf16(g, FAMILY_BATCH, P + n, cfg.d_model)
+    with torch.no_grad():
+        prefill_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y_pre, (cs, ss) = M.mamba_fwd(p, x[:, :P], dims)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        ys = []
+        t0 = time.perf_counter()
+        for t in range(P, P + n):
+            y, (cs, ss) = M.mamba_fwd(p, x[:, t:t + 1], dims,
+                                      conv_state=cs, ssm_state=ss)
+            ys.append(y)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+        y_full, (_, ss_full) = M.mamba_fwd(p, x, dims)
+    errs = {}
+    for name, got, want in (("y steps", torch.cat(ys, dim=1),
+                             y_full[:, P:]),
+                            ("y prefill", y_pre, y_full[:, :P]),
+                            ("ssm state", ss, ss_full)):
+        g_, w_ = got.float(), want.float()
+        if not torch.isfinite(g_).all():
+            fail(f"mamba layer: non-finite {name}")
+        excess = ((g_ - w_).abs() - MAMBA_TOL * w_.abs()).max().item()
+        errs[name] = {"max_abs_err": (g_ - w_).abs().max().item(),
+                      "max_abs": w_.abs().max().item(), "excess": excess}
+        if excess > MAMBA_TOL:
+            fail(f"mamba layer: {name} off by more than {MAMBA_TOL} + "
+                 f"{MAMBA_TOL} |want| (excess {excess:.4g})")
+    log(f"mamba layer (d_inner {dims.d_inner}, {dims.n_heads} heads, "
+        f"chunk {dims.chunk}) over {FAMILY_BATCH} x {P} tokens: prefill "
+        f"{prefill_ms[-1]:.2f} ms (first {prefill_ms[0]:.2f}), one step "
+        f"{step_ms:.3f} ms; chunk vs step: "
+        + " ".join(f"{k} max_abs_err={v['max_abs_err']:.3g} "
+                   f"(|want| <= {v['max_abs']:.3g})"
+                   for k, v in errs.items()) + f", {memory()}")
+    return {"prefill_ms": prefill_ms, "step_ms": step_ms, "errors": errs}
+
+
+def int8_phase() -> dict:
+    """An int8 KV cache at the model level on the card: llama3-8b's
+    smoke variant (widened to head_dim 64 for the kernels) with
+    ``kv_cache_dtype="int8"``: prefill, the caches and scales padded by
+    8 positions, one decode step (over the dequantized cache, through
+    the decode kernel) against a prefill of the longer sequence, rel
+    below ``INT8_REL`` (the reference test's limit)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
+                              kv_cache_dtype="int8", head_dim=64)
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    toks = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (2, 32))).cuda()
+    build.reset_launches()
+    logits_p, cache = lm.prefill(params, cfg, toks)
+    for k in ("kv_k", "kv_v", "kv_k_scale", "kv_v_scale"):
+        pad = [0, 0] * (cache[k].dim() - 4) + [0, 8]
+        cache[k] = torch.nn.functional.pad(cache[k], pad)
+    nxt = torch.argmax(logits_p, -1)[:, None]
+    logits_d, _ = lm.decode_step(params, cfg, cache, nxt)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    n_attn = cfg.n_units * len(cfg.unit_attn_layers)
+    if (launches["flash_attention"], launches["decode_attention"]) != \
+            (n_attn, n_attn):
+        fail(f"int8: launches {launches}, expected {n_attn} of each")
+    if cache["kv_k"].dtype != torch.int8:
+        fail(f"int8: cache of {cache['kv_k'].dtype}")
+    logits_full, _ = lm.prefill(params, cfg, torch.cat([toks, nxt], 1))
+    rel = rel_err(logits_d, logits_full)
+    log(f"int8 KV (llama3-8b smoke, head_dim 64): one decode step vs "
+        f"prefill rel err {rel:.4g} (limit {INT8_REL}), launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if not rel < INT8_REL:
+        fail(f"int8: decode vs prefill rel err {rel:.4g}")
+    return {"rel_err": rel, "launches": launches}
+
+
+def families_phase() -> dict:
+    """The other model families: vision, RWKV6 and Whisper at full width
+    and depth (one model's weights on the card at a time), jamba's smoke
+    variant and its full-width Mamba layer, and an int8 KV cache."""
+    out = {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        out[arch] = family_phase(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"family {arch}: {time.perf_counter() - t0:.1f} s, {memory()}")
+    for name, phase in (("jamba smoke", jamba_smoke_phase),
+                        ("mamba layer", mamba_layer_phase),
+                        ("int8", int8_phase)):
+        t0 = time.perf_counter()
+        out[name] = phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{name}: {time.perf_counter() - t0:.1f} s, {memory()}")
+    return out
 
 
 PROFILE_GROUPS = (("port kernels", ("decode_split_kernel",
@@ -1714,7 +2383,6 @@ def run_launcher(argv) -> tuple:
     """``launch.train`` on ``argv``, the launch counters set to 0 just
     before; returns (its ``TrainRun``, launches, wall s, its standard
     output, which is also echoed)."""
-    import contextlib
     import io
 
     from repro_torch.kernels import build
@@ -2093,6 +2761,9 @@ def main() -> int:
         record["serve"][arch] = serve_model(arch, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    record["families"] = families = families_phase()
+    log(f"families phase: {time.perf_counter() - t0:.1f} s, {memory()}")
     record["train"] = {TRAIN_ARCH: train_model(TRAIN_ARCH)}
     for name, phase in (("launcher", launcher_phase),
                         ("checkpoint", checkpoint_phase)):
@@ -2101,7 +2772,12 @@ def main() -> int:
         log(f"{name} phase: {time.perf_counter() - t0:.1f} s, {memory()}")
     if args.profile:
         record["launcher_profile"] = launcher_profile()
-    rows = kernels_line(kernels, {**record["serve"], **record["train"]})
+    shape_launches = Counter()
+    for arch in FAMILY_ARCHS:
+        for kernel, shape, n in families[arch]["shape_launches"]:
+            shape_launches[(kernel, tuple(shape))] += n
+    rows = kernels_line(kernels, {**record["serve"], **record["train"]},
+                        shape_launches)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

@@ -7,7 +7,7 @@ copies.  Every Pallas kernel of the reference that the ported path runs
 is a CUDA kernel under ``csrc/``, built at first use (``kernels.build``).
 
 Subpackages (imported lazily so ``import repro_torch`` stays light):
-  configs   the attention-only model configs (configs.ARCH_IDS)
+  configs   the model configs (configs.ARCH_IDS, ASSIGNED_ARCHS)
   core      tier descriptors, data objects, placement policies, the
             cost model, migration policies, memory kinds, TieredArray
   cluster   namespaced ledger keys

@@ -10,9 +10,11 @@ directory is ``build/kernels`` at the repository root, or
 the CUDA toolkit (``$NVCC``, else ``/usr/local/cuda/bin/nvcc``, else
 ``nvcc`` on ``PATH``) is used.
 
-Launch counters live here too: ``LAUNCHES[name]`` is a plain integer
-that each kernel wrapper bumps where it launches its kernel, and only
-there, so a run can show which kernels its path went through.
+Launch counters live here too: each kernel wrapper calls ``count``
+where it launches its kernel, and only there, which adds one to
+``SHAPE_LAUNCHES[(name, shape)]``; ``LAUNCHES[name]`` sums a kernel's
+counts over its shapes.  So a run can show which kernels its path went
+through, and at which shapes.
 """
 from __future__ import annotations
 
@@ -23,12 +25,32 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from collections import Counter
+from collections.abc import Mapping
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("decode_attention", "paged_decode_attention", "flash_attention",
            "fused_expert_ffn", "fused_adam")
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+SHAPE_LAUNCHES: Dict[Tuple[str, tuple], int] = Counter()
+
+
+class _Launches(Mapping):
+    """Each kernel's launches: ``SHAPE_LAUNCHES`` summed over shapes."""
+
+    def __getitem__(self, name: str) -> int:
+        if name not in KERNELS:
+            raise KeyError(name)
+        return sum(n for (k, _), n in SHAPE_LAUNCHES.items() if k == name)
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self) -> int:
+        return len(KERNELS)
+
+
+LAUNCHES = _Launches()
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
@@ -61,8 +83,12 @@ build_log: Dict[str, str] = {}   # name -> nvcc output (ptxas -v report)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    SHAPE_LAUNCHES.clear()
+
+
+def count(name: str, *shape: int) -> None:
+    """One launch of kernel ``name`` at ``shape``."""
+    SHAPE_LAUNCHES[(name, shape)] += 1
 
 
 def build_dir() -> Path:

@@ -66,5 +66,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             lens.data_ptr(), out.data_ptr(), m_part, l_part, acc_part, B, H,
             KV, S, hd, T, n_split, 1.0 / math.sqrt(hd), stream_of(q))
     build.check(rc, "decode_attention")
-    build.LAUNCHES["decode_attention"] += 1
+    build.count("decode_attention", B, S, H, KV, hd)
     return out

@@ -59,5 +59,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Sk, H, KV, hd, int(causal), 1.0 / math.sqrt(hd), stream_of(q))
     build.check(rc, "flash_attention")
-    build.LAUNCHES["flash_attention"] += 1
+    build.count("flash_attention", B, Sq, Sk, H, KV, hd, int(causal))
     return out

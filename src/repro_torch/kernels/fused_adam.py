@@ -61,5 +61,5 @@ def fused_adam(master: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
             float(lr), b1, b2, float(eps), float(wd), float(b1c),
             float(b2c), 1.0 - b1, 1.0 - b2, stream_of(master))
     build.check(rc, "fused_adam")
-    build.LAUNCHES["fused_adam"] += 1
+    build.count("fused_adam", n)
     return outs

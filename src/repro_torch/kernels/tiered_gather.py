@@ -79,7 +79,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             H, KV, nb, bt, hd, T, n_split, 1.0 / math.sqrt(hd),
             stream_of(q))
     build.check(rc, "paged_decode_attention")
-    build.LAUNCHES["paged_decode_attention"] += 1
+    build.count("paged_decode_attention", B, nb, bt, H, KV, hd)
     return out
 
 
@@ -113,5 +113,5 @@ def fused_expert_ffn(x: torch.Tensor, w_gate: torch.Tensor,
             w_down.data_ptr(), ids.data_ptr(), wts.data_ptr(), h.data_ptr(),
             out.data_ptr(), B, K, D, F, E, stream_of(x))
     build.check(rc, "fused_expert_ffn")
-    build.LAUNCHES["fused_expert_ffn"] += 1
+    build.count("fused_expert_ffn", B, K, D, F, E)
     return out

@@ -61,7 +61,8 @@ def make_train_step(cfg: ModelConfig,
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     def prefill_step(params, batch, units=None):
-        return lm.prefill(params, cfg, batch["tokens"], units=units)
+        return lm.prefill(params, cfg, batch["tokens"],
+                          batch.get("frames"), units=units)
     return prefill_step
 
 

@@ -1,4 +1,4 @@
-"""Model blocks and the pattern language model (attention-only)."""
+"""Model blocks and the pattern language model."""
 from . import lm, modules
 
 __all__ = ["lm", "modules"]

@@ -1,25 +1,45 @@
-"""Pattern language model in PyTorch (counterpart of ``repro.models.lm``)
-for attention-only families, dense or MoE, with bf16 KV caches:
-parameters, prefill, the decode step and its cache, the training loss,
-and the conversion of the reference's parameters.
+"""Pattern language model in PyTorch (counterpart of ``repro.models.lm``):
+one implementation for every architecture of the registry, a repeating
+*unit* of layers (attention, gated cross-attention, Mamba or RWKV, each
+optionally MoE; Whisper-style layers add a cross-attention sublayer)
+over ``n_units`` units, plus the Whisper encoder.  Parameters, prefill,
+the decode step and its cache, the training loss, and the conversion of
+the reference's parameters.
 
 Parameters keep the reference's pytree layout — nested dicts and
 tuples, with the repeating unit's layers stacked on a leading ``units``
 axis — so the two packages can be fed the same weights.  The
 reference's ``lax.scan`` over units becomes a Python loop over that
-axis (``unit_views``).  Prefill attention runs through
-``kernels.ops.flash_attention``: the CUDA kernel on the card, its plain
-version on the CPU; training attention through the plain
-``chunked_attention``, as in the reference's train mode.  A one-token
-decode step attends through ``kernels.ops.decode_attention`` (the
-kernel on the card); a step of several tokens through the plain
-``dense_attention``, as the reference's decode mode does.
+axis (``unit_views``).
 
-Cache layout (the reference's): ``kv_k``/``kv_v`` (U, n_attn, B, S_max,
-KV, hd) bf16, plus ``index``, the tokens already in the cache (an int).
+Attention routes:
+  * causal self-attention in prefill: ``kernels.ops.flash_attention``
+    (the CUDA kernel on the card, its plain version on the CPU);
+  * one-token steps, self-attention over the KV cache and
+    cross-attention over the cached ``cross_k``/``cross_v`` (kv_len =
+    S_enc): ``kernels.ops.decode_attention`` (the kernel on the card);
+  * non-causal attention over a whole sequence (the Whisper encoder,
+    cross-attention in prefill), all training attention, and decode
+    steps of several tokens: the plain ``chunked_attention`` /
+    ``dense_attention``, as the reference's train and decode modes
+    compute them.  (The flash wrapper refuses non-causal attention over
+    a key length that is not a multiple of 128, as the reference's
+    does; the encoder's 1500 frames and the 1600 image tokens are not.)
+An int8 KV cache is dequantized to bf16 for its attention, as in the
+reference.
+
+Cache layout (the reference's; axis 0 = unit):
+  kv_k/kv_v        (U, n_attn, B, S_max, KV, hd)  bf16, or int8 with
+  kv_k/v_scale     (U, n_attn, B, S_max, KV)      bf16
+  conv/ssm         (U, n_mamba, B, K-1, d_inner) bf16 / (U, n_mamba, B,
+                   H, N, P) fp32
+  wkv/shift_t/c    (U, n_rwkv, B, H, P, P) fp32 / (U, n_rwkv, B, D) bf16
+  cross_k/cross_v  (U, n_cross, B, S_enc, KV, hd) bf16
+plus ``index``, the tokens already in the cache (an int).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
@@ -28,35 +48,12 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ModelConfig
+from ..configs.base import LayerSpec, ModelConfig
 from ..core.tiered_array import DeviceLike, resolve_device
 from ..kernels import ops
 from . import modules as M
 
 Params = Dict[str, Any]
-
-
-def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    for spec in cfg.pattern:
-        if spec.kind != "attn" or spec.cross_attn:
-            return f"layer kind {spec.kind!r}" + (
-                "+cross" if spec.cross_attn else "")
-    if cfg.encoder_layers:
-        return "encoder-decoder models"
-    if cfg.pos_emb not in ("rope", "learned", "none"):
-        return f"pos_emb {cfg.pos_emb!r}"
-    if cfg.kv_cache_dtype == "int8":
-        return "int8 KV caches"
-    return None
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    why = _unsupported(cfg)
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs attention-only models with bf16 "
-            f"KV caches; {why} are not ported yet (ROADMAP queue 1, "
-            "item 8)")
 
 
 # ====================================================================== #
@@ -92,64 +89,110 @@ def params_from_numpy(tree, device: DeviceLike = None) -> Params:
     return tree_map(lambda a: tensor_from_numpy(a, dev), tree)
 
 
-def _normal(shape, std: float, g: torch.Generator, device,
-            units: int = 0, dtype: torch.dtype = torch.bfloat16
-            ) -> torch.Tensor:
-    """N(0, std^2) draws in ``dtype``; with ``units`` > 0 a (units,
-    *shape) stack drawn one unit at a time, so the fp32 transient stays
-    one layer in size."""
-    if not units:
-        return torch.randn(shape, generator=g, device=device).mul_(
-            std).to(dtype)
-    out = torch.empty((units, *shape), dtype=dtype, device=device)
-    for u in range(units):
-        out[u] = _normal(shape, std, g, device, dtype=dtype)
-    return out
+ENC_SPEC = LayerSpec(kind="attn")
+CACHE_KEYS = ("kv_k", "kv_v", "kv_k_scale", "kv_v_scale", "conv", "ssm",
+              "wkv", "shift_t", "shift_c", "cross_k", "cross_v")
 
 
-def _init_moe(cfg: ModelConfig, g: torch.Generator, device) -> Params:
-    """The reference's ``init_moe`` layout, stacked over the U units: an
-    fp32 router (D, E) and bf16 experts (E, D, F) / (E, F, D)."""
-    U, D, F, E = cfg.n_units, cfg.d_model, cfg.d_ff, cfg.n_experts
-    s, sf = 1.0 / math.sqrt(D), 1.0 / math.sqrt(F)
-    p = {"router": _normal((D, E), s, g, device, U, torch.float32),
-         "w_up": _normal((E, D, F), s, g, device, U),
-         "w_down": _normal((E, F, D), sf, g, device, U)}
-    if cfg.act == "silu":
-        p["w_gate"] = _normal((E, D, F), s, g, device, U)
+def _mdims(cfg: ModelConfig) -> M.MambaDims:
+    return M.mamba_dims(cfg.d_model, cfg.mamba_expand, cfg.mamba_head_dim,
+                        cfg.mamba_d_state, cfg.mamba_d_conv, cfg.ssd_chunk)
+
+
+def _rdims(cfg: ModelConfig) -> M.RwkvDims:
+    return M.rwkv_dims(cfg.d_model, cfg.d_ff, cfg.rwkv_head_dim,
+                       cfg.rwkv_chunk)
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The Whisper encoder's config: one attention layer per unit over
+    ``encoder_layers`` units, sinusoidal positions (no rotary)."""
+    return dataclasses.replace(cfg, pattern=(ENC_SPEC,),
+                               n_layers=cfg.encoder_layers,
+                               pos_emb="sinusoidal")
+
+
+def _needs_cross_inputs(cfg: ModelConfig) -> bool:
+    """Whether prefill and the loss take ``cross_inputs`` (image
+    embeddings, or the frames the encoder reads)."""
+    return bool(cfg.encoder_layers) or any(
+        s.kind == "cross" or s.cross_attn for s in cfg.pattern)
+
+
+def _init_norm(kind: str, D: int, device, U: int = 0) -> Params:
+    lead = (U,) if U else ()
+    n = {"scale": torch.ones(*lead, D, device=device)}
+    if kind != "rms":
+        n["bias"] = torch.zeros(*lead, D, device=device)
+    return n
+
+
+def _init_attention(cfg: ModelConfig, g, device, U: int,
+                    bias: bool) -> Params:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    s = 1.0 / math.sqrt(D)
+    p = {"wq": M.randn((D, H * hd), s, g, device, U),
+         "wk": M.randn((D, KV * hd), s, g, device, U),
+         "wv": M.randn((D, KV * hd), s, g, device, U),
+         "wo": M.randn((H * hd, D), s, g, device, U)}
+    if bias:
+        for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
+            p[name] = torch.zeros(U, n, dtype=torch.bfloat16, device=device)
     return p
 
 
-def _init_layer(cfg: ModelConfig, spec, g: torch.Generator,
-                device) -> Params:
-    """One layer of the unit, every leaf stacked over the U units."""
-    U, D, F, hd = cfg.n_units, cfg.d_model, cfg.d_ff, cfg.head_dim
-    H, KV = cfg.n_heads, cfg.n_kv
+def _init_moe(cfg: ModelConfig, g: torch.Generator, device,
+              U: int) -> Params:
+    """The reference's ``init_moe`` layout, stacked over the U units: an
+    fp32 router (D, E) and bf16 experts (E, D, F) / (E, F, D)."""
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     s, sf = 1.0 / math.sqrt(D), 1.0 / math.sqrt(F)
-
-    def norm():
-        n = {"scale": torch.ones(U, D, device=device)}
-        if cfg.norm != "rms":
-            n["bias"] = torch.zeros(U, D, device=device)
-        return n
-
-    def zeros(n):
-        return torch.zeros(U, n, dtype=torch.bfloat16, device=device)
-
-    attn = {"wq": _normal((D, H * hd), s, g, device, U),
-            "wk": _normal((D, KV * hd), s, g, device, U),
-            "wv": _normal((D, KV * hd), s, g, device, U),
-            "wo": _normal((H * hd, D), s, g, device, U)}
-    if cfg.qkv_bias:
-        attn.update(bq=zeros(H * hd), bk=zeros(KV * hd), bv=zeros(KV * hd))
-    p = {"norm1": norm(), "attn": attn, "norm2": norm()}
-    if spec.moe:
-        p["moe"] = _init_moe(cfg, g, device)
-        return p
-    p["mlp"] = {"w_up": _normal((D, F), s, g, device, U),
-                "w_down": _normal((F, D), sf, g, device, U)}
+    p = {"router": M.randn((D, E), s, g, device, U, torch.float32),
+         "w_up": M.randn((E, D, F), s, g, device, U),
+         "w_down": M.randn((E, F, D), sf, g, device, U)}
     if cfg.act == "silu":
-        p["mlp"]["w_gate"] = _normal((D, F), s, g, device, U)
+        p["w_gate"] = M.randn((E, D, F), s, g, device, U)
+    return p
+
+
+def _init_layer(cfg: ModelConfig, spec: LayerSpec, g: torch.Generator,
+                device, U: int) -> Params:
+    """One layer of the unit (the reference's ``_init_layer``), every
+    leaf stacked over the U units."""
+    D, F, hd, KV = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_kv
+    s, sf = 1.0 / math.sqrt(D), 1.0 / math.sqrt(F)
+    if spec.kind == "rwkv":
+        rd = _rdims(cfg)
+        return {"norm1": _init_norm("ln", D, device, U),
+                "tmix": M.init_rwkv_tmix(rd, g, device, U),
+                "norm2": _init_norm("ln", D, device, U),
+                "cmix": M.init_rwkv_cmix(rd, g, device, U)}
+    p: Params = {"norm1": _init_norm(cfg.norm, D, device, U)}
+    if spec.kind == "attn":
+        p["attn"] = _init_attention(cfg, g, device, U, cfg.qkv_bias)
+    elif spec.kind == "cross":
+        p["attn"] = _init_attention(cfg, g, device, U, cfg.qkv_bias)
+        # projections applied to the cross inputs; the tanh gates start
+        # at 0, which silences the layer until they are trained
+        p["xkv"] = {"wk": M.randn((D, KV * hd), s, g, device, U),
+                    "wv": M.randn((D, KV * hd), s, g, device, U)}
+        p["gate_attn"] = torch.zeros(U, device=device)
+        p["gate_mlp"] = torch.zeros(U, device=device)
+    elif spec.kind == "mamba":
+        p["mamba"] = M.init_mamba(_mdims(cfg), g, device, U)
+    else:
+        raise ValueError(spec.kind)
+    if spec.cross_attn:          # Whisper-style extra cross sublayer
+        p["cross_norm"] = _init_norm(cfg.norm, D, device, U)
+        p["cross"] = _init_attention(cfg, g, device, U, False)
+    p["norm2"] = _init_norm(cfg.norm, D, device, U)
+    if spec.moe:
+        p["moe"] = _init_moe(cfg, g, device, U)
+        return p
+    p["mlp"] = {"w_up": M.randn((D, F), s, g, device, U),
+                "w_down": M.randn((F, D), sf, g, device, U)}
+    if cfg.act == "silu":
+        p["mlp"]["w_gate"] = M.randn((D, F), s, g, device, U)
     return p
 
 
@@ -159,49 +202,70 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA unless
     ``device="cpu"``).  The draws differ from the reference's
     ``jax.random`` ones; the scales are the same."""
-    check_supported(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     D = cfg.d_model
-    norm = {"scale": torch.ones(D, device=dev)}
-    if cfg.norm != "rms":
-        norm["bias"] = torch.zeros(D, device=dev)
     p: Params = {
-        "embed": _normal((cfg.vocab, D), 0.02, g, dev),
-        "final_norm": norm,
-        "units": {"layers": tuple(_init_layer(cfg, spec, g, dev)
+        "embed": M.randn((cfg.vocab, D), 0.02, g, dev),
+        "final_norm": _init_norm(cfg.norm, D, dev),
+        "units": {"layers": tuple(_init_layer(cfg, spec, g, dev,
+                                              cfg.n_units)
                                   for spec in cfg.pattern)},
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = _normal((cfg.vocab, D), 0.02, g, dev)
+        p["lm_head"] = M.randn((cfg.vocab, D), 0.02, g, dev)
     if cfg.pos_emb == "learned":
-        p["pos_emb"] = _normal((cfg.max_pos, D), 0.02, g, dev)
+        p["pos_emb"] = M.randn((cfg.max_pos, D), 0.02, g, dev)
+    if cfg.encoder_layers:
+        p["encoder"] = {
+            "units": {"layers": (_init_layer(cfg, ENC_SPEC, g, dev,
+                                             cfg.encoder_layers),)},
+            "final_norm": _init_norm(cfg.norm, D, dev)}
     return p
+
+
+def _views(tree: Params, n: int) -> List[Params]:
+    return [tree_map(lambda t, u=u: t[u], tree) for u in range(n)]
 
 
 def unit_views(params: Params, cfg: ModelConfig) -> List[Params]:
     """Per-unit parameter views (``units[u]``): the loop body's inputs
     in place of the reference's ``lax.scan`` slices."""
-    return [tree_map(lambda t, u=u: t[u], params["units"])
-            for u in range(cfg.n_units)]
+    return _views(params["units"], cfg.n_units)
 
 
 # ====================================================================== #
 # Forward                                                                #
 # ====================================================================== #
+def _sinusoidal(S: int, D: int, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """(S, D) fp32 sinusoidal position table of positions ``offset``
+    onwards: sin on even columns, cos on odd ones."""
+    pos = torch.arange(S, device=device)[:, None] + offset
+    dim = torch.arange(0, D, 2, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / D)
+    out = torch.zeros((S, D), device=device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out
+
+
 def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   index: Optional[int] = None) -> torch.Tensor:
-    """Token embeddings, plus the learned position embeddings of
-    positions ``index`` onwards (0 onwards without ``index``).  The
-    start is clamped so that the S rows fit, as the reference's
-    ``lax.dynamic_slice`` clamps it."""
+    """Token embeddings, plus the position embeddings of positions
+    ``index`` onwards (0 onwards without ``index``): learned rows (the
+    start clamped so that the S rows fit, as the reference's
+    ``lax.dynamic_slice`` clamps it) or the sinusoidal table."""
     x = p["embed"][tokens].to(torch.bfloat16)
+    S = tokens.shape[1]
     if cfg.pos_emb == "learned":
-        S = tokens.shape[1]
         i = 0 if index is None else min(max(int(index), 0),
                                         p["pos_emb"].shape[0] - S)
         x = x + p["pos_emb"][i:i + S][None].to(x.dtype)
+    elif cfg.pos_emb == "sinusoidal":
+        x = x + _sinusoidal(S, cfg.d_model, 0 if index is None else
+                            int(index), x.device)[None].to(x.dtype)
     return x
 
 
@@ -234,62 +298,240 @@ def ffn(cfg: ModelConfig, spec, lp: Params, h: torch.Tensor):
     return M.mlp_fwd(lp["mlp"], h, cfg.act), None
 
 
+def _cross_kv(cfg: ModelConfig, wp: Params, cross: torch.Tensor):
+    """K/V (B, S_enc, KV, hd) of the cross inputs under ``wp``'s wk/wv,
+    in the inputs' and weights' promoted dtype (fp32 image embeddings
+    give fp32 K/V, as in the reference; the cache keeps them bf16)."""
+    B, S_enc = cross.shape[0], cross.shape[1]
+    shape = (B, S_enc, cfg.n_kv, cfg.head_dim)
+    return (M.mm(cross, wp["wk"]).reshape(shape),
+            M.mm(cross, wp["wv"]).reshape(shape))
+
+
+def _cross_attend(cfg: ModelConfig, ap: Params, h: torch.Tensor,
+                  xk: torch.Tensor, xv: torch.Tensor,
+                  enc_lens: Optional[torch.Tensor]) -> torch.Tensor:
+    """Non-causal attention of ``h``'s queries over precomputed cross
+    K/V, without rotary (the reference passes no positions), projected
+    by ``wo``.  ``enc_lens`` (B,) int32 = S_enc for a one-token step,
+    which runs ``ops.decode_attention`` over the bf16 cross cache; None
+    for a whole sequence (the plain ``chunked_attention``)."""
+    B, S = h.shape[0], h.shape[1]
+    q = h @ ap["wq"]
+    if "bq" in ap:
+        q = q + ap["bq"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    if enc_lens is not None:
+        att = ops.decode_attention(q[:, 0].contiguous(), xk, xv, enc_lens)
+    else:
+        att = M.chunked_attention(q, xk, xv, causal=False,
+                                  chunk_q=cfg.attn_chunk,
+                                  chunk_kv=cfg.attn_chunk)
+    return att.reshape(B, S, cfg.n_heads * cfg.head_dim) @ ap["wo"]
+
+
+def _gate(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(g).to(out.dtype) * out
+
+
 def _unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
-              positions: torch.Tensor, train: bool = False):
-    """One unit over the whole sequence; returns (x, MoE aux loss (fp32),
-    [k], [v]) with the post-rotary bf16 K/V of each attention layer.
-    Attention runs through ``ops.flash_attention`` (the kernel on the
-    card) or, with ``train``, through the plain ``chunked_attention``, as
-    the reference's train mode does: the kernel has no backward."""
+              positions: torch.Tensor, cross: Optional[torch.Tensor],
+              train: bool = False, causal: bool = True):
+    """One unit over the whole sequence (prefill, training, and the
+    encoder); returns (x, MoE aux loss (fp32), cache) where cache maps
+    each of the unit's cache keys to its per-layer entries (None with
+    ``train``).  Causal self-attention runs through
+    ``ops.flash_attention`` (the kernel on the card); with ``train``, or
+    non-causal, through the plain ``chunked_attention``, as the
+    reference's train mode does: the kernel has no backward."""
     B, S, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ks, vs = [], []
+    cache: Dict[str, list] = {k: [] for k in CACHE_KEYS}
+
+    def put(key: str, t: torch.Tensor) -> None:
+        if not train:
+            cache[key].append(t)
+
+    kv_int8 = cfg.kv_cache_dtype == "int8"
     for li, spec in enumerate(cfg.pattern):
         lp = up["layers"][li]
-        h = M.apply_norm(cfg.norm, lp["norm1"], x)
-        q, k, v = project_qkv(cfg, lp["attn"], h)
-        if cfg.pos_emb == "rope":
-            q = M.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
-            k = M.apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
-        if train:
-            att = M.chunked_attention(q, k, v, causal=True,
-                                      chunk_q=cfg.attn_chunk,
-                                      chunk_kv=cfg.attn_chunk)
-        else:
-            att = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), causal=True)
-        x = x + att.reshape(B, S, cfg.n_heads * cfg.head_dim) \
-            @ lp["attn"]["wo"]
-        h = M.apply_norm(cfg.norm, lp["norm2"], x)
-        out, a = ffn(cfg, spec, lp, h)
-        x = x + out
+        if spec.kind == "attn":
+            h = M.apply_norm(cfg.norm, lp["norm1"], x)
+            q, k, v = project_qkv(cfg, lp["attn"], h)
+            if cfg.pos_emb == "rope":
+                q = M.apply_rope(q, positions, cfg.rope_theta,
+                                 cfg.rotary_pct)
+                k = M.apply_rope(k, positions, cfg.rope_theta,
+                                 cfg.rotary_pct)
+            if train or not causal:
+                att = M.chunked_attention(q, k, v, causal=causal,
+                                          chunk_q=cfg.attn_chunk,
+                                          chunk_kv=cfg.attn_chunk)
+            else:
+                att = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), causal=True)
+            x = x + att.reshape(B, S, cfg.n_heads * cfg.head_dim) \
+                @ lp["attn"]["wo"]
+            if kv_int8 and not train:
+                for name, t in (("k", k), ("v", v)):
+                    tq, ts = M.quantize_kv(t)
+                    put(f"kv_{name}", tq)
+                    put(f"kv_{name}_scale", ts)
+            elif not train:
+                put("kv_k", k.to(torch.bfloat16))
+                put("kv_v", v.to(torch.bfloat16))
+        elif spec.kind == "cross":
+            # cross-only layer (Llama-3.2-Vision image layers)
+            h = M.apply_norm(cfg.norm, lp["norm1"], x)
+            xk, xv = _cross_kv(cfg, lp["xkv"], cross)
+            out = _cross_attend(cfg, lp["attn"], h, xk, xv, None)
+            x = x + _gate(lp["gate_attn"], out)
+            put("cross_k", xk.to(torch.bfloat16))
+            put("cross_v", xv.to(torch.bfloat16))
+        elif spec.kind == "mamba":
+            h = M.apply_norm(cfg.norm, lp["norm1"], x)
+            out, (cs, ss) = M.mamba_fwd(lp["mamba"], h, _mdims(cfg))
+            x = x + out
+            put("conv", cs)
+            put("ssm", ss)
+        elif spec.kind == "rwkv":
+            x, states = _rwkv_layer(cfg, lp, x, None)
+            for name, t in zip(("wkv", "shift_t", "shift_c"), states):
+                put(name, t)
+            continue             # an RWKV layer has no separate MLP
+        if spec.cross_attn:      # Whisper-style extra cross sublayer
+            h = M.apply_norm(cfg.norm, lp["cross_norm"], x)
+            xk, xv = _cross_kv(cfg, lp["cross"], cross)
+            x = x + _cross_attend(cfg, lp["cross"], h, xk, xv, None)
+            put("cross_k", xk.to(torch.bfloat16))
+            put("cross_v", xv.to(torch.bfloat16))
+        x, a = _mlp_sublayer(cfg, spec, lp, x)
         if a is not None:
             aux = aux + a
-        ks.append(k.to(torch.bfloat16))
-        vs.append(v.to(torch.bfloat16))
-    return x, aux, ks, vs
+    return x, aux, (None if train else
+                    {k: v for k, v in cache.items() if v})
+
+
+def _rwkv_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                states: Optional[tuple]):
+    """An RWKV layer: time-mix then channel-mix, each behind a
+    LayerNorm, from ``states`` = (wkv, shift_t, shift_c) or from zeros.
+    Returns (x, new states)."""
+    ws, sh, shc = states if states is not None else (None, None, None)
+    h = M.apply_norm("ln", lp["norm1"], x)
+    out, (ws2, sh2) = M.rwkv_tmix_fwd(lp["tmix"], h, _rdims(cfg),
+                                      wkv_state=ws, shift_state=sh)
+    x = x + out
+    h = M.apply_norm("ln", lp["norm2"], x)
+    out, shc2 = M.rwkv_cmix_fwd(lp["cmix"], h, shift_state=shc)
+    return x + out, (ws2, sh2, shc2)
+
+
+def _mlp_sublayer(cfg: ModelConfig, spec: LayerSpec, lp: Params,
+                  x: torch.Tensor):
+    """The MLP / MoE sublayer behind ``norm2`` (tanh-gated in a cross
+    layer).  Returns (x, MoE aux loss or None)."""
+    h = M.apply_norm(cfg.norm, lp["norm2"], x)
+    out, a = ffn(cfg, spec, lp, h)
+    if spec.kind == "cross":
+        out = _gate(lp["gate_mlp"], out)
+    return x + out, a
+
+
+def _stack_cache(per_unit: List[Dict[str, list]]) -> Params:
+    """Per-unit lists of per-layer entries -> (U, n_kind, ...) stacks."""
+    return {k: torch.stack([torch.stack(c[k]) for c in per_unit])
+            for k in per_unit[0]}
+
+
+def _stack_fwd(cfg: ModelConfig, units: List[Params], x: torch.Tensor,
+               positions: torch.Tensor, cross: Optional[torch.Tensor],
+               causal: bool = True):
+    """The units in order over the whole sequence with the plain
+    attention (the reference's train-mode ``lax.scan``); with
+    ``cfg.remat`` under autograd each unit is recomputed in the
+    backward pass, so only the unit boundaries are kept.  Returns (x,
+    summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(up, h, pos, xc):
+        h, a, _ = _unit_fwd(cfg, up, h, pos, xc, train=True, causal=causal)
+        return h, a
+
+    for up in units:
+        if cfg.remat and torch.is_grad_enabled():
+            x, a = checkpoint(functools.partial(body, up), x, positions,
+                              cross, use_reentrant=False)
+        else:
+            x, a = body(up, x, positions, cross)
+        aux = aux + a
+    return x, aux
+
+
+def encode(p: Params, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over stubbed frame embeddings (B, S_enc,
+    D): sinusoidal positions, ``encoder_layers`` non-causal attention
+    layers (the plain ``chunked_attention``), the final norm.  Returns
+    (B, S_enc, D) bf16."""
+    S_enc = frames.shape[1]
+    x = frames.to(torch.bfloat16)
+    x = x + _sinusoidal(S_enc, cfg.d_model,
+                        device=x.device)[None].to(x.dtype)
+    enc = p["encoder"]
+    x, _ = _stack_fwd(_enc_cfg(cfg), _views(enc["units"],
+                                            cfg.encoder_layers), x,
+                      torch.arange(S_enc, device=x.device), None,
+                      causal=False)
+    return M.apply_norm(cfg.norm, enc["final_norm"], x)
+
+
+def _cross_inputs(p: Params, cfg: ModelConfig, cross_inputs,
+                  dev) -> Optional[torch.Tensor]:
+    """The cross inputs on ``dev`` (float64 arrays as fp32, as JAX reads
+    them), run through the encoder where the model has one; None for a
+    model that takes none.  Raises when a model that needs them gets
+    none."""
+    if not _needs_cross_inputs(cfg):
+        return None
+    if cross_inputs is None:
+        raise ValueError(
+            f"{cfg.name} attends over {cfg.n_frontend_tokens} stubbed "
+            "frontend embeddings: pass cross_inputs (frames) of shape "
+            f"(B, {cfg.n_frontend_tokens}, {cfg.d_model})")
+    t = torch.as_tensor(cross_inputs, device=dev)
+    if t.dtype == torch.float64:
+        t = t.float()
+    if t.dim() != 3 or t.shape[2] != cfg.d_model:
+        raise ValueError(f"{cfg.name}: cross_inputs of shape "
+                         f"{tuple(t.shape)}, expected (B, S_enc, "
+                         f"{cfg.d_model})")
+    return encode(p, cfg, t) if cfg.encoder_layers else t
 
 
 @torch.no_grad()
 def prefill(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            cross_inputs: Optional[torch.Tensor] = None,
             units: Optional[List[Params]] = None
             ) -> Tuple[torch.Tensor, Params]:
     """Prefill: tokens (B, S) -> (last-token logits (B, V) fp32, cache
-    {"kv_k", "kv_v": (U, n_attn, B, S, KV, hd) bf16, "index"})."""
-    check_supported(cfg)
-    tokens = tokens.to(device=p["embed"].device, dtype=torch.int64)
+    of the model's keys (the module docstring's layout) and ``index``
+    S).  ``cross_inputs`` (B, S_enc, D): the image embeddings, or the
+    frames the encoder reads; models without cross layers ignore them."""
+    dev = p["embed"].device
+    tokens = tokens.to(device=dev, dtype=torch.int64)
+    cross = _cross_inputs(p, cfg, cross_inputs, dev)
     x = _embed_tokens(p, cfg, tokens)
     S = tokens.shape[1]
-    positions = torch.arange(S, device=x.device)
-    kk, vv = [], []
+    positions = torch.arange(S, device=dev)
+    per_unit = []
     for up in (units if units is not None else unit_views(p, cfg)):
-        x, _, ks, vs = _unit_fwd(cfg, up, x, positions)
-        kk.append(torch.stack(ks))
-        vv.append(torch.stack(vs))
+        x, _, c = _unit_fwd(cfg, up, x, positions, cross)
+        per_unit.append(c)
     x = M.apply_norm(cfg.norm, p["final_norm"], x[:, -1:])
     logits = (x[:, 0] @ _lm_head(p, cfg).T).float()
-    cache = {"kv_k": torch.stack(kk), "kv_v": torch.stack(vv),
-             "index": S}
+    cache = _stack_cache(per_unit)
+    cache["index"] = S
     return logits, cache
 
 
@@ -297,36 +539,81 @@ def prefill(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
 # Decode                                                                 #
 # ====================================================================== #
 def _decode_unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
-                     kv_k: torch.Tensor, kv_v: torch.Tensor, idx: int,
-                     lens: Optional[torch.Tensor]) -> torch.Tensor:
-    """One unit of a decode step over its caches kv_k/kv_v (n_attn, B,
-    S_max, KV, hd): each attention layer writes the step's K/V at
-    ``idx`` in place, then attends over ``idx + S`` positions without a
-    causal mask, as the reference's decode mode does.  ``lens`` (B,)
-    int32 holds ``idx + 1`` for a one-token step, which runs
-    ``ops.decode_attention``; None for longer steps (``dense_attention``)."""
+                     uc: Params, idx: int, lens: Optional[torch.Tensor],
+                     enc_lens: Optional[torch.Tensor]) -> torch.Tensor:
+    """One unit of a decode step over its cache views ``uc`` (key ->
+    (n_kind, B, ...)), updated in place.  Each attention layer writes
+    the step's K/V (quantized, for an int8 cache) at ``idx``, then
+    attends over ``idx + S`` positions without a causal mask, as the
+    reference's decode mode does; recurrent layers step their states
+    from the cache.  ``lens`` (B,) int32 holds ``idx + 1`` and
+    ``enc_lens`` S_enc for a one-token step, which runs
+    ``ops.decode_attention``; None for longer steps (the plain
+    ``dense_attention`` / ``chunked_attention``)."""
     B, S, _ = x.shape
     positions = idx + torch.arange(S, device=x.device)
+    kv_int8 = cfg.kv_cache_dtype == "int8"
+    i_attn = i_mamba = i_rwkv = i_cross = 0
     for li, spec in enumerate(cfg.pattern):
         lp = up["layers"][li]
-        h = M.apply_norm(cfg.norm, lp["norm1"], x)
-        q, k, v = project_qkv(cfg, lp["attn"], h)
-        if cfg.pos_emb == "rope":
-            q = M.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
-            k = M.apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
-        ck, cv = kv_k[li], kv_v[li]                  # (B, S_max, KV, hd)
-        ck[:, idx:idx + S] = k.to(ck.dtype)
-        cv[:, idx:idx + S] = v.to(cv.dtype)
-        if lens is not None:
-            att = ops.decode_attention(q[:, 0].contiguous(), ck, cv, lens)
-        else:
-            att = M.dense_attention(q, ck, cv, causal=False,
-                                    kv_len=idx + S)
-        x = x + att.reshape(B, S, cfg.n_heads * cfg.head_dim) \
-            @ lp["attn"]["wo"]
-        h = M.apply_norm(cfg.norm, lp["norm2"], x)
-        out, _ = ffn(cfg, spec, lp, h)
-        x = x + out
+        if spec.kind == "attn":
+            h = M.apply_norm(cfg.norm, lp["norm1"], x)
+            q, k, v = project_qkv(cfg, lp["attn"], h)
+            if cfg.pos_emb == "rope":
+                q = M.apply_rope(q, positions, cfg.rope_theta,
+                                 cfg.rotary_pct)
+                k = M.apply_rope(k, positions, cfg.rope_theta,
+                                 cfg.rotary_pct)
+            ck, cv = uc["kv_k"][i_attn], uc["kv_v"][i_attn]
+            if kv_int8:
+                cks = uc["kv_k_scale"][i_attn]
+                cvs = uc["kv_v_scale"][i_attn]
+                (kq, ks), (vq, vs) = M.quantize_kv(k), M.quantize_kv(v)
+                ck[:, idx:idx + S], cks[:, idx:idx + S] = kq, ks
+                cv[:, idx:idx + S], cvs[:, idx:idx + S] = vq, vs
+                ck, cv = M.dequantize_kv(ck, cks), M.dequantize_kv(cv, cvs)
+            else:
+                ck[:, idx:idx + S] = k.to(ck.dtype)
+                cv[:, idx:idx + S] = v.to(cv.dtype)
+            if lens is not None:
+                att = ops.decode_attention(q[:, 0].contiguous(), ck, cv,
+                                           lens)
+            else:
+                att = M.dense_attention(q, ck, cv, causal=False,
+                                        kv_len=idx + S)
+            x = x + att.reshape(B, S, cfg.n_heads * cfg.head_dim) \
+                @ lp["attn"]["wo"]
+            i_attn += 1
+        elif spec.kind == "cross":
+            h = M.apply_norm(cfg.norm, lp["norm1"], x)
+            out = _cross_attend(cfg, lp["attn"], h, uc["cross_k"][i_cross],
+                                uc["cross_v"][i_cross], enc_lens)
+            x = x + _gate(lp["gate_attn"], out)
+            i_cross += 1
+        elif spec.kind == "mamba":
+            h = M.apply_norm(cfg.norm, lp["norm1"], x)
+            cs, ss = uc["conv"][i_mamba], uc["ssm"][i_mamba]
+            out, (cs2, ss2) = M.mamba_fwd(lp["mamba"], h, _mdims(cfg),
+                                          conv_state=cs, ssm_state=ss)
+            x = x + out
+            cs.copy_(cs2)
+            ss.copy_(ss2)
+            i_mamba += 1
+        elif spec.kind == "rwkv":
+            states = tuple(uc[k][i_rwkv]
+                           for k in ("wkv", "shift_t", "shift_c"))
+            x, new = _rwkv_layer(cfg, lp, x, states)
+            for t, t2 in zip(states, new):
+                t.copy_(t2)
+            i_rwkv += 1
+            continue
+        if spec.cross_attn:
+            h = M.apply_norm(cfg.norm, lp["cross_norm"], x)
+            x = x + _cross_attend(cfg, lp["cross"], h,
+                                  uc["cross_k"][i_cross],
+                                  uc["cross_v"][i_cross], enc_lens)
+            i_cross += 1
+        x, _ = _mlp_sublayer(cfg, spec, lp, x)
     return x
 
 
@@ -337,64 +624,82 @@ def decode_step(p: Params, cfg: ModelConfig, cache: Params,
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step: tokens (B, S) -> (logits (B, V) fp32, cache).
 
-    The step's K/V are written into the cache's ``kv_k``/``kv_v``
-    buffers in place (the reference returns updated copies; its callers
-    drop the old cache), and the returned cache holds those buffers and
-    ``index + S``.  As in the reference, the logits are those of the
-    step's first token."""
-    check_supported(cfg)
+    The step writes the cache's buffers in place (the reference returns
+    updated copies; its callers drop the old cache): its K/V into
+    ``kv_k``/``kv_v`` (and their scales) at ``index``, and the new
+    recurrent states over the old.  The returned cache holds those
+    buffers and ``index + S``.  As in the reference, the logits are those
+    of the step's first token."""
     dev = p["embed"].device
     tokens = tokens.to(device=dev, dtype=torch.int64)
     idx = int(cache["index"])
     B, S = tokens.shape
-    kv_k, kv_v = cache["kv_k"], cache["kv_v"]
-    if idx + S > kv_k.shape[3]:
+    bufs = {k: cache[k] for k in CACHE_KEYS if k in cache}
+    if "kv_k" in bufs and idx + S > bufs["kv_k"].shape[3]:
         raise ValueError(f"decode step of {S} token(s) at index {idx} "
-                         f"overflows a cache of {kv_k.shape[3]} positions")
+                         f"overflows a cache of {bufs['kv_k'].shape[3]} "
+                         "positions")
     x = _embed_tokens(p, cfg, tokens, index=idx)
-    lens = (torch.full((B,), idx + 1, dtype=torch.int32, device=dev)
-            if S == 1 else None)
+    lens = enc_lens = None
+    if S == 1:
+        lens = torch.full((B,), idx + 1, dtype=torch.int32, device=dev)
+        if "cross_k" in bufs:
+            enc_lens = torch.full((B,), bufs["cross_k"].shape[3],
+                                  dtype=torch.int32, device=dev)
     for u, up in enumerate(units if units is not None
                            else unit_views(p, cfg)):
-        x = _decode_unit_fwd(cfg, up, x, kv_k[u], kv_v[u], idx, lens)
+        x = _decode_unit_fwd(cfg, up, x, {k: t[u] for k, t in bufs.items()},
+                             idx, lens, enc_lens)
     x = M.apply_norm(cfg.norm, p["final_norm"], x)
     logits = (x[:, 0] @ _lm_head(p, cfg).T).float()
-    return logits, {"kv_k": kv_k, "kv_v": kv_v, "index": idx + S}
+    return logits, dict(bufs, index=idx + S)
 
 
 def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
-                      device: DeviceLike = None) -> Params:
+                      enc_len: int = 0, device: DeviceLike = None) -> Params:
     """Zero-initialized decode cache on ``device`` (CUDA unless
-    ``device="cpu"``): ``kv_k``/``kv_v`` (U, n_attn, B, max_seq, KV, hd)
-    bf16 and ``index`` 0."""
-    check_supported(cfg)
+    ``device="cpu"``), every key of the model's layers in the module
+    docstring's layout, and ``index`` 0."""
     dev = resolve_device(device)
-    shape = (cfg.n_units, len(cfg.unit_attn_layers), batch, max_seq,
-             cfg.n_kv, cfg.head_dim)
-    return {"index": 0,
-            "kv_k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            "kv_v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+    U, B, bf16, f32 = cfg.n_units, batch, torch.bfloat16, torch.float32
+    n_attn = len(cfg.unit_attn_layers)
+    n_mamba = len(cfg.unit_mamba_layers)
+    n_rwkv = len(cfg.unit_rwkv_layers)
+    n_cross = len([s for s in cfg.pattern
+                   if s.cross_attn or s.kind == "cross"])
+    hd, KV = cfg.head_dim, cfg.n_kv
+    shapes: Dict[str, tuple] = {}
+    if n_attn:
+        int8 = cfg.kv_cache_dtype == "int8"
+        kv = ((U, n_attn, B, max_seq, KV, hd), torch.int8 if int8 else bf16)
+        shapes.update(kv_k=kv, kv_v=kv)
+        if int8:
+            sc = ((U, n_attn, B, max_seq, KV), bf16)
+            shapes.update(kv_k_scale=sc, kv_v_scale=sc)
+    if n_mamba:
+        md = _mdims(cfg)
+        shapes["conv"] = ((U, n_mamba, B, cfg.mamba_d_conv - 1,
+                           md.d_inner), bf16)
+        shapes["ssm"] = ((U, n_mamba, B, md.n_heads, md.d_state,
+                          md.head_dim), f32)
+    if n_rwkv:
+        rd = _rdims(cfg)
+        shapes["wkv"] = ((U, n_rwkv, B, rd.n_heads, rd.head_dim,
+                          rd.head_dim), f32)
+        shapes["shift_t"] = shapes["shift_c"] = ((U, n_rwkv, B,
+                                                  cfg.d_model), bf16)
+    if n_cross:
+        shapes["cross_k"] = shapes["cross_v"] = (
+            (U, n_cross, B, enc_len, KV, hd), bf16)
+    cache: Params = {"index": 0}
+    for k, (shape, dt) in shapes.items():
+        cache[k] = torch.zeros(shape, dtype=dt, device=dev)
+    return cache
 
 
 # ====================================================================== #
 # Training loss                                                          #
 # ====================================================================== #
-def _stack_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
-               positions: torch.Tensor):
-    """The units in order (the reference's ``lax.scan``); with
-    ``cfg.remat`` each unit is recomputed in the backward pass, so only
-    the unit boundaries are kept.  Returns (x, summed aux loss)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for up in unit_views(p, cfg):
-        body = functools.partial(_unit_fwd, cfg, up, train=True)
-        if cfg.remat:
-            x, a, _, _ = checkpoint(body, x, positions, use_reentrant=False)
-        else:
-            x, a, _, _ = body(x, positions)
-        aux = aux + a
-    return x, aux
-
-
 def _chunk_ce(xi: torch.Tensor, yi: torch.Tensor,
               W: torch.Tensor) -> torch.Tensor:
     """Summed cross-entropy of one sequence chunk, logits in fp32."""
@@ -410,17 +715,16 @@ def forward_loss(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  ) -> torch.Tensor:
     """Training loss, a 0-d fp32 tensor: the mean token cross-entropy,
     computed over chunks of ``cfg.loss_chunk`` positions so the (B, S, V)
-    logits never exist at once, plus 0.01 x the MoE aux loss."""
-    check_supported(cfg)
-    if cross_inputs is not None:
-        raise NotImplementedError("cross inputs (encoder-decoder models) "
-                                  "are not ported yet")
+    logits never exist at once, plus 0.01 x the MoE aux loss.
+    ``cross_inputs`` as for ``prefill``."""
     dev = p["embed"].device
     tokens = tokens.to(device=dev, dtype=torch.int64)
     labels = labels.to(device=dev, dtype=torch.int64)
+    cross = _cross_inputs(p, cfg, cross_inputs, dev)
     x = _embed_tokens(p, cfg, tokens)
     B, S = tokens.shape
-    x, aux = _stack_fwd(cfg, p, x, torch.arange(S, device=dev))
+    x, aux = _stack_fwd(cfg, unit_views(p, cfg), x,
+                        torch.arange(S, device=dev), cross)
     x = M.apply_norm(cfg.norm, p["final_norm"], x)
     W = _lm_head(p, cfg)
     C = min(cfg.loss_chunk, S)

@@ -1,20 +1,51 @@
 """Model building blocks in PyTorch (counterpart of
-``repro.models.modules``, attention-only families, dense or MoE).
+``repro.models.modules``): norms, RoPE, attention, the int8 KV
+quantizer, MLP, MoE, Mamba-2 (SSD) and RWKV6.
 
 Plain functions over explicit parameter dictionaries, in the reference's
 layouts: activations (B, S, D), heads (B, S, H, hd), weights stored
 (in, out) so a projection is ``x @ w``.  Compute dtype bf16 unless
-stated; norms and softmax statistics run in fp32, as in the reference.
+stated; norms, softmax statistics and the recurrent scans run in fp32,
+as in the reference.  The reference's ``lax.scan`` over sequence chunks
+is a Python loop over the chunks.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 Params = Dict[str, Any]
+
+
+def mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the two operands' promoted dtype, as JAX promotes a
+    mixed fp32 x bf16 product (torch's matmul refuses mixed dtypes)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
+def randn(shape, std: float, g: torch.Generator, device, units: int = 0,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """N(0, std^2) draws in ``dtype``; with ``units`` > 0 a (units,
+    *shape) stack drawn one unit at a time, so the fp32 transient stays
+    one layer in size."""
+    if not units:
+        return torch.randn(shape, generator=g, device=device).mul_(
+            std).to(dtype)
+    out = torch.empty((units, *shape), dtype=dtype, device=device)
+    for u in range(units):
+        out[u] = randn(shape, std, g, device, dtype=dtype)
+    return out
+
+
+def _full(shape, value: float, device, units: int = 0,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return torch.full(((units,) if units else ()) + tuple(shape), value,
+                      dtype=dtype, device=device)
 
 
 # ====================================================================== #
@@ -155,6 +186,22 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ====================================================================== #
+# KV-cache quantization (int8, per-(position, head) symmetric scales)    #
+# ====================================================================== #
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, KV, hd) -> (int8 values, bf16 scales (B, S, KV))."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+# ====================================================================== #
 # MLP (SwiGLU / GELU)                                                    #
 # ====================================================================== #
 def mlp_fwd(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
@@ -232,3 +279,292 @@ def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
         gat = out_buf[g, topi[..., j], last[..., j]]          # (G,T,D)
         acc = acc + gat * w_comb[..., j, None]
     return acc.reshape(B, S, D), aux
+
+
+# ====================================================================== #
+# Mamba (SSD / Mamba-2 form)                                             #
+# ====================================================================== #
+@dataclasses.dataclass(frozen=True)
+class MambaDims:
+    d_model: int
+    d_inner: int
+    n_heads: int     # d_inner // head_dim
+    head_dim: int
+    d_state: int
+    d_conv: int = 4
+    chunk: int = 128
+
+
+def mamba_dims(d_model: int, expand: int = 2, head_dim: int = 64,
+               d_state: int = 16, d_conv: int = 4,
+               chunk: int = 128) -> MambaDims:
+    d_inner = expand * d_model
+    return MambaDims(d_model, d_inner, d_inner // head_dim, head_dim,
+                     d_state, d_conv, chunk)
+
+
+def init_mamba(dims: MambaDims, g: torch.Generator, device,
+               units: int = 0) -> Params:
+    """The reference's ``init_mamba`` layout and scales (``units`` > 0:
+    stacked over that many units), drawn from ``g``."""
+    di, H, N = dims.d_inner, dims.n_heads, dims.d_state
+    f32 = torch.float32
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=device))
+    return {
+        # in_proj -> [x (di), z (di), B (H*N), C (H*N), dt (H)]
+        "w_in": randn((dims.d_model, 2 * di + 2 * H * N + H),
+                      1.0 / math.sqrt(dims.d_model), g, device, units),
+        "conv_w": randn((dims.d_conv, di), 0.1, g, device, units),
+        "conv_b": _full((di,), 0.0, device, units),
+        "A_log": (a_log.expand(units, H).clone() if units else a_log),
+        "D": _full((H,), 1.0, device, units, f32),
+        "dt_bias": _full((H,), 0.0, device, units, f32),
+        "w_out": randn((di, dims.d_model), 1.0 / math.sqrt(di), g, device,
+                       units),
+        "norm": {"scale": _full((di,), 1.0, device, units, f32)},
+    }
+
+
+def _mamba_split(p: Params, x: torch.Tensor, dims: MambaDims):
+    di, H, N = dims.d_inner, dims.n_heads, dims.d_state
+    proj = mm(x, p["w_in"])
+    return torch.split(proj, [di, di, H * N, H * N, H], dim=-1)
+
+
+def _ssd_chunk_scan(xh, dt, A, Bm, Cm, dims: MambaDims,
+                    init_state: Optional[torch.Tensor] = None):
+    """Chunked SSD: y_t = C_t^T sum_{s<=t} (prod_{r=s+1..t} a_r) dt_s B_s
+    x_s, with a_t = exp(-dt_t A_h) one decay per head (Mamba-2 / SSD).
+
+    xh: (B, S, H, P); dt: (B, S, H) (softplus'd); Bm, Cm: (B, S, H, N).
+    A ragged last chunk is zero-padded: dt = 0 is the identity decay and
+    adds no input, so the carried state stays exact.  fp32 throughout.
+    Returns (y (B, S, H, P) fp32, final state (B, H, N, P) fp32)."""
+    B, S, H, P = xh.shape
+    N = dims.d_state
+    L = min(dims.chunk, S)
+    nC = -(-S // L)
+    pad = nC * L - S
+    if pad:
+        xh, Bm, Cm = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (xh, Bm, Cm))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    loga = (-dt * A[None, None, :]).float()                  # (B,S,H) <= 0
+    x_dt = xh.float() * dt[..., None]                        # (B,S,H,P)
+    bf, cf = Bm.float(), Cm.float()
+    state = (torch.zeros((B, H, N, P), device=xh.device)
+             if init_state is None else init_state)
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=xh.device))
+    ys = []
+    for c0 in range(0, nC * L, L):
+        xk, bk = x_dt[:, c0:c0 + L], bf[:, c0:c0 + L]
+        ck, lk = cf[:, c0:c0 + L], loga[:, c0:c0 + L]
+        cum = torch.cumsum(lk, dim=1)             # (B,L,H) log decay to t
+        total = cum[:, -1]                        # (B,H)
+        # intra-chunk: G[t,s] = exp(cum_t - cum_s) * (C_t . B_s), s <= t
+        gmat = cum[:, :, None, :] - cum[:, None, :, :]         # (B,L,L,H)
+        gmat = gmat.masked_fill(~tri[None, :, :, None], float("-inf"))
+        cb = torch.einsum("blhn,bshn->blsh", ck, bk)
+        y_intra = torch.einsum("blsh,bshp->blhp", torch.exp(gmat) * cb, xk)
+        # inter-chunk: contribution of the carried state
+        y_inter = torch.einsum("blhn,bhnp->blhp",
+                               ck * torch.exp(cum)[..., None], state)
+        # S' = exp(total) S + sum_s exp(total - cum_s) B_s x_s
+        decay_s = torch.exp(total[:, None, :] - cum)            # (B,L,H)
+        state = (torch.exp(total)[..., None, None] * state
+                 + torch.einsum("bshn,bshp->bhnp",
+                                bk * decay_s[..., None], xk))
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1)[:, :S], state
+
+
+def mamba_fwd(p: Params, x: torch.Tensor, dims: MambaDims,
+              conv_state: Optional[torch.Tensor] = None,
+              ssm_state: Optional[torch.Tensor] = None):
+    """Mamba block forward.
+
+    Whole sequence (states None, or S > 1): the chunked scan, from
+    ``ssm_state`` where given.  Decode (S == 1 with states): one step
+    of the recurrence.  conv_state: (B, d_conv - 1, d_inner);
+    ssm_state: (B, H, N, P) fp32.  Returns (out (B, S, D), (conv_state
+    bf16, ssm_state fp32))."""
+    B, S, _ = x.shape
+    di, H, P, N = dims.d_inner, dims.n_heads, dims.head_dim, dims.d_state
+    xs, z, Bm, Cm, dt = _mamba_split(p, x, dims)
+
+    # causal depthwise conv along the sequence
+    K = dims.d_conv
+    if conv_state is None:
+        pad = torch.zeros((B, K - 1, di), dtype=xs.dtype, device=xs.device)
+    else:
+        pad = conv_state.to(xs.dtype)
+    xpad = torch.cat([pad, xs], dim=1)                       # (B,S+K-1,di)
+    conv = sum(xpad[:, i:i + S, :] * p["conv_w"][i] for i in range(K))
+    conv = F.silu(conv + p["conv_b"])
+    new_conv_state = xpad[:, -(K - 1):, :] if K > 1 else pad
+
+    xh = conv.reshape(B, S, H, P)
+    Bm = Bm.reshape(B, S, H, N)
+    Cm = Cm.reshape(B, S, H, N)
+    dtf = F.softplus(dt.float() + p["dt_bias"])
+    A = torch.exp(p["A_log"])
+
+    if S == 1 and ssm_state is not None:
+        a = torch.exp(-dtf[:, 0] * A[None, :])                # (B,H)
+        bx = torch.einsum("bhn,bhp->bhnp", Bm[:, 0].float(),
+                          xh[:, 0].float() * dtf[:, 0, :, None])
+        state = a[..., None, None] * ssm_state + bx
+        y = torch.einsum("bhn,bhnp->bhp", Cm[:, 0].float(), state)[:, None]
+    else:
+        y, state = _ssd_chunk_scan(xh, dtf, A, Bm, Cm, dims,
+                                   init_state=ssm_state)
+    y = y + xh.float() * p["D"][None, None, :, None]
+    y = y.reshape(B, S, di).to(x.dtype)
+    y = rms_norm(p["norm"], y) * F.silu(z)
+    return mm(y, p["w_out"]), (new_conv_state.to(torch.bfloat16), state)
+
+
+# ====================================================================== #
+# RWKV6 ("Finch"): data-dependent decay linear attention                  #
+# ====================================================================== #
+@dataclasses.dataclass(frozen=True)
+class RwkvDims:
+    d_model: int
+    n_heads: int
+    head_dim: int
+    d_ff: int
+    chunk: int = 64
+
+
+def rwkv_dims(d_model: int, d_ff: int, head_dim: int = 64,
+              chunk: int = 64) -> RwkvDims:
+    return RwkvDims(d_model, d_model // head_dim, head_dim, d_ff, chunk)
+
+
+def init_rwkv_tmix(dims: RwkvDims, g: torch.Generator, device,
+                   units: int = 0) -> Params:
+    """The reference's ``init_rwkv_tmix`` layout and scales."""
+    D, H, P = dims.d_model, dims.n_heads, dims.head_dim
+    s = 1.0 / math.sqrt(D)
+    lora = max(32, D // 64)
+    p = {f"mix_{c}": _full((D,), 0.5, device, units) for c in "rkvwg"}
+    for name in ("wr", "wk", "wv", "wg", "wo"):
+        p[name] = randn((D, D), s, g, device, units)
+    p.update(
+        # data-dependent decay LoRA: w_t = exp(-exp(w0 + tanh(x A) B))
+        w0=_full((D,), -2.0, device, units, torch.float32),
+        wA=randn((D, lora), s, g, device, units),
+        wB=randn((lora, D), 0.01, g, device, units),
+        u=randn((H, P), 0.1, g, device, units, torch.float32),
+        ln_x={"scale": _full((D,), 1.0, device, units, torch.float32),
+              "bias": _full((D,), 0.0, device, units, torch.float32)})
+    return p
+
+
+def _token_shift(x: torch.Tensor, shift_state: Optional[torch.Tensor]):
+    """Previous-token features of (B, S, D) ``x`` (``shift_state`` before
+    the first), and the last token, carried for decode."""
+    S = x.shape[1]
+    if shift_state is None:
+        prev = F.pad(x, (0, 0, 1, 0))[:, :S]
+    elif S > 1:
+        prev = torch.cat([shift_state[:, None, :], x[:, :S - 1]], dim=1)
+    else:
+        prev = shift_state[:, None, :]
+    return prev, x[:, -1, :]
+
+
+def rwkv_tmix_fwd(p: Params, x: torch.Tensor, dims: RwkvDims,
+                  wkv_state: Optional[torch.Tensor] = None,
+                  shift_state: Optional[torch.Tensor] = None):
+    """RWKV6 time-mix.  wkv_state: (B, H, P, P) fp32; shift_state:
+    (B, D).  Returns (out, (wkv_state, shift_state bf16))."""
+    B, S, D = x.shape
+    H, P = dims.n_heads, dims.head_dim
+    prev, last = _token_shift(x, shift_state)
+
+    def mix(m):
+        return x * p[m] + prev * (1.0 - p[m])
+
+    r = mm(mix("mix_r"), p["wr"]).reshape(B, S, H, P)
+    k = mm(mix("mix_k"), p["wk"]).reshape(B, S, H, P)
+    v = mm(mix("mix_v"), p["wv"]).reshape(B, S, H, P)
+    g = F.silu(mm(mix("mix_g"), p["wg"]))
+    # data-dependent decay (per channel): logw in (-inf, 0)
+    wx = mm(torch.tanh(mm(mix("mix_w"), p["wA"])), p["wB"])
+    logw = -torch.exp(p["w0"] + wx.float()).reshape(B, S, H, P)
+
+    if wkv_state is None:
+        wkv_state = torch.zeros((B, H, P, P), device=x.device)
+    if S == 1:
+        rf, kf, vf = r[:, 0].float(), k[:, 0].float(), v[:, 0].float()
+        kv = torch.einsum("bhp,bhq->bhpq", kf, vf)
+        y = torch.einsum("bhp,bhpq->bhq", rf,
+                         wkv_state + p["u"][None, :, :, None] * kv)
+        state = wkv_state * torch.exp(logw[:, 0])[..., None] + kv
+        out = y.reshape(B, 1, D)
+    else:
+        out, state = _rwkv_chunk_scan(r, k, v, logw, p["u"], dims,
+                                      wkv_state)
+        out = out.reshape(B, S, D)
+    out = layer_norm(p["ln_x"], out.to(x.dtype)) * g
+    return mm(out, p["wo"]), (state, last.to(torch.bfloat16))
+
+
+def _rwkv_chunk_scan(r, k, v, logw, u, dims: RwkvDims, init_state):
+    """Chunked RWKV6 recurrence, the reference's formula step for step.
+
+    State S_t (P_k x P_v per head): S_t = diag(w_t) S_{t-1} + k_t v_t^T;
+    y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T).  Within a chunk, pairwise
+    decays through r_t exp(cum_{t-1}) and k_s exp(-cum_s) under a strict
+    lower triangle, plus the current-token bonus; across chunks, the
+    carried state.  A ragged last chunk is zero-padded (logw = 0 is the
+    identity decay; k = v = 0 adds nothing).  fp32 throughout."""
+    B, S, H, P = r.shape
+    L = min(dims.chunk, S)
+    nC = -(-S // L)
+    pad = nC * L - S
+    if pad:
+        r, k, v, logw = (F.pad(a, (0, 0, 0, 0, 0, pad))
+                         for a in (r, k, v, logw))
+    rf, kf, vf, wf = r.float(), k.float(), v.float(), logw
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device),
+                     diagonal=-1)                        # strict: s < t
+    state = init_state
+    ys = []
+    for c0 in range(0, nC * L, L):
+        rk, kk = rf[:, c0:c0 + L], kf[:, c0:c0 + L]
+        vk, wk = vf[:, c0:c0 + L], wf[:, c0:c0 + L]
+        cum = torch.cumsum(wk, dim=1)         # decay from chunk start to t
+        r_dec = rk * torch.exp(cum - wk)      # r_t exp(cum_{t-1})
+        k_dec = kk * torch.exp(-cum)          # k_s exp(-cum_s)
+        att = torch.einsum("blhp,bshp->blsh", r_dec, k_dec) \
+            * tri[None, :, :, None]
+        y_intra = torch.einsum("blsh,bshq->blhq", att, vk)
+        # current-token bonus: r_t . (u * k_t) v_t
+        bonus = torch.einsum("blhp,blhp->blh", rk, u[None, None] * kk)
+        y_inter = torch.einsum("blhp,bhpq->blhq", r_dec, state)
+        # S' = diag(exp(cum_L)) S + sum_s exp(cum_L - cum_s) k_s v_s^T
+        total = cum[:, -1]                                   # (B,H,P)
+        k_tail = kk * torch.exp(total[:, None] - cum)
+        state = state * torch.exp(total)[..., None] + torch.einsum(
+            "bshp,bshq->bhpq", k_tail, vk)
+        ys.append(y_intra + bonus[..., None] * vk + y_inter)
+    return torch.cat(ys, dim=1)[:, :S], state
+
+
+def init_rwkv_cmix(dims: RwkvDims, g: torch.Generator, device,
+                   units: int = 0) -> Params:
+    """The reference's ``init_rwkv_cmix`` layout and scales."""
+    D, Fd = dims.d_model, dims.d_ff
+    return {"mix_k": _full((D,), 0.5, device, units),
+            "wk": randn((D, Fd), 1.0 / math.sqrt(D), g, device, units),
+            "wv": randn((Fd, D), 1.0 / math.sqrt(Fd), g, device, units)}
+
+
+def rwkv_cmix_fwd(p: Params, x: torch.Tensor,
+                  shift_state: Optional[torch.Tensor] = None):
+    """RWKV6 channel-mix.  Returns (out, shift_state bf16)."""
+    prev, last = _token_shift(x, shift_state)
+    xk = x * p["mix_k"] + prev * (1.0 - p["mix_k"])
+    h = torch.square(torch.relu(mm(xk, p["wk"])))
+    return mm(h, p["wv"]), last.to(torch.bfloat16)

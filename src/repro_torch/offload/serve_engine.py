@@ -11,7 +11,9 @@ The paper's inference use case with real tier placement:
     prefill; prefill runs the flash kernel, and each decode step
     restores the tier-resident KV into device memory, runs the step
     (the ``decode_attention`` kernel on the card) and writes the KV
-    back to its tiers (``serving.kv_pool.TieredKVCache``);
+    back to its tiers (``serving.kv_pool.TieredKVCache``).  Only
+    ``kv_k``/``kv_v`` are padded and tiered; the recurrent states and
+    the cross-attention K/V stay on the device;
   * ``max_batch_for_capacity`` sizes the batch to a capacity budget
     (LIO 3: more capacity, larger batch, more throughput).
 
@@ -91,7 +93,13 @@ class FlexGenEngine:
                  serve: Optional[ServeConfig] = None,
                  telemetry=None, ledger=None, tenant: str = "flexgen",
                  device: DeviceLike = None):
-        lm.check_supported(cfg)
+        if cfg.kv_cache_dtype == "int8":
+            raise ValueError(
+                f"{cfg.name}: the one-shot engine pads and tiers only "
+                "kv_k/kv_v; an int8 cache's kv_k_scale/kv_v_scale would "
+                "stay prompt-long and the first decode step could not "
+                "dequantize the padded cache (the reference engine fails "
+                "there too; ROADMAP section 3)")
         self.cfg = cfg
         self.serve_cfg = serve or ServeConfig()
         self.telemetry = telemetry
@@ -120,11 +128,11 @@ class FlexGenEngine:
 
     def run(self, prompts: np.ndarray,
             frames: Optional[np.ndarray] = None) -> ServeStats:
-        """prompts: (B, prompt_len) integer token ids."""
-        if frames is not None:
-            raise NotImplementedError(
-                "frames (encoder-decoder models) are not ported yet "
-                "(ROADMAP queue 1, item 8)")
+        """prompts: (B, prompt_len) integer token ids; frames: (B,
+        S_enc, d_model) stubbed frontend embeddings (the image tokens of
+        a vision model, the encoder's frames of Whisper), required by a
+        model with cross-attention (``lm.prefill`` raises without them)
+        and ignored by the others."""
         sc = self.serve_cfg
         B, P = prompts.shape
         params = self._materialize_params()
@@ -132,6 +140,8 @@ class FlexGenEngine:
         batch = {"tokens": torch.as_tensor(np.asarray(prompts),
                                            dtype=torch.int64,
                                            device=self.device)}
+        if frames is not None:
+            batch["frames"] = torch.as_tensor(frames, device=self.device)
         self._sync()            # the weights are in place before the clock
 
         t0 = time.perf_counter()

@@ -106,17 +106,17 @@ def check_paged_support(cfg: ModelConfig) -> None:
             raise ValueError(
                 f"{cfg.name}: paged serving supports attention-only "
                 f"patterns (got {spec.kind}"
-                f"{'+cross' if spec.cross_attn else ''})")
+                f"{'+cross' if spec.cross_attn else ''}); use the "
+                f"one-shot FlexGenEngine for hybrid architectures")
     if cfg.encoder_layers:
         raise ValueError(f"{cfg.name}: encoder-decoder serving is not "
-                         "paged")
+                         "paged; use FlexGenEngine")
     if cfg.kv_cache_dtype != "bf16":
         raise ValueError(f"{cfg.name}: paged pool stores bf16 KV "
                          f"(got {cfg.kv_cache_dtype})")
     if cfg.pos_emb not in ("rope", "learned", "none"):
         raise ValueError(f"{cfg.name}: unsupported pos_emb "
                          f"{cfg.pos_emb!r} for paged decode")
-    lm.check_supported(cfg)
 
 
 # ---------------------------------------------------------------------- #

@@ -1,10 +1,11 @@
 """The port's one-shot FlexGen serving path against the JAX reference on
 the CPU: ``dense_attention``, the decode step and its cache,
-decode-vs-prefill consistency on every config the port runs,
-``TieredKVCache``, the placement search and batch sizing,
-``FlexGenEngine`` tokens and telemetry, and the serve CLI's one-shot
-default.  Inputs are numpy draws from a seed; the reference's weights
-cross bit-exactly through ``params_from_numpy``."""
+decode-vs-prefill consistency on every config the port runs (frames for
+the vision and Whisper models; the recurrent families' caches hold no
+``kv_k``), ``TieredKVCache``, the placement search and batch sizing,
+``FlexGenEngine`` tokens (with frames, too) and telemetry, and the serve
+CLI's one-shot default.  Inputs are numpy draws from a seed; the
+reference's weights cross bit-exactly through ``params_from_numpy``."""
 import dataclasses
 import functools
 import os
@@ -17,11 +18,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from _torch_parity import (assert_close, assert_same, BF16,  # noqa: E402
-                           FP32, normal, to_numpy, to_torch, tree_to_torch)
+                           FP32, normal, reference_runner, smoke_model,
+                           to_numpy, to_torch)
 
 from repro.configs import get_smoke_config as jsmoke  # noqa: E402
 from repro.core import tpu_v5e_tiers  # noqa: E402
@@ -46,27 +47,37 @@ ROOT = Path(__file__).resolve().parents[1]
 
 @functools.lru_cache(maxsize=None)
 def _model(arch):
-    """(reference config, reference params, port config, port params)
-    of ``arch``'s smoke variant; the port's params are the reference's,
-    bit for bit."""
-    jcfg = jsmoke(arch)
-    jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
-    return jcfg, jparams, get_smoke_config(arch), tree_to_torch(jparams)
+    """``_torch_parity.smoke_model``: the reference's smoke config and
+    params (the vision model's tanh gates drawn, so that its cross
+    layers show) and the port's, bit for bit."""
+    return smoke_model(arch)
+
+
+def _frames(cfg, B, seed=2):
+    """Stubbed frontend embeddings (B, n_frontend_tokens, d_model) of a
+    model that attends over them; None for the others."""
+    if not cfg.n_frontend_tokens:
+        return None
+    return normal(np.random.RandomState(seed),
+                  (B, cfg.n_frontend_tokens, cfg.d_model))
 
 
 def _pad(cache, extra):
+    """The reference test's ``_pad_kv``: pad ``kv_k``/``kv_v``, where
+    the cache has them, along positions."""
     out = dict(cache)
     for k in ("kv_k", "kv_v"):
-        pads = [(0, 0)] * out[k].ndim
-        pads[3] = (0, extra)
-        out[k] = jnp.pad(out[k], pads)
+        if k in out:
+            pads = [(0, 0)] * out[k].ndim
+            pads[3] = (0, extra)
+            out[k] = jnp.pad(out[k], pads)
     return out
 
 
 def _port_cache(jcache):
-    """The reference's decode cache as the port's (bf16 bit-exact)."""
-    return {"kv_k": to_torch(jcache["kv_k"]),
-            "kv_v": to_torch(jcache["kv_v"]), "index": int(jcache["index"])}
+    """The reference's decode cache as the port's (bit-exact)."""
+    return {k: int(v) if k == "index" else to_torch(v)
+            for k, v in jcache.items()}
 
 
 # ===================================================================== #
@@ -112,39 +123,53 @@ def test_plain_decode_attention_matches_reference_dense(kv_len):
 # ===================================================================== #
 @pytest.mark.parametrize("S", [1, 3])
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_decode_step_matches_reference(arch, S):
+def test_decode_step_matches_reference(arch, S, monkeypatch):
     """One decode step of S tokens from the same cache (the reference's
     prefill cache, padded), through the serve step builders: logits
-    and the written cache."""
+    and every leaf of the written cache.  The reference runs compiled,
+    except on the ``_torch_parity.ROUNDING_SENSITIVE`` families
+    (``reference_runner``)."""
     jcfg, jparams, cfg, params = _model(arch)
+    run = reference_runner(arch, monkeypatch)
     rs = np.random.RandomState(3)
     prompt = rs.randint(0, jcfg.vocab, (2, 12)).astype(np.int32)
     nxt = rs.randint(0, jcfg.vocab, (2, S)).astype(np.int32)
-    _, jcache = jlm.prefill(jparams, jcfg, jnp.asarray(prompt))
+    frames = _frames(cfg, 2)
+    _, jcache = run(jlm.prefill, jparams, jcfg, jnp.asarray(prompt),
+                    None if frames is None else jnp.asarray(frames))
     jcache = _pad(jcache, 6)
     cache = _port_cache(jcache)
-    want, jnew = jlm.decode_step(jparams, jcfg, jcache, jnp.asarray(nxt))
+    want, jnew = run(jlm.decode_step, jparams, jcfg, jcache,
+                     jnp.asarray(nxt))
     got, new = steps.make_serve_step(cfg)(params, cache,
                                           torch.from_numpy(nxt))
     assert got.dtype == torch.float32 and got.shape == (2, jcfg.vocab)
     assert_close(got, want, BF16)
     assert new["index"] == int(jnew["index"]) == 12 + S
-    for k in ("kv_k", "kv_v"):
-        assert_close(new[k], jnew[k], BF16)
+    assert set(new) == set(jnew)
+    for k in jnew:
+        if k != "index":
+            assert_close(new[k], jnew[k], BF16)
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "bert-large-offload"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "bert-large-offload",
+                                  "llama-3.2-vision-11b",
+                                  "jamba-1.5-large-398b",
+                                  "whisper-large-v3", "rwkv6-7b"])
 def test_make_decode_cache_matches_reference(arch):
+    """Every key of the zero cache (K/V, conv/ssm, wkv/shifts, cross
+    K/V over ``enc_len`` positions): shapes and dtypes."""
     jcfg, _, cfg, _ = _model(arch)
-    want = jlm.make_decode_cache(jcfg, 3, 20)
-    got = lm.make_decode_cache(cfg, 3, 20, device="cpu")
+    enc = jcfg.n_frontend_tokens
+    want = jlm.make_decode_cache(jcfg, 3, 20, enc_len=enc)
+    got = lm.make_decode_cache(cfg, 3, 20, enc_len=enc, device="cpu")
     assert set(got) == set(want)
     assert got["index"] == int(want["index"]) == 0
-    for k in ("kv_k", "kv_v"):
-        assert tuple(got[k].shape) == want[k].shape
-        assert got[k].dtype == torch.bfloat16 and want[k].dtype == \
-            jnp.bfloat16
-        assert not got[k].any()
+    for k, w in want.items():
+        if k != "index":
+            assert tuple(got[k].shape) == w.shape, k
+            assert str(got[k].dtype).endswith(str(w.dtype)), k
+            assert not got[k].any()
 
 
 def test_decode_step_from_a_fresh_cache():
@@ -180,15 +205,17 @@ def test_decode_matches_prefill(arch):
     B, S = 2, 32
     toks = torch.from_numpy(np.random.RandomState(1).randint(
         0, cfg.vocab, (B, S)))
-    logits_p, cache = lm.prefill(params, cfg, toks)
+    frames = _frames(cfg, B)
+    logits_p, cache = lm.prefill(params, cfg, toks, frames)
     cache = dict(cache, **{k: torch.nn.functional.pad(
-        cache[k], (0, 0, 0, 0, 0, 8)) for k in ("kv_k", "kv_v")})
+        cache[k], (0, 0, 0, 0, 0, 8)) for k in ("kv_k", "kv_v")
+        if k in cache})
     seq = toks
     for step in range(3):
         nxt = torch.argmax(logits_p, -1)[:, None]
         logits_d, cache = lm.decode_step(params, cfg, cache, nxt)
         seq = torch.cat([seq, nxt], dim=1)
-        logits_full, _ = lm.prefill(params, cfg, seq)
+        logits_full, _ = lm.prefill(params, cfg, seq, frames)
         a, b = to_numpy(logits_d), to_numpy(logits_full)
         rel = np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-9)
         assert rel < 2e-2, f"{arch} step {step}: rel err {rel}"
@@ -210,11 +237,17 @@ def test_learned_positions_offset_by_index():
 
 
 def test_int8_kv_names_its_roadmap_item():
+    """The model runs an int8 KV cache (tests/test_torch_families.py);
+    the one-shot engine, which pads and tiers only kv_k/kv_v, refuses it
+    and names the ROADMAP note on both packages."""
     cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
                               kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError,
-                       match=r"int8 KV.*ROADMAP queue 1, item 8"):
-        lm.make_decode_cache(cfg, 1, 4, device="cpu")
+    cache = lm.make_decode_cache(cfg, 1, 4, device="cpu")
+    assert cache["kv_k"].dtype == torch.int8
+    assert cache["kv_k_scale"].shape == (cfg.n_units, 1, 1, 4, cfg.n_kv)
+    with pytest.raises(ValueError, match=r"kv_k_scale.*ROADMAP section 3"):
+        serve_engine.FlexGenEngine(
+            cfg, lm.init_params(cfg, seed=0, device="cpu"), device="cpu")
 
 
 # ===================================================================== #
@@ -392,10 +425,73 @@ def test_flexgen_telemetry_matches_reference(flexgen_reference):
 
 
 def test_flexgen_rejects_frames():
-    _, _, cfg, params = _model("stablelm-1.6b")
+    """A model with cross-attention needs frames: without them, or with
+    frames of another width, the engine raises a ValueError that names
+    them (the reference fails on ``None.shape``)."""
+    _, _, cfg, params = _model("whisper-large-v3")
     eng = serve_engine.FlexGenEngine(cfg, params, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.run(np.zeros((1, 4), np.int32), frames=np.zeros((1, 2, 64)))
+    with pytest.raises(ValueError, match=r"cross_inputs \(frames\)"):
+        eng.run(np.zeros((1, 4), np.int32))
+    with pytest.raises(ValueError, match="expected"):
+        eng.run(np.zeros((1, 4), np.int32), frames=np.zeros((1, 16, 8)))
+
+
+# the vision and Whisper smoke models, served one-shot with frames;
+# prompt seeds whose reference greedy loop keeps every top-2 margin at
+# MIN_MARGIN or more
+FRAMES_SEEDS = {"llama-3.2-vision-11b": 25, "whisper-large-v3": 0}
+
+
+@pytest.mark.parametrize("arch", sorted(FRAMES_SEEDS))
+def test_flexgen_with_frames_matches_reference_engine(arch):
+    jcfg, jparams, cfg, params = _model(arch)
+    rs = np.random.RandomState(FRAMES_SEEDS[arch])
+    prompts = rs.randint(0, jcfg.vocab, (B, P)).astype(np.int32)
+    frames = _frames(cfg, B, seed=FRAMES_SEEDS[arch])
+    sc = dict(max_new_tokens=NEW, prompt_len=P,
+              kv_shares=[("device", 0.5), ("pinned_host", 0.5)])
+    jeng = jserve.FlexGenEngine(jcfg, jparams, jserve.ServeConfig(**sc))
+    margins = []
+    step = jeng.decode_step
+
+    def recording_step(*a):
+        logits, cache = step(*a)
+        top = np.sort(np.asarray(logits, np.float32), -1)
+        margins.append(float((top[:, -1] - top[:, -2]).min()))
+        return logits, cache
+    jeng.decode_step = recording_step
+    jeng.run(prompts, frames)
+    jeng.decode_step = step
+    want = _reference_tokens(jeng, jcfg, jparams, prompts, frames)
+    assert min(margins[:-1] + [want[1]]) >= MIN_MARGIN
+    eng = serve_engine.FlexGenEngine(cfg, params,
+                                     serve_engine.ServeConfig(**sc),
+                                     device="cpu")
+    eng.run(prompts, frames)
+    np.testing.assert_array_equal(eng.tokens.numpy(), want[0])
+    # the recurrent and cross caches stay on the device; kv_k/kv_v are
+    # tiered as the reference's are
+    for kind in ("device", "pinned_host"):
+        assert eng.kv_home.bytes_on(kind) == jeng.kv_home.bytes_on(kind)
+    assert sorted(eng.kv_home._tiered) == ["kv_k", "kv_v"]
+
+
+def _reference_tokens(jeng, jcfg, jparams, prompts, frames):
+    """The reference engine's tokens, which it does not keep: its
+    greedy loop replayed (tokens (B, NEW), the first step's margin)."""
+    logits, cache = jeng.prefill_step(
+        jparams, {"tokens": jnp.asarray(prompts),
+                  "frames": jnp.asarray(frames)})
+    cache = _pad(cache, NEW)
+    top = np.sort(np.asarray(logits, np.float32), -1)
+    first = float((top[:, -1] - top[:, -2]).min())
+    toks = []
+    for i in range(NEW):
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+        toks.append(np.asarray(tok))
+        if i < NEW - 1:
+            logits, cache = jeng.decode_step(jparams, cache, tok)
+    return np.concatenate(toks, 1), first
 
 
 # ===================================================================== #
@@ -433,6 +529,36 @@ def test_cli_defaults_to_oneshot():
     m = LINE.fullmatch(res.stdout.strip())
     assert m is not None, res.stdout
     assert m.groups() == ("4", "16", "0", "0")
+
+
+def test_cli_oneshot_serves_rwkv(capsys):
+    """``--arch rwkv6-7b --smoke --scheduler oneshot``: the attention-free
+    model serves one-shot (its O(1) states stay on the device) and
+    prints the reference CLI's line."""
+    from repro.launch import serve as jserve_cli
+    from repro_torch.launch import serve
+    argv = ["--arch", "rwkv6-7b", "--smoke", "--scheduler", "oneshot",
+            "--batch", "2", "--prompt-len", "8", "--new-tokens", "3",
+            "--kv-host-frac", "0.5"]
+    serve.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.strip().splitlines()
+    jserve_cli.main(argv)
+    want = capsys.readouterr().out.strip().splitlines()
+    assert len(got) == len(want) == 1
+    assert LINE.fullmatch(got[0]).groups() == \
+        LINE.fullmatch(want[0]).groups() == ("2", "3", "0", "50")
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "whisper-large-v3"])
+def test_cli_oneshot_without_frames_raises(arch):
+    """The CLI supplies no frames (as the reference's, which has no
+    flag for them); the models that need them raise a ValueError."""
+    from repro_torch.launch import serve
+    with pytest.raises(ValueError, match="frames"):
+        serve.main(["--arch", arch, "--smoke", "--batch", "1",
+                    "--prompt-len", "4", "--new-tokens", "2",
+                    "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flag", [["--fused-gather"],

@@ -44,7 +44,12 @@ def moe_smoke():
     return _smoke("qwen3-moe-30b-a3b")
 
 
-@pytest.mark.parametrize("arch", ARCHS + COPIED)
+# the other families' configs (tests/test_torch_families.py)
+FAMILIES = ("llama-3.2-vision-11b", "jamba-1.5-large-398b",
+            "whisper-large-v3", "rwkv6-7b")
+
+
+@pytest.mark.parametrize("arch", ARCHS + COPIED + FAMILIES)
 def test_config_copy_matches_reference(arch):
     from repro.configs import get_config
     from repro_torch.configs import get_config as tget
@@ -198,7 +203,6 @@ def test_copied_config_prefill_matches_reference(arch):
     jparams = jax.tree_util.tree_map_with_path(
         draw_bias, jlm.init_params(jax.random.PRNGKey(0), jcfg))
     cfg = get_smoke_config(arch)
-    lm.check_supported(cfg)
     # at S 21 opt-66b-serve's reference top-2 logits of row 0 tie
     # exactly, so the argmax check would compare rounding
     S = 24 if arch == "opt-66b-serve" else 21
@@ -206,10 +210,20 @@ def test_copied_config_prefill_matches_reference(arch):
 
 
 def test_unported_families_raise():
+    """The paged (continuous) engine serves attention-only patterns: on
+    each hybrid family it raises the reference's ValueError, which points
+    at the one-shot FlexGenEngine; the port's models themselves run all
+    of them (tests/test_torch_families.py)."""
     from repro.configs import get_smoke_config as jget
-    cfg = jget("rwkv6-7b")
-    with pytest.raises(NotImplementedError, match="rwkv"):
-        lm.check_supported(cfg)
+    from repro.serving.engine import check_paged_support as jcheck
+    from repro_torch.serving.engine import check_paged_support
+    for arch in ("llama-3.2-vision-11b", "jamba-1.5-large-398b",
+                 "whisper-large-v3", "rwkv6-7b"):
+        with pytest.raises(ValueError) as want:
+            jcheck(jget(arch))
+        with pytest.raises(ValueError, match="FlexGenEngine") as got:
+            check_paged_support(get_smoke_config(arch))
+        assert str(got.value) == str(want.value)
 
 
 def test_moe_init_scales_and_dtypes(moe_smoke):
