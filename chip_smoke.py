@@ -76,6 +76,23 @@ Phases, in order; any failure exits non-zero:
    once, flush at least one move-scheduler round and blame at least one
    excursion.  The calibrator's slow-tier rate is printed beside the
    topology's probe;
+4c'. serve llama3-8b through the serve CLI's multi-host cluster plane
+   (``launch.serve.parse_args`` of ``--scheduler continuous --replicas 2
+   --router headroom-distance`` and the same prompts, pool and policy,
+   then ``run_cluster`` over the weights on the card): two logical
+   replicas on the card, each its own paged pool over one namespaced
+   ledger, staged.  Both replicas must get sessions, every session must
+   finish with its tokens equal to phase 4's staged tokens up to near
+   ties, building the plane must add less than ``CLUSTER_MEMORY_SHARE``
+   of the weights' bytes (both replicas' ``embed`` the card's one
+   tensor), the bytes by replica namespace must sum to the ``*/*``
+   aggregate after every iteration, only ``decode_attention`` (a
+   multiple of 32 layers) and ``flash_attention`` may launch, ``--replicas
+   2 --fused-gather`` must be refused and ``launch.train --mesh 1x2``
+   must raise naming the ROADMAP item that splits work over several
+   devices.  Routed counts, each replica's tok/s, their sum, tokens per
+   wall second, the worst p95 latency and the bytes are printed; the
+   phase's launches count in the ``@KV8`` rows;
 4d. serve llama3-8b one-shot (``offload.FlexGenEngine``, the serve
    CLI's default path) on the same weights: 8 prompts of 512 tokens
    (seed 0), 32 new tokens, under three placements: all on the device,
@@ -197,6 +214,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import re
@@ -280,6 +298,11 @@ CKPT_ARCH = "bert-large-offload"
 # restore fault of checkpoint_phase must read above it
 CKPT_RTOL = 1e-6
 EXPERT_ARCH, EXPERT_FAST_FRACTION = "qwen3-moe-30b-a3b", 0.25
+# the cluster phase: the serve CLI's multi-host plane, two logical
+# replicas on the one card over its staged path; building the plane may
+# add less than this share of the weights' bytes (no second copy)
+CLUSTER_ARCH, CLUSTER_REPLICAS = "llama3-8b", 2
+CLUSTER_MEMORY_SHARE = 0.1
 # the control-plane phase's p99 decode SLO, as a fraction of the p95
 # decode gap its path's non-adaptive phase measured in the same call:
 # below the gaps, so violations fire and the blame plane runs
@@ -1241,6 +1264,156 @@ def control_planes_phase(label: str, cfg, params, prompts,
             "slo_s": slo, "blame": blame, "preempted": preempted,
             "link_GBps": link.bw_GBps,
             "calibrated_GBps": (fitted0.peak_bw_GBps, fitted.peak_bw_GBps)}
+
+
+def cluster_phase(label: str, cfg, params, prompts, staged: dict) -> dict:
+    """The multi-host cluster plane through the serve CLI: its own
+    parser (``--scheduler continuous --replicas 2 --router
+    headroom-distance``, the continuous phases' prompts, pool and
+    policy) and ``run_cluster`` over the weights on the card.  Every
+    session must finish with ``NEW_TOKENS`` tokens, both replicas must
+    get sessions, each session's tokens must be ``staged``'s for its
+    prompt up to near ties, building the plane must copy no weights
+    (``CLUSTER_MEMORY_SHARE``; both replicas' ``embed`` one tensor),
+    the per-replica ledger bytes must sum to the ``*/*`` aggregate over
+    ``host0/serving`` and ``host1/serving``, and only the staged path's
+    kernels may launch.  ``--replicas 2 --fused-gather`` must be refused,
+    and the training launcher's ``--mesh 1x2`` on one card must raise
+    naming the ROADMAP item that splits work over several devices."""
+    import torch.utils._pytree as pytree
+    from repro_torch.cluster import plane as plane_mod
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import MULTI_DEVICE_ITEM
+    argv = ["--arch", cfg.name, "--scheduler", "continuous", "--replicas",
+            str(CLUSTER_REPLICAS), "--router", "headroom-distance",
+            "--num-requests", str(len(prompts)), "--prompt-len",
+            str(max(PROMPTS)), "--new-tokens", str(NEW_TOKENS),
+            "--block-tokens", str(BT), "--batch", str(B), "--policy",
+            "tiering08", "--device", "cuda"]
+    args = serve.parse_args(argv)
+    weights = sum(t.numel() * t.element_size()
+                  for t in pytree.tree_leaves(params))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    built, samples = {}, []
+    init = plane_mod.ClusterPlane.__init__
+
+    def measured_init(plane, *a, **kw):
+        init(plane, *a, **kw)
+        torch.cuda.synchronize()
+        built["bytes"] = torch.cuda.memory_allocated() - before
+        build.reset_launches()             # the run's launches only
+        # the namespaces' bytes on both kinds, after every iteration of
+        # either replica, while their blocks are live
+        for rep in plane.replicas.values():
+            metrics = rep.engine.metrics
+            step = metrics.on_iteration
+
+            def sampled(*a, _step=step, **kw):
+                _step(*a, **kw)
+                samples.append({kind: plane.namespace_conservation(kind)
+                                for kind in ("device", "pinned_host")})
+            metrics.on_iteration = sampled
+
+    with mock.patch.object(plane_mod.ClusterPlane, "__init__",
+                           measured_init):
+        t0 = time.perf_counter()
+        plane = serve.run_cluster(args, cfg, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    after = torch.cuda.memory_allocated() - before
+    reps = list(plane.replicas.values())
+    if built["bytes"] >= CLUSTER_MEMORY_SHARE * weights:
+        fail(f"{label}: building the plane allocated {built['bytes']} B, "
+             f"not under {CLUSTER_MEMORY_SHARE} of the {weights} B of "
+             "weights")
+    ptrs = {r.engine.params["embed"].data_ptr() for r in reps}
+    if len(ptrs) != 1 or ptrs != {params["embed"].data_ptr()}:
+        fail(f"{label}: the replicas' embed are not the card's one tensor")
+    routed = plane.router.routed_counts()
+    if sum(routed.values()) != len(prompts) or not all(routed.values()):
+        fail(f"{label}: routed {routed}: not all {len(prompts)} sessions, "
+             "or a replica without one")
+    tokens, margins = {}, {}
+    for rep in reps:
+        for req in rep.engine.sched.finished:
+            i = next(j for j, p in enumerate(prompts)
+                     if np.array_equal(p, req.prompt))
+            tokens[i] = list(req.out_tokens)
+            margins[i] = rep.engine.margins[req.rid]
+    if sorted(tokens) != list(range(len(prompts))) or any(
+            len(t) != NEW_TOKENS for t in tokens.values()):
+        fail(f"{label}: not every session finished with {NEW_TOKENS} "
+             "tokens")
+    ties = agree(f"{label} vs single engine", staged["tokens"], tokens,
+                 margins)
+    tenants = sorted(str(t) for t in plane.ledger.tenants)
+    if tenants != [f"host{i}/serving" for i in range(CLUSTER_REPLICAS)]:
+        fail(f"{label}: ledger tenants {tenants}")
+    for sample in samples + [{"device": plane.namespace_conservation()}]:
+        for kind, cons in sample.items():
+            if sum(v for h, v in cons.items() if h != "total") \
+                    != cons["total"]:
+                fail(f"{label}: {kind} bytes by replica {cons} do not sum "
+                     "to the */* aggregate")
+    peak = max(samples, key=lambda c: c["device"]["total"]
+               + c["pinned_host"]["total"])
+    for name in path_kernels(cfg, False):
+        if launches[name] <= 0:
+            fail(f"{label}: kernel {name} was never launched")
+    n_layers = cfg.n_units * len(cfg.pattern)
+    if launches["decode_attention"] % n_layers:
+        fail(f"{label}: {launches['decode_attention']} decode launches is "
+             f"not a multiple of {n_layers} layers")
+    off = {k: launches[k] for k in ("paged_decode_attention",
+                                    "fused_expert_ffn") if launches[k]}
+    if off:
+        fail(f"{label}: kernels off the staged path launched: {off}")
+    refused = ""
+    try:
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            serve.parse_args(argv + ["--fused-gather"])
+    except SystemExit:
+        refused = err.getvalue().strip().splitlines()[-1]
+    if not refused:
+        fail(f"{label}: --replicas 2 --fused-gather was accepted")
+    try:
+        train.main(["--arch", cfg.name, "--steps", "1", "--mesh", "1x2"])
+        fail(f"{label}: train --mesh 1x2 ran on one card")
+    except ValueError as e:
+        if MULTI_DEVICE_ITEM not in str(e):
+            fail(f"{label}: train --mesh 1x2 raised without the ROADMAP "
+                 f"item: {e}")
+        mesh_error = str(e)
+    # each replica's run summary, as its engine published it
+    s = {h: {k: r.engine.registry.gauge(f"serving.summary.{k}").value
+             for k in ("throughput_tok_s", "p95_latency_s")}
+         for h, r in plane.replicas.items()}
+    agg_tok = sum(v["throughput_tok_s"] for v in s.values())
+    worst = max(v["p95_latency_s"] for v in s.values())
+    log(f"serve {label}: wall={wall:.2f} s routed={routed} "
+        + " ".join(f"{h}={v['throughput_tok_s']:.1f}" for h, v in s.items())
+        + f" tok/s, aggregate {agg_tok:.1f} tok/s (the replicas' rates "
+        f"summed; they ran in turn: "
+        f"{len(prompts) * NEW_TOKENS / wall:.1f} tok/s over the wall) "
+        f"worst_p95_latency={worst * 1e3:.1f} ms "
+        f"(single engine {staged['summary']['throughput_tok_s']:.1f} tok/s, "
+        f"{staged['wall_s']:.2f} s) built={built['bytes']} B "
+        f"after run={after} B of {weights} B weights, ledger conserved "
+        f"over {len(samples)} iterations (fullest: {peak}), "
+        f"launches={launches}")
+    log(f"{label}: --fused-gather refused ({refused}); train --mesh 1x2: "
+        f"{mesh_error}")
+    return {"wall_s": wall, "launches": launches, "routed": routed,
+            "throughput_tok_s": {h: v["throughput_tok_s"]
+                                 for h, v in s.items()},
+            "aggregate_tok_s": agg_tok, "worst_p95_latency_s": worst,
+            "built_bytes": built["bytes"], "run_bytes": after,
+            "weights_bytes": weights, "ledger_fullest": peak,
+            "ledger_samples": len(samples), "ties": ties,
+            "refused": refused, "mesh_error": mesh_error}
 
 
 def experts_phase(label: str, cfg, params, prompts, plain: dict) -> dict:
@@ -2210,6 +2383,13 @@ def serve_model(arch: str, profile: bool) -> dict:
         out["control planes"] = control_planes_phase(
             f"{arch} staged, control planes", cfg, params, prompts,
             out["staged"])
+    if arch == CLUSTER_ARCH:
+        t0 = time.perf_counter()
+        out["cluster"] = cluster_phase(
+            f"{arch} cluster x{CLUSTER_REPLICAS}", cfg, params, prompts,
+            out["staged"])
+        log(f"cluster {arch}: {time.perf_counter() - t0:.1f} s, "
+            f"{memory()}")
     if arch == FLEXGEN_ARCH:
         t0 = time.perf_counter()
         flex = flexgen_phase(cfg, params)

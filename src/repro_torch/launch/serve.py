@@ -38,9 +38,15 @@ probes of this machine's memory kinds), interference-class QoS
         --fused-gather --adaptive --predictive --expert-policy predictive \
         --device cpu
 
-Weights are random, drawn from seed 0.  The multi-host cluster plane
-(``--replicas``, ``--router``) is not ported yet (ROADMAP queue 1,
-item 9).
+The multi-host cluster plane: ``--replicas`` engines, each its own
+paged pool, over one shared namespaced ledger, sessions placed by the
+``--router`` policy; on one card the replicas share its weights:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --smoke --scheduler continuous --replicas 2 \
+        --router headroom-distance --device cpu
+
+Weights are random, drawn from seed 0.
 """
 from __future__ import annotations
 
@@ -192,6 +198,64 @@ def run_continuous(args, cfg, params) -> None:
     _write_obs_artifacts(args, eng)
 
 
+def run_cluster(args, cfg, params):
+    """Multi-host plane: route the trace across ``--replicas`` engines.
+    Returns the plane, run."""
+    from ..cluster import ClusterPlane
+    from ..serving import ServingConfig
+
+    sv = ServingConfig.from_args(args)
+    plane = ClusterPlane(
+        cfg, params, serving=sv, n_replicas=args.replicas,
+        router_policy=args.router or "headroom-distance",
+        device=args.device)
+    for line in plane.testbed.describe():
+        print(line)
+    rs = np.random.RandomState(0)
+    lens = [args.prompt_len, max(args.prompt_len // 2, 4)]
+    for i in range(args.num_requests):
+        plen = lens[i % len(lens)]
+        plane.submit(rs.randint(0, cfg.vocab, (plen,)).astype(np.int32),
+                     args.new_tokens, arrival_s=i * args.arrival_gap_s)
+    t0 = time.perf_counter()
+    rep = plane.run()
+    wall = time.perf_counter() - t0
+    s = rep.summary
+    print(f"cluster: replicas={int(s['replicas'])} "
+          f"router={plane.router.policy} "
+          f"requests={int(s['requests'])} "
+          f"finished={int(s['finished'])} wall={wall:.2f} s")
+    print(f"aggregate: throughput={s['throughput_tok_s']:.1f} tok/s "
+          f"worst_p95_latency={s['worst_p95_latency_s']*1e3:.1f} ms "
+          f"preemptions={int(s['preemptions'])}")
+    for host, n in sorted(rep.routed.items()):
+        rsum = getattr(rep.per_replica.get(host), "summary", {})
+        print(f"  {host}: routed={n} "
+              f"throughput={rsum.get('throughput_tok_s', 0.0):.1f} tok/s "
+              f"fast_headroom={plane.replicas[host].fast_headroom_bytes()}"
+              f" B dist={plane.testbed.distance_ns('router', host):.0f} ns")
+    cons = plane.namespace_conservation()
+    total = cons.pop("total")
+    if sum(cons.values()) != total:
+        raise RuntimeError(f"namespace aggregation leaked: {cons} sum to "
+                           f"{sum(cons.values())}, not {total}")
+    print(f"ledger: tenants={sorted(str(t) for t in plane.ledger.tenants)}"
+          f" fast_bytes_by_replica={cons} (sum == replica/* aggregate)")
+    if args.trace_out:
+        events = [ev.to_dict() for ev in plane.merged_trace()]
+        with open(args.trace_out, "w") as fh:
+            for ev in events:
+                fh.write(json.dumps(ev, sort_keys=True) + "\n")
+        print(f"trace: wrote {len(events)} merged events -> "
+              f"{args.trace_out}")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as fh:
+            fh.write(plane.registry.to_prometheus_text())
+        print(f"metrics: wrote {len(plane.registry.names())} series "
+              f"(prometheus text) -> {args.metrics_out}")
+    return plane
+
+
 def _write_obs_artifacts(args, eng) -> None:
     """--trace-out / --metrics-out / --audit-out exports of a run."""
     if args.trace_out:
@@ -214,7 +278,9 @@ def _write_obs_artifacts(args, eng) -> None:
               f"{args.audit_out}")
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The serve CLI's arguments, every cross-field rule checked
+    (``serving.config.validate_args``; a violation exits with usage)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
@@ -314,12 +380,29 @@ def main(argv=None):
                          "hold its 1/(1-q) warmup")
     ap.add_argument("--slo-window", type=int, default=512,
                     help="rolling SLO window size in samples")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="multi-host serving plane: this many replica "
+                         "engines, one paged pool each, sharing one "
+                         "namespaced residency ledger (continuous only; "
+                         "on one card the replicas share its weights)")
+    from ..serving.config import ROUTER_POLICIES
+    ap.add_argument("--router", default=None,
+                    choices=list(ROUTER_POLICIES),
+                    help="session-placement policy for --replicas > 1 "
+                         "(default: headroom-distance: fast-tier "
+                         "headroom first, front-end distance as the "
+                         "tiebreak)")
     args = ap.parse_args(argv)
     from ..serving.config import ConfigError, validate_args
     try:
         validate_args(args)
     except ConfigError as e:
         ap.error(str(e))
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.topology:
         from ..topology import build_topology
         for line in build_topology(args.topology,
@@ -328,7 +411,9 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
     params = lm.init_params(cfg, seed=0, device=args.device)
-    if args.scheduler == "continuous":
+    if args.scheduler == "continuous" and args.replicas > 1:
+        run_cluster(args, cfg, params)
+    elif args.scheduler == "continuous":
         run_continuous(args, cfg, params)
     else:
         run_oneshot(args, cfg, params)

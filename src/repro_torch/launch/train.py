@@ -22,15 +22,17 @@ there too.  ``--ckpt-dir`` writes checkpoints in the reference's format
 
 The train step is ``launch.steps.make_train_step`` with the plain AdamW
 and the plain ``chunked_attention``, as the reference's is: this path
-launches no hand-written kernel.  The port runs on one device: a
-``--mesh`` of more than one device raises (ROADMAP queue 1, item 9).
+launches no hand-written kernel.  ``--mesh`` places the parameters as
+the reference does (``launch.mesh``, ``models.shardings.param_pspecs``,
+``to_named``): a mesh of one device runs as it is; a mesh of more
+devices than the machine has raises, and so does one whose specs would
+split a tensor over several devices (``launch.mesh.MULTI_DEVICE_ITEM``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
-import math
 import os
 import time
 from typing import Dict, Optional
@@ -44,7 +46,7 @@ from ..core.migration import MigrationExecutor
 from ..core.tiered_array import DeviceLike, resolve_device
 from ..core.tiers import GiB, MemoryTier
 from ..data.pipeline import DataConfig, DataIterator
-from ..models import lm
+from ..models import lm, psharding as PS, shardings as sh
 from ..obs import (BlameLedger, CostModelCalibrator, measure_transfer_probes,
                    MetricsRegistry, PredictionLedger, probed_kind_bases,
                    TierProbe, TraceRecorder)
@@ -55,23 +57,26 @@ from ..telemetry import (AccessSampler, AccessTrace, AdaptiveReplanner,
                          PhaseDetector, ReplanConfig, SamplerConfig)
 from ..topology import build_topology, Flow, TOPOLOGY_CHOICES
 from . import steps as steps_mod
+from .mesh import dp_axes, make_mesh, Mesh, MULTI_DEVICE_ITEM
 
 
-def parse_mesh(spec: str) -> Dict[str, int]:
-    """The ``--mesh`` spec as {axis: size}, the reference's axis names.
-    The port runs on one device, so only a mesh of one device (``1``,
-    ``1x1``, ``1x1x1``) is accepted."""
+def parse_mesh(spec: str, device: DeviceLike = None) -> Mesh:
+    """The ``--mesh`` spec as a mesh, the reference's axis names, over
+    ``device`` on the CPU and every CUDA device otherwise.  A mesh of
+    more devices than there are raises ``ValueError``, naming the
+    ROADMAP item that splits work over several devices."""
     dims = tuple(int(x) for x in spec.split("x"))
     axes = {1: ("model",), 2: ("data", "model"),
             3: ("pod", "data", "model")}.get(len(dims))
     if axes is None:
         raise ValueError(f"--mesh {spec!r}: give 1 to 3 axis sizes")
-    if math.prod(dims) != 1:
-        raise NotImplementedError(
-            f"--mesh {spec}: the port trains on one device; meshes of "
-            "more than one device are not ported yet (ROADMAP queue 1, "
-            "item 9)")
-    return dict(zip(axes, dims))
+    dev = resolve_device(device)
+    try:
+        return make_mesh(dims, axes,
+                         devices=[dev] if dev.type == "cpu" else None)
+    except ValueError as e:
+        raise ValueError(f"--mesh {spec}: {e} ({MULTI_DEVICE_ITEM})") \
+            from e
 
 
 def _capacities(device: DeviceLike) -> Dict[str, int]:
@@ -471,11 +476,18 @@ def run(args: argparse.Namespace) -> TrainRun:
     end."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
-    parse_mesh(args.mesh)
     dev = resolve_device(args.device)
+    mesh = parse_mesh(args.mesh, dev)
+    with PS.use_mesh(mesh, dp=dp_axes(mesh), tp="model"):
+        return _train(args, cfg, dev, mesh)
+
+
+def _train(args: argparse.Namespace, cfg, dev: torch.device,
+           mesh: Mesh) -> TrainRun:
     acfg = AdamConfig(lr=args.lr, compress_grads=args.compress_grads)
 
     params = lm.init_params(cfg, seed=0, device=dev)
+    params = sh.to_named(params, sh.param_pspecs(params, mesh), mesh)
     opt = init_state(params, acfg)
     step_fn = steps_mod.make_train_step(cfg, acfg)
 

@@ -1,0 +1,289 @@
+"""Partition-spec rules of the port: params / optimizer state / cache /
+inputs (counterpart of ``repro.models.shardings``).
+
+Layout (the reference's):
+  mesh axes: ("pod", "data", "model") multi-pod, ("data", "model") single.
+  * DP over pod+data for the batch;
+  * FSDP over "data" for parameter storage (all-gathered per scanned unit);
+  * TP over "model" for heads / d_ff / experts / vocab.
+
+Every rule is validated against divisibility: a dimension that does not
+divide by its assigned axis size is silently replicated instead (e.g.
+25 GPT-2 heads over 16-way TP), keeping all (arch x mesh) combinations
+valid.
+
+The rules read only shapes and the mesh's ``axis_names`` and
+``devices.shape``: they take a tree of tensors, fake tensors (built
+under ``torch._subclasses.fake_tensor.FakeTensorMode``, the counterpart
+of ``jax.eval_shape``) or anything with a ``shape``, so they run at
+production mesh shapes without the devices.  ``to_named`` places a
+tree on a mesh where no spec splits a tensor over more than one
+device, and raises naming ``launch.mesh.MULTI_DEVICE_ITEM`` where one
+would.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..core.tiered_array import to_kind
+from ..launch.mesh import MULTI_DEVICE_ITEM
+
+F = "__fsdp__"   # placeholder resolved to the fsdp axis
+T = "__tp__"     # placeholder resolved to the tp axis
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dimension: a mesh axis name, a tuple of
+    names, or None (replicated), as ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+# (parent, leaf-name) -> base spec (without the stacked-unit leading axis).
+# Fallback: replicate.
+_RULES: Dict[Tuple[str, str], Tuple] = {
+    ("*", "embed"): (T, F),
+    ("*", "lm_head"): (T, F),
+    ("*", "pos_emb"): (None, F),
+    # attention
+    ("attn", "wq"): (F, T), ("attn", "wk"): (F, T), ("attn", "wv"): (F, T),
+    ("attn", "wo"): (T, F),
+    ("attn", "bq"): (T,), ("attn", "bk"): (T,), ("attn", "bv"): (T,),
+    ("cross", "wq"): (F, T), ("cross", "wk"): (F, T),
+    ("cross", "wv"): (F, T), ("cross", "wo"): (T, F),
+    ("cross", "bq"): (T,), ("cross", "bk"): (T,), ("cross", "bv"): (T,),
+    ("xkv", "wk"): (F, T), ("xkv", "wv"): (F, T),
+    # dense MLP
+    ("mlp", "w_gate"): (F, T), ("mlp", "w_up"): (F, T),
+    ("mlp", "w_down"): (T, F),
+    # MoE (experts over TP = expert parallelism)
+    ("moe", "router"): (F, None),
+    ("moe", "w_gate"): (T, F, None), ("moe", "w_up"): (T, F, None),
+    ("moe", "w_down"): (T, None, F),
+    # mamba
+    ("mamba", "w_in"): (F, T), ("mamba", "w_out"): (T, F),
+    ("mamba", "conv_w"): (None, T), ("mamba", "conv_b"): (T,),
+    ("mamba", "A_log"): (T,), ("mamba", "D"): (T,),
+    ("mamba", "dt_bias"): (T,),
+    ("norm", "scale"): (T,),   # mamba-internal norm over d_inner
+    # rwkv time-mix
+    ("tmix", "wr"): (F, T), ("tmix", "wk"): (F, T), ("tmix", "wv"): (F, T),
+    ("tmix", "wg"): (F, T), ("tmix", "wo"): (T, F),
+    ("tmix", "wA"): (F, None), ("tmix", "wB"): (None, T),
+    ("tmix", "w0"): (T,), ("tmix", "u"): (T, None),
+    ("ln_x", "scale"): (T,), ("ln_x", "bias"): (T,),
+    # rwkv channel-mix
+    ("cmix", "wk"): (F, T), ("cmix", "wv"): (T, F),
+}
+
+
+def _axis_sizes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _is_leaf(x) -> bool:
+    return not isinstance(x, (dict, list, tuple)) or isinstance(
+        x, PartitionSpec)
+
+
+def _map_with_path(fn, tree, *rest, path=()):
+    """``fn(path, leaf, *rest_leaves)`` over a tree of dicts, lists and
+    tuples, keys as strings (list and tuple indices as digits), the
+    containers rebuilt (``jax.tree_util.tree_map_with_path``)."""
+    if _is_leaf(tree):
+        return fn(path, tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, tree[k], *(r[k] for r in rest),
+                                  path=path + (str(k),))
+                for k in tree}
+    return type(tree)(_map_with_path(fn, v, *(r[i] for r in rest),
+                                     path=path + (str(i),))
+                      for i, v in enumerate(tree))
+
+
+def _base_spec(keys: Tuple[str, ...]) -> Optional[Tuple]:
+    name = keys[-1]
+    parents = [k for k in keys[:-1] if not k.isdigit()]
+    parent = parents[-1] if parents else "*"
+    if (parent, name) in _RULES:
+        return _RULES[(parent, name)]
+    if ("*", name) in _RULES:
+        return _RULES[("*", name)]
+    return None
+
+
+def _fit(shape, spec, mesh, fsdp: Optional[str], tp: str) -> P:
+    """Resolve placeholders + drop axes that don't divide the dim."""
+    axis_size = _axis_sizes(mesh)
+    out = []
+    for dim, ax in zip(shape, spec):
+        ax = {F: fsdp, T: tp}.get(ax, ax)
+        if ax is None or ax not in axis_size or dim % axis_size[ax] != 0:
+            out.append(None)
+        else:
+            out.append(ax)
+    return P(*out)
+
+
+def param_pspecs(param_shapes: Any, mesh, fsdp: Optional[str] = "data",
+                 tp: str = "model") -> Any:
+    """PartitionSpec tree mirroring the params (tensors or fake
+    tensors).
+
+    fsdp=None replicates over the data axes (inference sharding: weights
+    stay resident, no per-step all-gather)."""
+
+    def spec_of(keys, leaf):
+        base = _base_spec(keys)
+        stacked = "units" in keys
+        nd = len(leaf.shape)
+        if base is None:
+            return P(*([None] * nd))
+        if stacked:
+            base = (None,) + tuple(base)
+        base = tuple(base) + (None,) * (nd - len(base))
+        base = base[:nd]
+        return _fit(leaf.shape, base, mesh, fsdp, tp)
+
+    return _map_with_path(spec_of, param_shapes)
+
+
+def opt_state_pspecs(param_specs: Any, mesh) -> Dict[str, Any]:
+    """Adam state specs: master/m/v/err shaped like params; scalar step."""
+    return {
+        "master": param_specs, "m": param_specs, "v": param_specs,
+        "step": P(),
+    }
+
+
+def cache_pspecs(cache_shapes: Any, mesh, batch: int,
+                 dp_axes: Tuple[str, ...], tp: str = "model") -> Any:
+    """Decode-cache specs.
+
+    Two regimes:
+      * batch divisible by DP  -> batch-sharded cache, kv-heads over TP if
+        divisible (falls back to seq over TP);
+      * batch=1 long-context   -> sequence-parallel cache: seq dim sharded
+        over (dp + tp) — flash-decode with partial-softmax collectives.
+    """
+    axis_size = _axis_sizes(mesh)
+    dp = [a for a in dp_axes if a in axis_size]
+    dp_total = 1
+    for a in dp:
+        dp_total *= axis_size[a]
+    batch_ok = batch % dp_total == 0
+
+    def spec_of(keys, leaf):
+        name = keys[0] if keys else ""
+        if name == "index":       # the port's cache index is an int
+            return P()
+        nd = len(leaf.shape)
+        if name in ("kv_k_scale", "kv_v_scale"):
+            # (U, n, B, S, KV) — follows the value cache's regime
+            U, n, B, S, KV = leaf.shape
+            if batch_ok:
+                kv_ax = tp if KV % axis_size.get(tp, 1) == 0 else None
+                seq_ax = None if kv_ax else (
+                    tp if S % axis_size.get(tp, 1) == 0 else None)
+                return P(None, None, tuple(dp), seq_ax, kv_ax)
+            seq_axes = tuple(dp) + ((tp,) if tp in axis_size else ())
+            total = 1
+            for a in seq_axes:
+                total *= axis_size[a]
+            if S % total == 0:
+                return P(None, None, None, seq_axes, None)
+            return P(*([None] * nd))
+        if name in ("kv_k", "kv_v", "cross_k", "cross_v"):
+            # (U, n, B, S, KV, hd)
+            U, n, B, S, KV, hd = leaf.shape
+            if batch_ok:
+                kv_ax = tp if KV % axis_size.get(tp, 1) == 0 else None
+                seq_ax = None if kv_ax else (
+                    tp if S % axis_size.get(tp, 1) == 0 else None)
+                return P(None, None, tuple(dp), seq_ax, kv_ax, None)
+            seq_axes = tuple(dp) + ((tp,) if tp in axis_size else ())
+            total = 1
+            for a in seq_axes:
+                total *= axis_size[a]
+            if S % total == 0:
+                return P(None, None, None, seq_axes, None, None)
+            if S % dp_total == 0:
+                return P(None, None, None, tuple(dp), None, None)
+            return P(*([None] * nd))
+        if name in ("ssm", "wkv"):
+            # (U, n, B, H, N, P) / (U, n, B, H, hd, hd)
+            U, n, B, H, _, _ = leaf.shape
+            b_ax = tuple(dp) if batch_ok else None
+            h_ax = tp if H % axis_size.get(tp, 1) == 0 else None
+            return P(None, None, b_ax, h_ax, None, None)
+        if name == "conv":
+            # (U, n, B, K-1, d_inner)
+            U, n, B, K1, di = leaf.shape
+            b_ax = tuple(dp) if batch_ok else None
+            d_ax = tp if di % axis_size.get(tp, 1) == 0 else None
+            return P(None, None, b_ax, None, d_ax)
+        if name in ("shift_t", "shift_c"):
+            U, n, B, D = leaf.shape
+            b_ax = tuple(dp) if batch_ok else None
+            return P(None, None, b_ax, None)
+        return P(*([None] * nd))
+
+    return _map_with_path(spec_of, cache_shapes)
+
+
+def batch_pspec(batch: int, mesh, dp_axes: Tuple[str, ...]) -> P:
+    axis_size = _axis_sizes(mesh)
+    dp = [a for a in dp_axes if a in axis_size]
+    total = 1
+    for a in dp:
+        total *= axis_size[a]
+    if batch % total == 0:
+        return P(tuple(dp))
+    # try the first axis alone
+    if dp and batch % axis_size[dp[0]] == 0:
+        return P(dp[0])
+    return P(None)
+
+
+def _spec_devices(spec, mesh) -> int:
+    """How many devices ``spec`` splits a tensor over on ``mesh``."""
+    sizes = _axis_sizes(mesh)
+    n = 1
+    for ax in spec:
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            if a is not None:
+                n *= sizes[a]
+    return n
+
+
+def to_named(tree, specs, mesh, memory_kind: Optional[str] = None):
+    """``tree`` placed on ``mesh`` under ``specs`` (a spec tree mirroring
+    it, e.g. ``param_pspecs``): every leaf on the mesh's device and, with
+    ``memory_kind``, on that memory kind (``core.tiered_array`` kinds).
+    A leaf already there is returned as it is.  Raises where a spec
+    splits a tensor over more than one device, or the mesh has more
+    than one (a replica on each device): ``MULTI_DEVICE_ITEM``."""
+
+    def place(keys, leaf, spec):
+        if _spec_devices(spec, mesh) > 1:
+            raise NotImplementedError(
+                f"{'/'.join(keys)}: {spec} splits a tensor over "
+                f"{_spec_devices(spec, mesh)} devices of the mesh "
+                f"{dict(zip(mesh.axis_names, mesh.devices.shape))}: "
+                f"{MULTI_DEVICE_ITEM}")
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        dev = mesh.device
+        if memory_kind is not None:
+            return to_kind(leaf, memory_kind, dev)
+        return leaf if leaf.device == dev else leaf.to(dev)
+
+    return _map_with_path(place, tree, specs)

@@ -54,8 +54,9 @@ The other control planes, wired as the reference wires them:
     the routed expert ids of the fused path.  Residency is ledger
     bookkeeping: expert weights never move.
 
-The multi-host cluster is not ported yet: its option raises
-``NotImplementedError`` naming the ROADMAP item.
+The multi-host plane (``cluster.ClusterPlane``) runs one engine per
+replica over one shared, namespaced ledger; ``ServingConfig.cluster``
+is its options section, which the engine itself does not read.
 """
 from __future__ import annotations
 
@@ -91,13 +92,6 @@ from .metrics import ServingMetrics
 from .scheduler import (ContinuousBatchingScheduler, plan_admission, Request,
                         RequestState, SchedulerConfig)
 from .tiering import KVBlockTierer
-
-# options of the reference ServingConfig whose planes are not ported
-# yet -> the ROADMAP queue-1 item that ports them
-_NOT_PORTED = {
-    "cluster": "item 9 (cluster)",
-}
-
 
 def check_paged_support(cfg: ModelConfig) -> None:
     """Raise if the config can't run on the paged decode path."""
@@ -346,7 +340,7 @@ class ServingConfig:
     expert_fast_fraction: float = 0.25
     # nested sections (serving.config): the grouped view of the flat
     # fields above, kept coherent with them by __post_init__; cluster
-    # is not ported (_NOT_PORTED)
+    # is the multi-host plane's (cluster.ClusterPlane)
     tiering: Optional[config_mod.TieringOptions] = None
     qos_options: Optional[config_mod.QoSOptions] = None
     experts: Optional[config_mod.ExpertOptions] = None
@@ -354,11 +348,6 @@ class ServingConfig:
 
     def __post_init__(self):
         config_mod.sync_sections(self)
-        for name, item in _NOT_PORTED.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"ServingConfig.{name}: not ported to repro_torch yet "
-                    f"(ROADMAP queue 1, {item})")
 
     @classmethod
     def from_args(cls, args) -> "ServingConfig":

@@ -1,5 +1,4 @@
-"""PyTorch-port copy of ``repro.serving.scheduler`` (without
-``submit_all``, which comes with the cluster plane).
+"""PyTorch-port copy of ``repro.serving.scheduler``.
 
 Continuous-batching request scheduler over the paged KV pool.
 
@@ -39,7 +38,7 @@ import dataclasses
 import enum
 import math
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -182,6 +181,10 @@ class ContinuousBatchingScheduler:
     def submit(self, req: Request) -> None:
         req.state = RequestState.WAITING
         self.waiting.append(req)
+
+    def submit_all(self, reqs: Sequence[Request]) -> None:
+        for r in sorted(reqs, key=lambda r: r.arrival_s):
+            self.submit(r)
 
     @property
     def active(self) -> bool:

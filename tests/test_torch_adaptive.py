@@ -250,12 +250,24 @@ def test_validate_args_matches_reference(kw):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("cluster", object(), "item 9"),
+    ("cluster", dict(replicas=2, router="round-robin"), "item 11"),
 ])
 def test_unported_planes_name_their_roadmap_item(option, value, item):
+    """The cluster plane is ported: its section is accepted as the
+    reference's.  What it cannot do yet, split a replica over more than
+    one device, raises naming its ROADMAP item."""
+    from repro.serving import ClusterOptions as JClusterOptions
+    from repro_torch.cluster import shard_lm_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import ClusterOptions
+    sv = ServingConfig(**{option: ClusterOptions(**value)})
+    ref = JServingConfig(**{option: JClusterOptions(**value)})
+    assert dataclasses.asdict(sv.cluster) == dataclasses.asdict(ref.cluster)
+    cpu = torch.device("cpu")
+    two = make_mesh((2,), ("model",), devices=[cpu, cpu])
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1, {item} "):
-        ServingConfig(**{option: value})
+        shard_lm_params({"embed": torch.zeros(4, 2)}, two)
     assert ServingConfig(adaptive=True).adaptive
 
 

@@ -462,12 +462,17 @@ def test_cli_prints_restored_step(tmp_path):
                                      ("1x1x1", True), ("2", False),
                                      ("1x4", False), ("2x16x16", False)])
 def test_mesh_of_more_than_one_device_names_item_9(spec, ok):
+    """``--mesh`` builds a mesh over the CPU's one device, as the
+    reference's builds one over its devices: a mesh of more devices
+    raises, naming the ROADMAP item that splits work over several
+    devices (queue 1, item 11, since item 9 ported the mesh)."""
     if ok:
-        assert set(train.parse_mesh(spec).values()) == {1}
+        mesh = train.parse_mesh(spec, "cpu")
+        assert mesh.devices.shape == tuple(int(d) for d in spec.split("x"))
+        assert list(mesh.devices.flat) == [torch.device("cpu")]
         return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 9"):
-        train.parse_mesh(spec)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 11"):
+        train.parse_mesh(spec, "cpu")
+    with pytest.raises(ValueError, match="item 11"):
         train.main(["--arch", "llama3-8b", "--smoke", "--steps", "1",
                     "--device", "cpu", "--mesh", spec])

@@ -314,10 +314,19 @@ def test_staged_prefill_kv_matches_reference_pool(tiny):
                  dict(rtol=3e-2, atol=3e-2))
 
 
-@pytest.mark.parametrize("option,value", [("cluster", object())])
+@pytest.mark.parametrize("option,value", [("cluster", dict(replicas=2))])
 def test_unported_options_raise(option, value):
+    """The cluster option is ported: the section is accepted.  What the
+    plane cannot do yet, a replica over more than one device, raises
+    naming its ROADMAP item."""
+    from repro_torch.cluster import replica_shard_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import ClusterOptions
+    section = ClusterOptions(**value)
+    assert getattr(ServingConfig(**{option: section}), option) == section
+    two = make_mesh((2,), ("model",), devices=["cpu", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingConfig(**{option: value})
+        replica_shard_map(lambda x: x, two, None, None)
 
 
 # each control-plane option with the options the reference requires
