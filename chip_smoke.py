@@ -109,6 +109,22 @@ Phases, in order; any failure exits non-zero:
    ``FLEXGEN_REL``) and on the plain attention (printed: the bf16
    model's own rounding), and under four planted cache and position
    faults, each of which must read above ``FLEXGEN_REL``;
+4e. the analysis phase on the same weights: llama3-8b's prefill step
+   (``launch.steps.make_prefill_step``, 8 x 512 tokens, ``flash_attention``
+   on every layer) and decode step (``make_serve_step`` over that
+   prefill's cache padded to 544 positions, index 512, B 8,
+   ``decode_attention`` on every layer), each timed on the card (median
+   of ``ANALYSIS_CALLS`` calls with CUDA events, after
+   ``ANALYSIS_WARMUP``), costed by ``launch.jaxpr_cost`` over fake CPU
+   tensors of the same shapes and bounded by
+   ``launch.hlo_analysis.roofline_terms`` (the larger of the compute and
+   memory terms at the H100's rates).  A step faster than its bound
+   fails the run (the count is wrong), and so does a step whose
+   ``FlopCounterMode`` count on the card (which cannot see the ctypes
+   kernels) differs by more than ``FLOP_MATCH`` from the walker's
+   matrix-product FLOPs outside its kernel leaves.  ms, bound, the
+   binding term and bound / ms are printed and go to ``"analysis"`` in
+   the JSON record; the steps' launches count in the ``/oneshot`` rows;
 5. serve qwen3-moe-30b-a3b the same way, once llama3-8b's weights are
    freed: staged (``moe_fwd``) then fused (``fused_expert_ffn`` on every
    MoE layer of every decode step), the same requests and the same
@@ -135,6 +151,11 @@ Phases, in order; any failure exits non-zero:
    times; ``fused_adam`` must launch once per parameter leaf per step,
    the losses must be finite and the loss must fall from step 1 to
    step 4;
+6'. the analysis phase's train step on the same weights:
+   ``make_train_step`` of gpt2-xl-offload over 8 x 128 tokens with a
+   fresh fp32 AdamW state on the card and ``use_fused_kernel``
+   (``fused_adam`` once per leaf), held as 4e holds its steps; its
+   launches count in the ``fused_adam`` row;
 6b. the training launcher (``launch.train``, as ``python -m
    repro_torch.launch.train`` runs it) on gpt2-xl-offload at full width
    and depth, ``--adaptive --replan-every 2``, 6 steps of 8 x 128
@@ -234,14 +255,16 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+# the H100's data-sheet rates: one source for every bound of this script
+from repro_torch.launch.hlo_analysis import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOP_PER_S,
+    PEAK_FLOPS_FP32 as FP32_FLOP_PER_S)
+
 QK_STD = 1.5           # std of the q and k inputs (scores of std ~2.25)
 ATOL, RTOL = 2e-3, 1.6e-2   # kernel vs plain: >= two bf16 ulps, relative
 NEAR_TIE = 0.1         # top-2 logit margin under which a flip is a tie
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 L2_FLUSH_BYTES = 256 << 20     # written before each timed call (L2: 50 MB)
 LEAD_CYCLES = 200_000          # card spin for device_ms (~0.1 ms)
-BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
-FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 peak outside the tensor cores
 SEED = 0
 # fused_adam vs plain: the two round the same operations in the same
 # order, except that PyTorch divides by a scalar as a multiplication by
@@ -308,6 +331,11 @@ CLUSTER_MEMORY_SHARE = 0.1
 # below the gaps, so violations fire and the blame plane runs
 SLO_FRACTION = 0.5
 PROBE_MB, PROBE_ITERS = 256, 5
+# the analysis phase: whole steps held against their roofline bound
+# (launch.jaxpr_cost's count at launch.hlo_analysis's H100 rates)
+ANALYSIS_WARMUP, ANALYSIS_CALLS = 2, 10   # calls before / timed (median)
+ANALYSIS_TRAIN_SEQ = 128                  # gpt2-xl-offload train: 8 x 128
+FLOP_MATCH = 0.01     # FlopCounterMode vs the walker's non-leaf dot FLOPs
 MAX_CONTEXT = max(PROMPTS) + NEW_TOKENS + BT
 NB = math.ceil(MAX_CONTEXT / BT)          # table slots per sequence
 S_PAD = NB * BT
@@ -916,16 +944,18 @@ def kernels_line(kernels: dict, runs: dict, shape_launches: dict) -> list:
     """The ``kernels`` line's rows.  Each row's launches are those of
     its own model's serve phases (staged, fused, adaptive, control
     planes and experts; or, for an ``oneshot`` row, the one-shot FlexGen
-    placements) or train phases (both placements), the only runs that
-    launch its build at its shapes; plus, for a row with a ``shape``,
+    placements and the analysis phase's decode and prefill steps, which
+    run at those shapes) or train phases (both placements and the
+    analysis phase's train step), the only runs that launch its build
+    at its shapes; plus, for a row with a ``shape``,
     the families phase's launches at that shape (``shape_launches``,
     (kernel, shape) -> count)."""
     def launches(row):
         n = sum(phase["launches"][row["kernel"]]
                 for label, phase in runs.get(row["model"], {}).items()
                 if "launches" in phase
-                and label.startswith("flexgen ") == row.get("oneshot",
-                                                            False))
+                and phase.get("oneshot", label.startswith("flexgen "))
+                == row.get("oneshot", False))
         if "shape" in row:
             n += shape_launches.get((row["kernel"], tuple(row["shape"])),
                                     0)
@@ -2396,12 +2426,206 @@ def serve_model(arch: str, profile: bool) -> dict:
         out.update({f"flexgen {k}": v for k, v in flex.items()})
         log(f"flexgen {arch}: {time.perf_counter() - t0:.1f} s, "
             f"{memory()}")
+        t0 = time.perf_counter()
+        out.update(analysis_serve_phase(cfg, params))
+        log(f"analysis {arch}: {time.perf_counter() - t0:.1f} s, "
+            f"{memory()}")
     if arch == EXPERT_ARCH:
         out["experts"] = experts_phase(f"{arch} fused, experts", cfg,
                                        params, prompts, out["fused"])
     if profile:
         out["profile"] = profile_phase(cfg, params)
     return out
+
+
+# ---------------------------------------------------------------------- #
+# analysis phase: whole steps against their roofline bound                #
+# ---------------------------------------------------------------------- #
+def fake_cpu(tree, mode):
+    """``tree`` with each tensor as a fake CPU tensor of its shape and
+    dtype under ``mode``, except 0-d ones (AdamW's step count, read on
+    the host), which stay real, copied to the CPU."""
+    import torch.utils._pytree as pytree
+
+    def one(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if t.dim() == 0:
+            return t.detach().cpu()
+        with mode:
+            return torch.empty(t.shape, dtype=t.dtype)
+    return pytree.tree_map(one, tree)
+
+
+def step_analysis(label: str, cfg, fn, args, shape, want: dict,
+                  check) -> dict:
+    """One whole step ``fn(*args)`` on the card against its roofline
+    bound: ``launch.jaxpr_cost.walk`` over fake CPU tensors of the same
+    shapes gives its FLOPs and bytes, ``hlo_analysis.roofline_terms``
+    the bound (the larger of the compute and memory terms).  One real
+    step under ``FlopCounterMode`` must count the walker's matrix-product
+    FLOPs outside the kernel leaves within ``FLOP_MATCH`` (the ctypes
+    kernels are invisible to it); then ``ANALYSIS_WARMUP`` calls and
+    ``ANALYSIS_CALLS`` calls each timed with CUDA events, whose median
+    must not be below the bound.  Each call must launch ``want``
+    (kernel -> launches per call) and nothing else; ``check(out)``
+    fails on a wrong output."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import hlo_analysis as HLO
+    from repro_torch.launch import jaxpr_cost as JC
+    t0 = time.perf_counter()
+    w = JC.walk(fn, *fake_cpu(args, FakeTensorMode()))
+    trace_s = time.perf_counter() - t0
+    roof = HLO.roofline_terms(w.flops, w.bytes, HLO.CollectiveStats(), 1,
+                              HLO.model_flops_estimate(cfg, shape))
+    bound_ms = max(roof.compute_s, roof.memory_s) * 1e3
+    binds = "compute" if roof.compute_s >= roof.memory_s else "memory"
+
+    build.reset_launches()
+    torch.cuda.synchronize()
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    check(out)
+    card_flops, dots = fc.get_total_flops(), JC.dot_flops(w)
+    if abs(card_flops - dots) > FLOP_MATCH * dots:
+        fail(f"analysis {label}: FlopCounterMode counts {card_flops} FLOPs "
+             f"on the card, the walker {dots:.0f} outside its kernel leaves")
+    for _ in range(ANALYSIS_WARMUP):
+        out = None
+        out = fn(*args)
+    events = []
+    for _ in range(ANALYSIS_CALLS):
+        out = None
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = fn(*args)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    check(out)
+    del out
+    launches = dict(build.LAUNCHES)
+    calls = 1 + ANALYSIS_WARMUP + ANALYSIS_CALLS
+    for name, n in want.items():
+        if launches[name] != n * calls:
+            fail(f"analysis {label}: {launches[name]} {name} launches over "
+                 f"{calls} calls, expected {n} per call")
+    others = {k: v for k, v in launches.items() if v and k not in want}
+    if others:
+        fail(f"analysis {label}: other kernels launched {others}")
+    times = [s.elapsed_time(e) for s, e in events]
+    ms = statistics.median(times)
+    if ms < bound_ms:
+        fail(f"analysis {label}: {ms:.4f} ms measured, faster than its "
+             f"bound {bound_ms:.4f} ms: the count is wrong")
+    row = {"ms": ms, "times_ms": times, "bound_ms": bound_ms,
+           "binds": binds, "fraction": bound_ms / ms,
+           "compute_ms": roof.compute_s * 1e3,
+           "memory_ms": roof.memory_s * 1e3, "flops": w.flops,
+           "bytes": w.bytes, "leaf_flops": JC.leaf_flops(w),
+           "dot_flops": dots, "card_dot_flops": card_flops,
+           "by_rule": w.by_rule, "model_flops": roof.model_flops,
+           "trace_s": trace_s, "launches": launches}
+    log(f"analysis {label}: {ms:.4f} ms (median of {ANALYSIS_CALLS}) vs "
+        f"bound {bound_ms:.4f} ms ({binds}: {w.flops / 1e12:.4f} TFLOP, "
+        f"{w.bytes / 1e9:.4f} GB) = {bound_ms / ms:.3f} of the bound; "
+        f"FlopCounterMode {card_flops} vs walker {dots:.0f} dot FLOPs "
+        f"(+{JC.leaf_flops(w):.0f} in kernel leaves); trace {trace_s:.1f} s;"
+        f" launches {launches} (counted in the kernels line's rows of "
+        "these shapes)")
+    return row
+
+
+def analysis_serve_phase(cfg, params) -> dict:
+    """The analysis phase's serving steps on ``FLEXGEN_ARCH``'s weights
+    on the card, at the one-shot phase's shapes: ``make_prefill_step``
+    over ``FLEXGEN_BATCH`` x ``FLEXGEN_PROMPT`` tokens (``flash_attention``
+    on every layer), then ``make_serve_step`` over that prefill's cache
+    padded to the ``pad_to`` of ``NEW_TOKENS`` (index ``FLEXGEN_PROMPT``;
+    ``decode_attention`` on every layer).  Both are one-shot rows'
+    launches (``"oneshot"``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    B, L = FLEXGEN_BATCH, FLEXGEN_PROMPT
+    layers = cfg.n_units * len(cfg.pattern)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, L), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+
+    def logits_ok(name):
+        def check(out):
+            if tuple(out[0].shape) != (B, cfg.vocab) \
+                    or not torch.isfinite(out[0]).all():
+                fail(f"analysis {name}: logits of shape "
+                     f"{tuple(out[0].shape)}, finite "
+                     f"{bool(torch.isfinite(out[0]).all())}")
+        return check
+
+    out = {}
+    prefill = steps.make_prefill_step(cfg)
+    out["analysis prefill"] = step_analysis(
+        f"{cfg.name} prefill {B}x{L}", cfg, prefill, (params, batch),
+        ShapeConfig("analysis_prefill", L, B, "prefill"),
+        {"flash_attention": layers}, logits_ok("prefill"))
+    _, pcache = prefill(params, batch)
+    cache = lm.make_decode_cache(cfg, B, L + NEW_TOKENS, device="cuda")
+    for k, t in pcache.items():
+        if k != "index":
+            cache[k][:, :, :, :L] = t
+    cache["index"] = L
+    del pcache
+    tokens = batch["tokens"][:, -1:]
+    out["analysis decode"] = step_analysis(
+        f"{cfg.name} decode B={B} cache {L + NEW_TOKENS} index {L}", cfg,
+        steps.make_serve_step(cfg), (params, cache, tokens),
+        ShapeConfig("analysis_decode", L, B, "decode"),
+        {"decode_attention": layers}, logits_ok("decode"))
+    for row in out.values():
+        row["oneshot"] = True
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def analysis_train_phase(cfg, params) -> dict:
+    """The analysis phase's train step: ``make_train_step`` of
+    ``TRAIN_ARCH`` with everything on the card (the weights the train
+    phase used, a fresh fp32 AdamW state, ``use_fused_kernel``: one
+    ``fused_adam`` per leaf) over ``TRAIN_BATCH`` x ``ANALYSIS_TRAIN_SEQ``
+    tokens.  Each call starts from the same weights and state."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+    acfg = adam.AdamConfig(lr=launcher_lr(cfg.name), use_fused_kernel=True)
+    opt = adam.init_state(params, acfg)
+    b = next(DataIterator(DataConfig(vocab=cfg.vocab,
+                                     seq_len=ANALYSIS_TRAIN_SEQ,
+                                     global_batch=TRAIN_BATCH, seed=SEED)))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in b.items()}
+
+    def loss_ok(out):
+        if not math.isfinite(float(out[2])):
+            fail(f"analysis train: non-finite loss {float(out[2])}")
+
+    row = step_analysis(
+        f"{cfg.name} train {TRAIN_BATCH}x{ANALYSIS_TRAIN_SEQ}", cfg,
+        steps.make_train_step(cfg, acfg), (params, opt, batch),
+        ShapeConfig("analysis_train", ANALYSIS_TRAIN_SEQ, TRAIN_BATCH,
+                    "train"),
+        {"fused_adam": n_leaves(params)}, loss_ok)
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------- #
@@ -2537,6 +2761,9 @@ def train_model(arch: str) -> dict:
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["analysis train"] = analysis_train_phase(cfg, params)
+    log(f"analysis {arch}: {time.perf_counter() - t0:.1f} s, {memory()}")
     losses = out["pinned"]["losses"]
     if not losses[3] < losses[0]:
         fail(f"train {arch}: the loss did not fall from step 1 to step 4 "
@@ -2952,6 +3179,10 @@ def main() -> int:
         log(f"{name} phase: {time.perf_counter() - t0:.1f} s, {memory()}")
     if args.profile:
         record["launcher_profile"] = launcher_profile()
+    record["analysis"] = {
+        "decode": record["serve"][FLEXGEN_ARCH]["analysis decode"],
+        "prefill": record["serve"][FLEXGEN_ARCH]["analysis prefill"],
+        "train": record["train"][TRAIN_ARCH]["analysis train"]}
     shape_launches = Counter()
     for arch in FAMILY_ARCHS:
         for kernel, shape, n in families[arch]["shape_launches"]:

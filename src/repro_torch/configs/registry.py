@@ -42,4 +42,16 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return smoke_variant(get_config(arch))
 
 
+def assigned_cells(arch: str) -> List[str]:
+    """Shape cells that are valid for this arch (the reference's skip
+    list)."""
+    cfg = get_config(arch)
+    cells = ["train_4k", "prefill_32k"]
+    if cfg.supports_decode:
+        cells.append("decode_32k")
+    if cfg.subquadratic:
+        cells.append("long_500k")
+    return cells
+
+
 ASSIGNED_ARCHS = ARCH_IDS[:10]

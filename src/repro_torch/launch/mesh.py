@@ -87,11 +87,21 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
     return Mesh(grid.reshape(tuple(shape)), tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """16x16 single-pod (256 devices) or 2x16x16 multi-pod (512)."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> Mesh:
+    """16x16 single-pod (256 devices) or 2x16x16 multi-pod (512), over
+    ``devices`` (every CUDA device by default).  The dry-run passes
+    placeholder entries (``placeholder_devices``): it places nothing."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, devices)
+
+
+def placeholder_devices(n: int) -> list:
+    """``n`` device entries that hold nothing (the ``meta`` device): a
+    mesh over them has the production shape for the partition rules,
+    and placing a tensor on it is never attempted."""
+    return [torch.device("meta")] * n
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:
