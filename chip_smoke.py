@@ -140,6 +140,20 @@ Phases, in order; any failure exits non-zero:
    promotes and hits, promotions, demotions, move-scheduler rounds,
    arbiter rebalances and the host time of the routing feed are
    printed;
+5c. train rwkv6-7b through ``ZeroOffloadEngine`` at full width and
+   ``RECURRENT_TRAIN_LAYERS`` of its 32 layers (a host of 101 GiB, as
+   the single-H100 machines this script runs on have, holds the pinned
+   state of 16, not of 32), once the serve and
+   families phases' weights are freed and the pinned host blocks their
+   runs left cached are released: batches of 8 x 512, the learning rate
+   of ``train_engine``, the fp32 state all on pinned host memory,
+   ``RECURRENT_TRAIN_STEPS`` steps.  Each step prints its loss and its
+   four Fig. 9 phases; the losses must be finite and fall from the first
+   step to the last, ``fused_adam`` must launch once per leaf per step
+   and nothing else may launch, and the state must be 12 bytes a
+   parameter on pinned host memory and none on the device.  The peak
+   device memory is printed beside the card's, and the host's memory
+   before, during and after;
 6. train gpt2-xl-offload through ``ZeroOffloadEngine`` at full width and
    depth, once the serve phases' weights are freed: random weights from
    a seeded generator on the card, batches of 8 x 512 tokens from the
@@ -165,7 +179,14 @@ Phases, in order; any failure exits non-zero:
    the kind its tier label names, the ledger must hold the store's
    bytes with the plan's fast share (within 0.05), the loss must fall
    from step 0 to step 5, and no hand-written kernel may launch (the
-   launcher's step is the plain AdamW, as the reference's);
+   launcher's step is the plain AdamW, as the reference's).  Then the
+   same on rwkv6-7b at full width and ``RECURRENT_LAUNCHER_LAYERS``
+   layers (``launch.train.run`` on the arguments of ``parse_args``,
+   with ``get_config`` giving the cut config for the call; the launcher
+   keeps the live fp32 state on the card),
+   with the same checks, and the launcher on jamba's smoke variant for
+   ``JAMBA_LAUNCHER_STEPS`` steps (finite, falling losses; no
+   hand-written kernel);
 6c. checkpoints through the launcher on bert-large-offload at full
    width and depth: run A takes 4 steps, checkpointing every 2; run B
    resumes A's directory to step 6 and must print ``restored step 4``;
@@ -180,19 +201,25 @@ Phases, in order; any failure exits non-zero:
    for llama3-8b, ``...@KV4`` for qwen3-moe-30b-a3b), the two one-shot
    kernels at that phase's shapes (``decode_attention@KV8/oneshot``,
    ``flash_attention@KV8/oneshot``), ``fused_expert_ffn`` and
-   ``fused_adam``; each row's times, bound and error come from its own
-   build and shapes, and its launches from the phases that run it at
-   those shapes: a ``/oneshot`` row's from the one-shot phase, the other
-   attention rows' from their model's other serve phases.
+   ``fused_adam`` and ``fused_adam@rwkv6-7b``; each row's times, bound
+   and error come from its own build and shapes, and its launches from
+   the phases that run it at those shapes: a ``/oneshot`` row's from the
+   one-shot phase, the other attention rows' from their model's other
+   serve phases, an Adam row's from its model's train phases.
 
 The kernel phase also holds ``fused_adam`` against its plain version at
-gpt2-xl-offload's largest leaf (bf16 g) and at a ragged n of 70001 (fp32
+gpt2-xl-offload's largest leaf and at rwkv6-7b's ``tmix.wr`` at the
+depth its ZeRO-Offload phase trains (16 x 4096 x 4096; bf16 g each,
+outputs NaN-poisoned), and at a
+ragged n of 70001 (fp32
 g), aligned and at an odd storage offset; it holds the update
 ``master' - master`` (about lr = 3e-4 against masters of about 0.02),
 m' and v' to ``ADAM_RTOL`` relative, plus two fp32 ulps of the master
-for the update.  The small references also train the gpt2-xl-offload
-and llama3-8b smoke configs for 3 steps on the card and on the CPU from
-the same weights and batches: step-1 losses must agree within
+for the update.  The small references also train the smoke configs of
+``SMALL_TRAIN_ARCHS`` (gpt2-xl-offload, llama3-8b, rwkv6-7b and jamba)
+for 3 steps through ``ZeroOffloadEngine`` on the card and on the CPU
+from the same weights and batches: finite losses, ``fused_adam`` once
+per leaf per step on the card, step-1 losses within
 ``TRAIN_LOSS_ATOL``.
 
 The families phase follows the serve phases: llama-3.2-vision-11b (8
@@ -216,7 +243,14 @@ variant (widened to head_dim 64, one unit; two units printed) one-shot
 on the card against the CPU, tokens equal up to near ties; jamba's Mamba layer alone at full width, its
 chunked scan over 8 x 512 tokens and 32 one-token steps against one
 scan of all (``MAMBA_TOL``); and an int8 KV cache at the model level
-(``INT8_REL``).
+(``INT8_REL``).  Before the int8 cache, the recurrent layers' backward
+at full width in fp32 (``recurrent_backward_phase``): rwkv6-7b's
+time-mix layer over 4 x 256 tokens and jamba's Mamba-2 layer over 2 x
+256, every leaf's gradient of ``sum(out * w)`` through the chunked scan
+(one call, and two halves with the states carried) against the
+one-token recurrence's within ``RECURRENT_GRAD_REL``, and three planted
+faults above it (the carried states detached, the bonus or skip
+detached, the decay's inputs detached); the ms of both forms printed.
 The kernel phase adds the attention kernels at these shapes
 (``family_kernels``: ``flash_attention@whisper``,
 ``decode_attention@whisper-self``, ``@whisper-cross`` and
@@ -280,6 +314,29 @@ TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "gpt2-xl-offload", 512, 8
 TRAIN_PLACEMENTS = (("pinned", (("pinned_host", 1.0),), 4),
                     ("ldram+cxl", (("device", 0.5), ("unpinned_host", 0.5)),
                      2))
+# the small train references: the dense smoke models and the recurrent
+# families' (jamba's hybrid: Mamba-2, MoE and attention)
+SMALL_TRAIN_ARCHS = (TRAIN_ARCH, "llama3-8b", "rwkv6-7b",
+                     "jamba-1.5-large-398b")
+# ZeRO-Offload training of rwkv6-7b at full width, all of its fp32 state
+# on pinned host memory.  The depth is cut to what a single-H100 host
+# of 101 GiB holds.  At 32 layers the state (83.98 GB) and
+# the grad buffers (14.00 GB) take 98.24 GiB once PyTorch's pinned
+# allocator has rounded each leaf's block up to a power of two; at 16
+# layers 52.62 GiB.  The width is the model's own.
+RECURRENT_ARCH, RECURRENT_TRAIN_LAYERS, RECURRENT_TRAIN_STEPS = \
+    "rwkv6-7b", 16, 3
+# the recurrent layers' backward at full width in fp32: the chunked
+# scan's gradients against the one-token recurrence's, per leaf, by
+# relative norm.  fp32 sums in another order part by ~1e-6 (the port
+# against the reference's jax.grad: 1e-6 or less on the CPU); a fault
+# that drops or detaches a gradient path reads ~1e-2 or more
+RECURRENT_GRAD_REL = 1e-3
+RWKV_GRAD_BATCH, MAMBA_GRAD_BATCH, RECURRENT_GRAD_SEQ = 4, 2, 256
+# leaves each planted fault detaches: the current-token bonus (RWKV6) or
+# the skip (Mamba-2), and the inputs of the data-dependent decay
+RECURRENT_FAULT_LEAVES = {"rwkv": (("u",), ("mix_w", "wA", "wB")),
+                          "mamba": (("D",), ("dt_bias", "A_log"))}
 
 B, H, HD, BT = 4, 32, 128, 16
 MODELS = {"llama3-8b": 8, "qwen3-moe-30b-a3b": 4}   # served, and KV heads
@@ -315,6 +372,10 @@ MAMBA_TOL = 2e-2       # test_mamba_chunk_vs_step_recurrence's rtol = atol
 INT8_REL = 0.1         # test_int8_kv_cache_decode's limit
 # the training launcher (adaptive) and its checkpoints, at full size
 LAUNCHER_ARCH, LAUNCHER_STEPS = "gpt2-xl-offload", 6
+# the launcher keeps the live fp32 AdamW state on the card: rwkv6-7b at
+# full width runs 4 of its 32 layers (1.345 G parameters, 16.1 GB of
+# state); jamba runs its smoke variant
+RECURRENT_LAUNCHER_LAYERS, JAMBA_LAUNCHER_STEPS = 4, 4
 CKPT_ARCH = "bert-large-offload"
 # resumed vs uninterrupted loss, relative: rounding headroom (8 fp32
 # ulps of a loss near 10) over runs that read equal; every planted
@@ -837,35 +898,34 @@ def check_adam(name: str, got: tuple, want: tuple,
     return worst
 
 
-def adam_kernel(dev, gen) -> dict:
-    """``fused_adam`` at gpt2-xl-offload's largest leaf (``mlp.w_up``,
-    48 x 1600 x 6400, bf16 g) and at a ragged n of 70001 (fp32 g),
-    aligned (vector loop and its tail) and at storage offset 1 (the
-    scalar loop); step-3 bias corrections, weight decay 0.1."""
-    from repro_torch.configs import get_config
+def adam_kernel(dev, gen, shape: tuple, ragged: bool) -> dict:
+    """``fused_adam`` at one leaf of ``shape`` (bf16 g), and with
+    ``ragged`` at n 70001 (fp32 g) too, aligned (vector loop and its
+    tail) and at storage offset 1 (the scalar loop); step-3 bias
+    corrections, weight decay 0.1."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_adam import fused_adam
 
-    cfg = get_config(TRAIN_ARCH)
     kw = adam_kwargs()
     err = 0.0
-    for n, gdtype, offset in ((70001, torch.float32, 0),
-                              (70001, torch.float32, 1)):
-        master, m, v, g = adam_inputs(gen, n, gdtype, offset)
+    for offset in (0, 1) if ragged else ():
+        n = 70001
+        master, m, v, g = adam_inputs(gen, n, torch.float32, offset)
         poison(n, dev)
         err = max(err, check_adam(
-            f"fused_adam n={n} g={str(gdtype)[6:]} offset={offset}",
+            f"fused_adam n={n} g=float32 offset={offset}",
             fused_adam(master, m, v, g, **kw),
             ref.fused_adam(master, m, v, g, **kw), master))
-    shape = (cfg.n_units, cfg.d_model, cfg.d_ff)
     n = math.prod(shape)
     master, m, v, g = (t.reshape(shape) for t in
                        adam_inputs(gen, n, torch.bfloat16))
+    poison(n, dev)
     err = max(err, check_adam(
         f"fused_adam {shape} g=bfloat16", fused_adam(master, m, v, g, **kw),
         ref.fused_adam(master, m, v, g, **kw), master))
     gc.collect()
-    # 12.8 GB per call: far past the L2, so back-to-back calls are cold
+    # 26 B an element per call (12.8 GB at gpt2-xl-offload's leaf, 7.0
+    # at rwkv6-7b's): far past the L2, so back-to-back calls are cold
     t_b, by = bound(n * (3 * 4 + 2 + 3 * 4), n * 16, FP32_FLOP_PER_S)
     row = dict(
         max_abs_err=err,
@@ -916,8 +976,19 @@ def kernel_phase(dev, gen) -> dict:
     rows["fused_expert_ffn"] = dict(expert_kernel(dev, gen),
                                     kernel="fused_expert_ffn",
                                     model="qwen3-moe-30b-a3b")
-    rows["fused_adam"] = dict(adam_kernel(dev, gen), kernel="fused_adam",
-                              model=TRAIN_ARCH)
+    # a leaf of each train model's Adam launches, at the shape its phase
+    # runs: gpt2-xl-offload's mlp.w_up (its largest), and rwkv6-7b's
+    # tmix.wr at the ZeRO-Offload phase's RECURRENT_TRAIN_LAYERS
+    from repro_torch.configs import get_config
+    gpt2 = get_config(TRAIN_ARCH)
+    rwkv = dataclasses.replace(get_config(RECURRENT_ARCH),
+                               n_layers=RECURRENT_TRAIN_LAYERS)
+    rows["fused_adam"] = dict(
+        adam_kernel(dev, gen, (gpt2.n_units, gpt2.d_model, gpt2.d_ff),
+                    ragged=True), kernel="fused_adam", model=TRAIN_ARCH)
+    rows[f"fused_adam@{RECURRENT_ARCH}"] = dict(
+        adam_kernel(dev, gen, (rwkv.n_units, rwkv.d_model, rwkv.d_model),
+                    ragged=False), kernel="fused_adam", model=RECURRENT_ARCH)
     for name, row in rows.items():
         lib = row["library_ms"]
         log(f"kernel {name}: max_abs_err={row['max_abs_err']:.3g} "
@@ -1946,11 +2017,14 @@ def recurrent_witness(cfg, params, seq, logits_p) -> dict:
 def fp32_activations():
     """The model's activations in fp32 (with fp32 weights, the whole
     model): the token embeddings, which the model rounds to bf16, kept
-    fp32, and the RWKV layers' token-shift states carried in the input's
-    dtype, not rounded to the cache's bf16."""
+    fp32, and the RWKV layers' token-shift states and the Mamba layers'
+    conv states carried in the input's dtype, not rounded to the cache's
+    bf16 (the conv state: the last d_conv - 1 rows of the in-projection,
+    taken again through ``_mamba_split``)."""
     from repro_torch.models import lm
     from repro_torch.models import modules as M
     embed, tmix, cmix = lm._embed_tokens, M.rwkv_tmix_fwd, M.rwkv_cmix_fwd
+    mamba = M.mamba_fwd
 
     def tmix_fp32(p, x, dims, **kw):
         out, (state, _) = tmix(p, x, dims, **kw)
@@ -1958,10 +2032,19 @@ def fp32_activations():
 
     def cmix_fp32(p, x, shift_state=None):
         return cmix(p, x, shift_state)[0], x[:, -1]
+
+    def mamba_fp32(p, x, dims, conv_state=None, ssm_state=None):
+        out, (_, ssm) = mamba(p, x, dims, conv_state, ssm_state)
+        xs = M._mamba_split(p, x, dims)[0]
+        pad = (xs.new_zeros((x.shape[0], dims.d_conv - 1, dims.d_inner))
+               if conv_state is None else conv_state.to(xs.dtype))
+        return out, (torch.cat([pad, xs], dim=1)[:, -(dims.d_conv - 1):],
+                     ssm)
     with mock.patch.object(lm, "_embed_tokens",
                            lambda *a, **kw: embed(*a, **kw).float()), \
             mock.patch.object(M, "rwkv_tmix_fwd", tmix_fp32), \
-            mock.patch.object(M, "rwkv_cmix_fwd", cmix_fp32):
+            mock.patch.object(M, "rwkv_cmix_fwd", cmix_fp32), \
+            mock.patch.object(M, "mamba_fwd", mamba_fp32):
         yield
 
 
@@ -2221,6 +2304,181 @@ def mamba_layer_phase() -> dict:
     return {"prefill_ms": prefill_ms, "step_ms": step_ms, "errors": errs}
 
 
+def recurrent_forms(kind: str, dims) -> tuple:
+    """The forms of one recurrent layer's forward (``kind`` "rwkv":
+    RWKV6's time-mix, "mamba": Mamba-2), each ``fn(p, x) -> out``:
+    (the step form, the checked forms, the planted faults).  The step
+    form runs the decode recurrence, one token a call, its states
+    carried from zeros; the checked forms are the chunked scan over all
+    tokens, and over two halves with the states carried between them;
+    the faults are the two halves with the carried states detached, and
+    the chunked scan with ``RECURRENT_FAULT_LEAVES`` detached (the bonus
+    or skip, and the inputs of the data-dependent decay).  None of the
+    faults changes the forward.  The modules are looked up when called,
+    so ``fp32_activations`` reaches them."""
+    from repro_torch.models import modules as M
+
+    def fwd(p, x, state=None):
+        if kind == "rwkv":
+            ws, sh = state if state is not None else (None, None)
+            return M.rwkv_tmix_fwd(p, x, dims, wkv_state=ws, shift_state=sh)
+        cs, ss = state if state is not None else (None, None)
+        return M.mamba_fwd(p, x, dims, conv_state=cs, ssm_state=ss)
+
+    def step(p, x):
+        B = x.shape[0]
+        state = None if kind == "rwkv" else (
+            x.new_zeros((B, dims.d_conv - 1, dims.d_inner)),
+            torch.zeros((B, dims.n_heads, dims.d_state, dims.head_dim),
+                        device=x.device))
+        outs = []
+        for t in range(x.shape[1]):
+            out, state = fwd(p, x[:, t:t + 1], state)
+            outs.append(out)
+        return torch.cat(outs, dim=1)
+
+    def halves(detach: bool):
+        def run(p, x):
+            h = x.shape[1] // 2
+            first, state = fwd(p, x[:, :h])
+            if detach:
+                state = tuple(s.detach() for s in state)
+            return torch.cat([first, fwd(p, x[:, h:], state)[0]], dim=1)
+        return run
+
+    def detached(names):
+        def run(p, x):
+            return fwd({k: v.detach() if k in names else v
+                        for k, v in p.items()}, x)[0]
+        return run
+
+    bonus, decay = RECURRENT_FAULT_LEAVES[kind]
+    return step, {"chunked": lambda p, x: fwd(p, x)[0],
+                  "two halves": halves(False)}, {
+        "state detached between halves": halves(True),
+        "/".join(bonus) + " detached": detached(bonus),
+        "/".join(decay) + " detached": detached(decay)}
+
+
+def layer_grads(fn, p, x, w) -> tuple:
+    """Gradients of ``sum(fn(p, x) * w)`` with respect to x and every
+    leaf of ``p``, by name ("x", "mix_r", "ln_x.scale", ...; a leaf the
+    function does not reach gets zeros), and the forward and backward
+    seconds, each ended by a synchronize on a card."""
+    import torch.utils._pytree as pytree
+    flat, spec = pytree.tree_flatten_with_path(p)
+    names = ["x"] + [".".join(str(getattr(k, "key", k)) for k in path)
+                     for path, _ in flat]
+    wrt = [x.detach().requires_grad_()] + [
+        t.detach().requires_grad_() for _, t in flat]
+
+    def sync():
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+    with torch.enable_grad():
+        t0 = sync()
+        loss = (fn(pytree.tree_unflatten(wrt[1:], spec), wrt[0]).float()
+                * w).sum()
+        t1 = sync()
+        got = torch.autograd.grad(loss, wrt, allow_unused=True)
+        t2 = sync()
+    return ({n: torch.zeros_like(t) if g is None else g
+             for n, t, g in zip(names, wrt, got)}, t1 - t0, t2 - t1)
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Per leaf: ||got - want|| / ||want||."""
+    return {n: ((got[n].float() - w.float()).norm()
+                / w.float().norm().clamp_min(1e-30)).item()
+            for n, w in want.items()}
+
+
+def recurrent_grad_readings(kind: str, dims, p, x, w) -> dict:
+    """Each checked form's and each planted fault's largest per-leaf
+    gradient error against the step form (``grad_errors``), with its
+    leaf, and the forward and backward ms of the chunked and the step
+    forms; all under ``fp32_activations`` (states carried in fp32)."""
+    step, forms, faults = recurrent_forms(kind, dims)
+    out = {"forms": {}, "faults": {}, "ms": {}}
+    with fp32_activations():
+        want, *t_step = layer_grads(step, p, x, w)
+        for group, fns in (("forms", forms), ("faults", faults)):
+            for name, fn in fns.items():
+                got, *t = layer_grads(fn, p, x, w)
+                errs = grad_errors(got, want)
+                leaf = max(errs, key=errs.get)
+                out[group][name] = {"max": errs[leaf], "leaf": leaf}
+                if name == "chunked":
+                    out["ms"]["chunked"] = [s * 1e3 for s in t]
+                    out["leaves"] = errs
+                del got
+    out["ms"]["step"] = [s * 1e3 for s in t_step]
+    return out
+
+
+def recurrent_backward_phase() -> dict:
+    """The recurrent layers' backward at full width, in fp32: rwkv6-7b's
+    time-mix layer (d_model 4096, 64 heads of 64, chunk 64) over
+    ``RWKV_GRAD_BATCH`` x ``RECURRENT_GRAD_SEQ`` tokens, and jamba's
+    Mamba-2 layer as ``mamba_layer_phase`` builds it over
+    ``MAMBA_GRAD_BATCH`` x ``RECURRENT_GRAD_SEQ``, weights from ``SEED``
+    upcast to fp32, x and w ~ N(0, 1): every leaf's gradient of
+    ``sum(out * w)`` through the chunked scan (all tokens in one call,
+    and in two halves) within ``RECURRENT_GRAD_REL`` of the one-token
+    recurrence's, and every planted fault of ``recurrent_forms`` above
+    it.  Prints each reading, the forward and backward ms of both forms
+    and each layer's wall seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models import modules as M
+    rwkv, jamba = get_config(RECURRENT_ARCH), get_config(JAMBA_ARCH)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    layers = {
+        "rwkv": (M.rwkv_dims(rwkv.d_model, rwkv.d_ff, rwkv.rwkv_head_dim,
+                             rwkv.rwkv_chunk), M.init_rwkv_tmix,
+                 RWKV_GRAD_BATCH, rwkv.d_model),
+        "mamba": (M.mamba_dims(jamba.d_model, jamba.mamba_expand,
+                               jamba.mamba_head_dim, jamba.mamba_d_state,
+                               jamba.mamba_d_conv, jamba.ssd_chunk),
+                  M.init_mamba, MAMBA_GRAD_BATCH, jamba.d_model)}
+    out = {}
+    for kind, (dims, init, batch, d) in layers.items():
+        p = lm.tree_map(lambda t: t.float(), init(dims, g, "cuda"))
+        shape = (batch, RECURRENT_GRAD_SEQ, d)
+        x = torch.randn(shape, generator=g, device="cuda")
+        w = torch.randn(shape, generator=g, device="cuda")
+        t0 = time.perf_counter()
+        r = recurrent_grad_readings(kind, dims, p, x, w)
+        r["wall_s"] = time.perf_counter() - t0
+        log(f"recurrent backward {kind} ({dims}) over {batch} x "
+            f"{RECURRENT_GRAD_SEQ}, fp32, against the one-token "
+            "recurrence: "
+            + " ".join(f"{k}={v['max']:.3g} ({v['leaf']})"
+                       for k, v in r["forms"].items())
+            + "; planted faults: "
+            + " ".join(f"{k}={v['max']:.3g} ({v['leaf']})"
+                       for k, v in r["faults"].items())
+            + f" (limit {RECURRENT_GRAD_REL}); fwd/bwd ms chunked "
+            + "/".join(f"{t:.1f}" for t in r["ms"]["chunked"]) + ", step "
+            + "/".join(f"{t:.1f}" for t in r["ms"]["step"])
+            + f"; {r['wall_s']:.1f} s, {memory()}")
+        for name, v in r["forms"].items():
+            if not v["max"] < RECURRENT_GRAD_REL:
+                fail(f"recurrent backward {kind}: {name} vs the one-token "
+                     f"recurrence: {v['leaf']} off by {v['max']:.4g}")
+        for name, v in r["faults"].items():
+            if not v["max"] > RECURRENT_GRAD_REL:
+                fail(f"recurrent backward {kind}: the check does not see "
+                     f"the planted fault '{name}' ({v['max']:.4g})")
+        out[kind] = r
+        del p, x, w
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def int8_phase() -> dict:
     """An int8 KV cache at the model level on the card: llama3-8b's
     smoke variant (widened to head_dim 64 for the kernels) with
@@ -2264,7 +2522,8 @@ def int8_phase() -> dict:
 def families_phase() -> dict:
     """The other model families: vision, RWKV6 and Whisper at full width
     and depth (one model's weights on the card at a time), jamba's smoke
-    variant and its full-width Mamba layer, and an int8 KV cache."""
+    variant and its full-width Mamba layer, the recurrent layers'
+    backward at full width, and an int8 KV cache."""
     out = {}
     for arch in FAMILY_ARCHS:
         t0 = time.perf_counter()
@@ -2275,6 +2534,7 @@ def families_phase() -> dict:
         log(f"family {arch}: {time.perf_counter() - t0:.1f} s, {memory()}")
     for name, phase in (("jamba smoke", jamba_smoke_phase),
                         ("mamba layer", mamba_layer_phase),
+                        ("recurrent backward", recurrent_backward_phase),
                         ("int8", int8_phase)):
         t0 = time.perf_counter()
         out[name] = phase()
@@ -2665,6 +2925,28 @@ def n_leaves(params) -> int:
     return len(pytree.tree_leaves(params))
 
 
+def log_steps(timings) -> None:
+    for i, t in enumerate(timings):
+        log(f"  step {i + 1}: loss={t.loss:.5f} "
+            f"fwd_bwd={t.fwd_bwd_s:.3f} s grad_xfer={t.grad_xfer_s:.3f} "
+            f"s optimizer={t.optimizer_s:.3f} s "
+            f"param_xfer={t.param_xfer_s:.4f} s total={t.total_s:.3f} s")
+
+
+def check_train_run(label: str, timings, launches, leaves: int) -> None:
+    """Finite losses; ``fused_adam`` once per leaf per step, and no
+    other kernel."""
+    losses = [t.loss for t in timings]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss {losses}")
+    if launches["fused_adam"] != leaves * len(timings):
+        fail(f"{label}: {launches['fused_adam']} fused_adam launches, "
+             f"expected {leaves} leaves x {len(timings)} steps")
+    others = {k: v for k, v in launches.items() if v and k != "fused_adam"}
+    if others:
+        fail(f"{label}: serving kernels launched {others}")
+
+
 def small_train_reference(arch: str) -> dict:
     """``arch``'s smoke config trained 3 steps by ``ZeroOffloadEngine``
     on the card (``fused_adam``) and on the CPU (plain versions) from the
@@ -2697,6 +2979,126 @@ def small_train_reference(arch: str) -> dict:
     log(f"small train reference {arch}: card {losses['cuda']} CPU "
         f"{losses['cpu']} (step 1 differs by {d:.3g})")
     return losses
+
+
+def host_meminfo_gib(key: str) -> float:
+    """``key`` of the host's ``/proc/meminfo`` (``MemTotal``,
+    ``MemAvailable``), GiB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith(key + ":"):
+            return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def release_pinned_cache() -> None:
+    """Hand the pinned host blocks that PyTorch's host allocator keeps
+    after their tensors are freed back to the OS, so an earlier phase's
+    pinned memory does not count against the next one's."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._host_emptyCache()
+
+
+def host_pinned() -> str:
+    """The pinned host memory PyTorch's host allocator holds, and the
+    host's available memory (the OS takes freed pinned pages back some
+    seconds after the allocator releases them)."""
+    held = torch.cuda.host_memory_stats().get("allocated_bytes.current", 0)
+    return (f"pinned host allocator holds {held / 2**30:.2f} GiB, host "
+            f"MemAvailable {host_meminfo_gib('MemAvailable'):.2f} of "
+            f"{host_meminfo_gib('MemTotal'):.2f} GiB")
+
+
+def pinned_need_gib(cfg) -> float:
+    """GiB of pinned host memory ``ZeroOffloadEngine`` takes for
+    ``cfg`` with its state all pinned: per leaf, the fp32 master, m and
+    v and the grad buffer, each a block that PyTorch's pinned allocator
+    rounds up to a power of two (its shapes from fake tensors)."""
+    import torch.utils._pytree as pytree
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import lm
+
+    def block(n: int) -> int:
+        return 1 << (n - 1).bit_length()
+    with FakeTensorMode():
+        leaves = pytree.tree_leaves(lm.init_params(cfg, device="cpu"))
+    return sum(3 * block(4 * t.numel()) + block(t.nbytes)
+               for t in leaves) / 2**30
+
+
+def train_recurrent() -> dict:
+    """ZeRO-Offload training of ``RECURRENT_ARCH`` at full width and
+    ``RECURRENT_TRAIN_LAYERS`` layers, once the serve phases' weights
+    are freed: random weights from ``SEED`` on the card, batches of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` from the port's ``DataIterator``,
+    the learning rate of ``train_engine``, the fp32 state all on pinned
+    host memory; ``RECURRENT_TRAIN_STEPS`` steps.  Each step prints its
+    loss and its Fig. 9 phases; the losses must be finite and fall from
+    the first step to the last, ``fused_adam`` must launch once per leaf
+    per step and no other kernel at all, and the state must be 12 bytes
+    a parameter on pinned host memory and none on the device.  Prints
+    the peak device memory beside the card's, and the host's memory."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import LOGICAL_KINDS
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.models import lm
+    arch, n_steps = RECURRENT_ARCH, RECURRENT_TRAIN_STEPS
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=RECURRENT_TRAIN_LAYERS)
+    release_pinned_cache()
+    log(f"train {arch}: pinned host memory of the state and grad buffers"
+        f" at {cfg.n_layers} layers {pinned_need_gib(cfg):.2f} GiB, at "
+        f"{get_config(arch).n_layers} {pinned_need_gib(get_config(arch)):.2f}"
+        f" GiB; before, {host_pinned()}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    leaves = n_leaves(params)
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    eng = train_engine(cfg, params, (("pinned_host", 1.0),), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    on = {kind: eng.opt_state_bytes_on(kind) for kind in LOGICAL_KINDS}
+    log(f"train {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters in "
+        f"{leaves} leaves): params and engine {init_s:.1f} s, opt state "
+        f"bytes " + " ".join(f"{k}={v}" for k, v in on.items())
+        + f" (12 x params = {12 * n_params}), lr {eng.off.adam.lr:.4g}, "
+        f"{memory()}; {host_pinned()}")
+    if on["pinned_host"] != 12 * n_params or on["device"] \
+            or on["unpinned_host"]:
+        fail(f"train {arch}: the fp32 state is not all on pinned host "
+             "memory")
+    it = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH, seed=SEED))
+    timings, launches, wall = run_train(eng,
+                                        [next(it) for _ in range(n_steps)])
+    log_steps(timings)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check_train_run(f"train {arch}", timings, launches, leaves)
+    losses = [t.loss for t in timings]
+    if not losses[-1] < losses[0]:
+        fail(f"train {arch}: the loss did not fall ({losses})")
+    log(f"train {arch}: wall={wall:.2f} s launches={launches} peak device "
+        f"memory {peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB "
+        f"({(total - peak) / 2**30:.2f} GiB free at the peak); "
+        f"{host_pinned()}")
+    out = {"pinned": {
+        "n_layers": cfg.n_layers, "n_params": n_params, "leaves": leaves,
+        "init_s": init_s, "wall_s": wall, "opt_state_bytes": on,
+        "launches": launches, "losses": losses, "peak_bytes": peak,
+        "total_memory": total,
+        "steps": [dataclasses.asdict(t) for t in timings]}}
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_pinned_cache()
+    log(f"train {arch}: after, {host_pinned()}")
+    return out
 
 
 def train_model(arch: str) -> dict:
@@ -2737,21 +3139,9 @@ def train_model(arch: str) -> dict:
                                      global_batch=TRAIN_BATCH, seed=SEED))
         timings, launches, wall = run_train(
             eng, [next(it) for _ in range(n_steps)])
-        for i, t in enumerate(timings):
-            log(f"  step {i + 1}: loss={t.loss:.5f} "
-                f"fwd_bwd={t.fwd_bwd_s:.3f} s grad_xfer={t.grad_xfer_s:.3f} "
-                f"s optimizer={t.optimizer_s:.3f} s "
-                f"param_xfer={t.param_xfer_s:.4f} s total={t.total_s:.3f} s")
+        log_steps(timings)
+        check_train_run(f"train {arch} {label}", timings, launches, leaves)
         losses = [t.loss for t in timings]
-        if not all(math.isfinite(x) for x in losses):
-            fail(f"train {arch} {label}: non-finite loss {losses}")
-        if launches["fused_adam"] != leaves * n_steps:
-            fail(f"train {arch} {label}: {launches['fused_adam']} fused_adam"
-                 f" launches, expected {leaves} leaves x {n_steps} steps")
-        others = {k: v for k, v in launches.items()
-                  if v and k != "fused_adam"}
-        if others:
-            fail(f"train {arch} {label}: serving kernels launched {others}")
         log(f"train {arch} {label}: wall={wall:.2f} s launches={launches} "
             f"{memory()}")
         out[label] = {"shares": shares, "init_s": init_s, "wall_s": wall,
@@ -2786,10 +3176,11 @@ def launcher_lr(arch: str) -> float:
         / get_config(arch).d_model
 
 
-def run_launcher(argv) -> tuple:
-    """``launch.train`` on ``argv``, the launch counters set to 0 just
-    before; returns (its ``TrainRun``, launches, wall s, its standard
-    output, which is also echoed)."""
+def run_launcher(argv, cfg=None) -> tuple:
+    """``launch.train.run`` on ``argv``, the launch counters set to 0
+    just before; with ``cfg``, the ``--arch``'s config is ``cfg`` (its
+    cut in depth) for the call.  Returns (its ``TrainRun``, launches,
+    wall s, its standard output, which is also echoed)."""
     import io
 
     from repro_torch.kernels import build
@@ -2798,7 +3189,9 @@ def run_launcher(argv) -> tuple:
     build.reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    cut = contextlib.nullcontext() if cfg is None else \
+        mock.patch.object(train_cli, "get_config", lambda arch: cfg)
+    with contextlib.redirect_stdout(buf), cut:
         res = train_cli.run(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2840,9 +3233,10 @@ def prefetch_check(leaves) -> dict:
     return {"nbytes": x.nbytes, "kinds": host.kinds, **times}
 
 
-def launcher_phase() -> dict:
-    """``launch.train --adaptive`` on ``LAUNCHER_ARCH`` at full width and
-    depth: the fp32 optimizer state starts on pinned host memory in a
+def launcher_phase(arch: str, n_layers: int = 0) -> dict:
+    """``launch.train --adaptive`` on ``arch`` at full width and depth
+    (``n_layers`` > 0: cut to that many layers, through ``run_launcher``'s
+    ``cfg``): the fp32 optimizer state starts on pinned host memory in a
     ``TieredStateStore`` and the replanner's moves copy its blocks to
     the card.  At least one replan must be applied beyond the initial
     plan and move bytes; every block must sit on the kind its tier label
@@ -2851,22 +3245,27 @@ def launcher_phase() -> dict:
     back non-empty; the loss at the last step must be below step 0's; no
     hand-written kernel may launch (the launcher's step is the plain
     AdamW and attention, as the reference's)."""
+    from repro_torch.configs import get_config
     from repro_torch.obs import TraceRecorder
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers) \
+        if n_layers else None
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         arts = {n: str(Path(tmp) / n) for n in ("t.jsonl", "m.prom",
                                                  "a.json")}
         res, launches, wall, text = run_launcher([
-            "--arch", LAUNCHER_ARCH, "--steps", str(LAUNCHER_STEPS),
+            "--arch", arch, "--steps", str(LAUNCHER_STEPS),
             "--batch", "8", "--seq", "128", "--adaptive",
-            "--replan-every", "2", "--lr", repr(launcher_lr(LAUNCHER_ARCH)),
+            "--replan-every", "2", "--lr", repr(launcher_lr(arch)),
             "--trace-out", arts["t.jsonl"], "--metrics-out", arts["m.prom"],
-            "--audit-out", arts["a.json"]])
+            "--audit-out", arts["a.json"]], cfg)
         events = TraceRecorder.read_jsonl(arts["t.jsonl"])
         prom = Path(arts["m.prom"]).read_text()
         audit = json.loads(Path(arts["a.json"]).read_text())
     peak = torch.cuda.max_memory_allocated()
-    telem, label = res.telem, f"launcher {LAUNCHER_ARCH}"
+    telem = res.telem
+    label = f"launcher {arch}" + (f" ({n_layers} layers)" if n_layers
+                                  else "")
     prefetch = prefetch_check(telem.store.leaves(telem.OPT_OBJ))
     if any(launches.values()):
         fail(f"{label}: hand-written kernels launched {launches}")
@@ -2925,7 +3324,31 @@ def launcher_phase() -> dict:
     del res, telem, store, led
     gc.collect()
     torch.cuda.empty_cache()
+    release_pinned_cache()
     return out
+
+
+def jamba_launcher_phase() -> dict:
+    """The launcher on jamba's smoke variant (Mamba-2, MoE and attention;
+    ``--smoke``, the launcher's own learning rate) on the card,
+    ``JAMBA_LAUNCHER_STEPS`` steps of 8 x 128 tokens: the losses must be
+    finite and fall from the first step to the last, and no hand-written
+    kernel may launch."""
+    label = f"launcher {JAMBA_ARCH} smoke"
+    res, launches, wall, _ = run_launcher([
+        "--arch", JAMBA_ARCH, "--smoke", "--steps",
+        str(JAMBA_LAUNCHER_STEPS), "--batch", "8", "--seq", "128"])
+    losses = [res.losses[i] for i in sorted(res.losses)]
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"{label}: losses {losses}")
+    if any(launches.values()):
+        fail(f"{label}: hand-written kernels launched {launches}")
+    log(f"{label}: wall={wall:.2f} s step_s="
+        + " ".join(f"{res.step_s[i]:.3f}" for i in sorted(res.step_s))
+        + f" losses={[round(x, 5) for x in losses]}")
+    return {"wall_s": wall, "step_s": res.step_s, "losses": losses,
+            "launches": launches}
 
 
 def launcher_profile() -> dict:
@@ -3160,8 +3583,7 @@ def main() -> int:
     record["small_moe_reference"] = small_reference_phase(
         "qwen3-moe-30b-a3b", d_model=512, n_kv=2, head_dim=128)
     record["small_train_reference"] = {
-        arch: small_train_reference(arch)
-        for arch in (TRAIN_ARCH, "llama3-8b")}
+        arch: small_train_reference(arch) for arch in SMALL_TRAIN_ARCHS}
     record["probes_GBps"] = probe_phase()
     record["serve"] = {}
     for arch in MODELS:              # one model's weights on the card
@@ -3171,9 +3593,17 @@ def main() -> int:
     t0 = time.perf_counter()
     record["families"] = families = families_phase()
     log(f"families phase: {time.perf_counter() - t0:.1f} s, {memory()}")
-    record["train"] = {TRAIN_ARCH: train_model(TRAIN_ARCH)}
-    for name, phase in (("launcher", launcher_phase),
-                        ("checkpoint", checkpoint_phase)):
+    t0 = time.perf_counter()
+    record["train"] = {RECURRENT_ARCH: train_recurrent()}
+    log(f"train {RECURRENT_ARCH} phase: {time.perf_counter() - t0:.1f} s, "
+        f"{memory()}")
+    record["train"][TRAIN_ARCH] = train_model(TRAIN_ARCH)
+    for name, phase in (
+            ("launcher", lambda: launcher_phase(LAUNCHER_ARCH)),
+            (f"launcher {RECURRENT_ARCH}", lambda: launcher_phase(
+                RECURRENT_ARCH, n_layers=RECURRENT_LAUNCHER_LAYERS)),
+            (f"launcher {JAMBA_ARCH} smoke", jamba_launcher_phase),
+            ("checkpoint", checkpoint_phase)):
         t0 = time.perf_counter()
         record[name] = phase()
         log(f"{name} phase: {time.perf_counter() - t0:.1f} s, {memory()}")

@@ -333,3 +333,25 @@ def reference_runner(arch: str, monkeypatch):
     from repro_torch.models import modules
     monkeypatch.setattr(modules, "F", _ReferenceRoundingF())
     return eager
+
+
+def fp32_models(jparams, monkeypatch):
+    """A whole model in fp32 in both packages, for a test only: the
+    reference's params with every float leaf upcast (returned with
+    their port copy), and both packages' ``_embed_tokens`` returning
+    the embedding rows in the params' dtype (both round them to bf16).
+    Models that add no position embeddings there only."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import lm as jlm
+    from repro_torch.models import lm
+
+    def rows(p, cfg, tokens, index=None):
+        assert cfg.pos_emb not in ("learned", "sinusoidal"), cfg.pos_emb
+        return p["embed"][tokens]
+    monkeypatch.setattr(jlm, "_embed_tokens", rows)
+    monkeypatch.setattr(lm, "_embed_tokens", rows)
+    jparams = jax.tree.map(
+        lambda a: a.astype(jnp.float32)
+        if jnp.issubdtype(a.dtype, jnp.floating) else a, jparams)
+    return jparams, tree_to_torch(jparams)
