@@ -32,8 +32,15 @@ Phases, in order; any failure exits non-zero:
    runs at qwen3-moe-30b-a3b's decode shapes (batch 4, d_model 2048,
    expert d_ff 768, 128 experts, top-8) on router-like ids, with one
    duplicated expert and one padded row, x of std 1 and weights at their
-   init scales.  The tolerance is ``ATOL`` absolute plus ``RTOL``
-   relative (at least two bf16 units in the last place), so a kernel
+   init scales; and over ``EXPERT_RANGES`` (2 and 4) expert ranges, the
+   range form the sharded phase runs once per expert shard: each
+   range's fp32 partial summed in order and rounded once, against the
+   whole kernel and the plain version, with the first range's boundary
+   expert dropped as a planted fault that must fail
+   (``expert_range_kernel``; its row in the ``kernels`` line is the 4
+   ranges', each range also timed alone).  The tolerance is ``ATOL``
+   absolute plus ``RTOL`` relative (at least two bf16 units in the last
+   place), so a kernel
    that drops a tile of keys, a slot or a column tile fails.  Each
    kernel, its plain version and, where one exists, one PyTorch library
    call of the same function are timed with CUDA events, each call
@@ -89,10 +96,21 @@ Phases, in order; any failure exits non-zero:
    aggregate after every iteration, only ``decode_attention`` (a
    multiple of 32 layers) and ``flash_attention`` may launch, ``--replicas
    2 --fused-gather`` must be refused and ``launch.train --mesh 1x2``
-   must raise naming the ROADMAP item that splits work over several
-   devices.  Routed counts, each replica's tok/s, their sum, tokens per
+   must raise naming the ROADMAP item that trains over several devices
+   (11b).  Routed counts, each replica's tok/s, their sum, tokens per
    wall second, the worst p95 latency and the bytes are printed; the
    phase's launches count in the ``@KV8`` rows;
+4c''. the sharded-serving phase, first half: llama3-8b through
+   ``cluster.ClusterPlane`` over ``SHARDED_DEVICES`` logical devices of
+   the card (``["cuda:0"] * 4``; on a machine with several cards the
+   first min(4, n) cards, printed), ``SHARDED_DENSE_REPLICAS`` replicas
+   of two, ``embed`` and ``lm_head`` split over vocab
+   (``SHARDED_DENSE_MAPPING``), staged, the same prompts and pool.
+   Sessions must equal phase 4's staged tokens up to near ties, placing
+   each replica's params must add 0 B (``torch.cuda.memory_allocated``
+   around the placement: the shards are views), and the bytes by
+   replica namespace must sum to the ``*/*`` aggregate after every
+   iteration (``sharded_plane``);
 4d. serve llama3-8b one-shot (``offload.FlexGenEngine``, the serve
    CLI's default path) on the same weights: 8 prompts of 512 tokens
    (seed 0), 32 new tokens, under three placements: all on the device,
@@ -140,6 +158,17 @@ Phases, in order; any failure exits non-zero:
    promotes and hits, promotions, demotions, move-scheduler rounds,
    arbiter rebalances and the host time of the routing feed are
    printed;
+5b'. the sharded-serving phase, second half: qwen3-moe-30b-a3b through
+   the plane, one replica over ``SHARDED_DEVICES`` logical devices of
+   the card, experts and vocab split (``SHARDED_MOE_MAPPING``), staged
+   then fused on the weights phase 5 holds: tokens equal to phase 5's
+   of the same path up to near ties, 0 B added by the placement, the
+   ledger conserved; the fused run must launch the range form of
+   ``fused_expert_ffn`` once per expert shard per MoE layer and decode
+   step (4 x 48 a step) and never the whole kernel.  Greedy argmax over
+   the four vocab blocks of the head is held against ``torch.argmax``
+   of the gathered row, and with the blocks' offsets off by one (a
+   planted fault) must disagree (``vocab_argmax_check``);
 5c. train rwkv6-7b through ``ZeroOffloadEngine`` at full width and
    ``RECURRENT_TRAIN_LAYERS`` of its 32 layers (a host of 101 GiB, as
    the single-H100 machines this script runs on have, holds the pinned
@@ -200,12 +229,14 @@ Phases, in order; any failure exits non-zero:
    attention kernel at each model's KV geometry (``decode_attention@KV8``
    for llama3-8b, ``...@KV4`` for qwen3-moe-30b-a3b), the two one-shot
    kernels at that phase's shapes (``decode_attention@KV8/oneshot``,
-   ``flash_attention@KV8/oneshot``), ``fused_expert_ffn`` and
-   ``fused_adam`` and ``fused_adam@rwkv6-7b``; each row's times, bound
-   and error come from its own build and shapes, and its launches from
-   the phases that run it at those shapes: a ``/oneshot`` row's from the
-   one-shot phase, the other attention rows' from their model's other
-   serve phases, an Adam row's from its model's train phases.
+   ``flash_attention@KV8/oneshot``), ``fused_expert_ffn``, its range
+   form (``fused_expert_ffn@4 expert ranges``) and ``fused_adam`` and
+   ``fused_adam@rwkv6-7b``; each row's times, bound and error come from
+   its own build and shapes, and its launches from the phases that run
+   it at those shapes: a ``/oneshot`` row's from the one-shot phase, the
+   range row's from the sharded phase, the other attention rows' from
+   their model's other serve phases, an Adam row's from its model's
+   train phases.
 
 The kernel phase also holds ``fused_adam`` against its plain version at
 gpt2-xl-offload's largest leaf and at rwkv6-7b's ``tmix.wr`` at the
@@ -387,6 +418,15 @@ EXPERT_ARCH, EXPERT_FAST_FRACTION = "qwen3-moe-30b-a3b", 0.25
 # add less than this share of the weights' bytes (no second copy)
 CLUSTER_ARCH, CLUSTER_REPLICAS = "llama3-8b", 2
 CLUSTER_MEMORY_SHARE = 0.1
+# the sharded-serving phase: replicas over meshes of logical devices of
+# the card (the first cards of a machine with several), params split by
+# the axis mapping; qwen3-moe-30b-a3b one replica over 4, llama3-8b two
+# replicas over 2 each.  The kernel phase holds fused_expert_ffn over
+# EXPERT_RANGES expert ranges; the path runs SHARDED_DEVICES of them
+SHARDED_DEVICES = 4
+SHARDED_MOE_MAPPING = {"experts": "model", "vocab": "model"}
+SHARDED_DENSE_MAPPING, SHARDED_DENSE_REPLICAS = {"vocab": "model"}, 2
+EXPERT_RANGES = (2, SHARDED_DEVICES)
 # the control-plane phase's p99 decode SLO, as a fraction of the p95
 # decode gap its path's non-adaptive phase measured in the same call:
 # below the gaps, so violations fire and the blame plane runs
@@ -486,6 +526,15 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     log(f"  {name}: max_abs_err={err.max().item():.3g} "
         f"mean|plain|={w.abs().mean().item():.3g}")
     return err.max().item()
+
+
+def holds(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Whether ``got`` is finite and within ``compare``'s tolerance of
+    ``want`` (a planted fault must not)."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    return bool(g.shape == w.shape and torch.isfinite(g).all()
+                and ((g - w).abs() <= ATOL + RTOL * w.abs()).all())
 
 
 def sdpa(q, k, v, **kw):
@@ -806,32 +855,46 @@ def split_plans(KV: int) -> dict:
     return out
 
 
-def expert_kernel(dev, gen) -> dict:
-    """``fused_expert_ffn`` at qwen3-moe-30b-a3b's decode shapes."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.tiered_gather import fused_expert_ffn
-
+def expert_inputs(gen) -> tuple:
+    """x, w_gate, w_up, w_down, ids, wts at qwen3-moe-30b-a3b's decode
+    shapes: router-like ids over x of std 1, weights at their init
+    scales, a padded row (row 3 = row 0) and a duplicated expert id."""
     rnd = functools.partial(randn_bf16, gen)
-
     D, F, E, K = D_MOE, F_MOE, E_MOE, K_MOE
     x = rnd(B, D)
     x[3] = x[0]           # a padded row: token 0 again, routed the same
     wg, wu = rnd(E, D, F, std=D ** -0.5), rnd(E, D, F, std=D ** -0.5)
     wd = rnd(E, F, D, std=F ** -0.5)
-    router = torch.randn(D, E, generator=gen, device=dev) * D ** -0.5
+    router = torch.randn(D, E, generator=gen, device=gen.device) * D ** -0.5
     wts, ids = torch.topk(torch.softmax(x.float() @ router, -1), K)
     wts = wts / wts.sum(-1, keepdim=True)
     ids = ids.to(torch.int32)
     ids[1, K - 1] = ids[1, 0]          # one duplicated expert id
+    return x, wg, wu, wd, ids, wts
+
+
+def expert_bound(ids, D: int, F: int) -> tuple:
+    """The bytes bound of the routed expert FFN: the distinct routed
+    experts' weights once, x, the bf16 output, ids and wts."""
+    distinct = int(torch.unique(ids).numel())
+    Bx, K = ids.shape
+    t_b, by = bound(distinct * 3 * D * F * 2 + 2 * Bx * D * 2 + 8 * Bx * K,
+                    Bx * K * 6 * D * F)
+    return t_b, by, distinct
+
+
+def expert_kernel(dev, gen) -> dict:
+    """``fused_expert_ffn`` at qwen3-moe-30b-a3b's decode shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tiered_gather import fused_expert_ffn
+
+    x, wg, wu, wd, ids, wts = expert_inputs(gen)
     got = fused_expert_ffn(x, wg, wu, wd, ids, wts)
     err = compare("fused_expert_ffn B=4 D=2048 F=768 E=128 K=8", got,
                   ref.expert_ffn(x, wg, wu, wd, ids, wts))
     if not torch.equal(got[3], got[0]):
         fail("fused_expert_ffn: the padded row differs from row 0")
-    distinct = int(torch.unique(ids).numel())
-    # bytes: the distinct routed experts' weights once, x, out, ids, wts
-    t_b, by = bound(distinct * 3 * D * F * 2 + 2 * B * D * 2 + 8 * B * K,
-                    B * K * 6 * D * F)
+    t_b, by, distinct = expert_bound(ids, D_MOE, F_MOE)
     return dict(
         max_abs_err=err, **cold_times(
             lambda: fused_expert_ffn(x, wg, wu, wd, ids, wts),
@@ -840,6 +903,94 @@ def expert_kernel(dev, gen) -> dict:
                         cold=False),
         plain_ms=time_ms(lambda: ref.expert_ffn(x, wg, wu, wd, ids, wts)),
         bound_ms=t_b, bound_by=by, distinct_experts=distinct)
+
+
+def expert_ranges(E: int, n: int, drop_boundary: bool = False) -> list:
+    """The [lo, hi) of ``n`` equal expert shards of ``E``; with
+    ``drop_boundary`` (a planted fault) the first shard loses its last
+    expert."""
+    out = [(i * E // n, (i + 1) * E // n) for i in range(n)]
+    if drop_boundary:
+        out[0] = (out[0][0], out[0][1] - 1)
+    return out
+
+
+def ranged_experts(fn, x, wg, wu, wd, ids, wts, ranges) -> torch.Tensor:
+    """The sharded path's expert FFN (``serving.engine._routed_experts``
+    over split experts): ``fn`` (the range kernel or its plain version)
+    once per range on that range's stacks, the fp32 partials summed in
+    range order and rounded to bf16 once."""
+    E, acc = wg.shape[0], None
+    for lo, hi in ranges:
+        part = fn(x, wg[lo:hi], wu[lo:hi], wd[lo:hi], ids, wts, lo, hi, E)
+        acc = part if acc is None else acc + part
+    return acc.to(x.dtype)
+
+
+def expert_range_kernel(dev, gen) -> dict:
+    """``fused_expert_ffn`` over ``EXPERT_RANGES`` expert ranges (the
+    range form, ``fused_expert_ffn_partial``) at qwen3-moe-30b-a3b's
+    decode shapes, the ids routing one token to the last expert of the
+    first range of each split: the sum of the ranges against the whole
+    kernel and against the plain version; the first range's boundary
+    expert dropped (a planted fault) must fail.  The row's numbers are
+    the path's (``SHARDED_DEVICES`` ranges): ``ms`` the whole sharded
+    call, ``range_ms`` each range alone; bound: each range's distinct
+    routed experts' bytes (together the whole kernel's)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tiered_gather import (fused_expert_ffn,
+                                                   fused_expert_ffn_partial)
+    x, wg, wu, wd, ids, wts = expert_inputs(gen)
+    E = wg.shape[0]
+    for k, n in enumerate(EXPERT_RANGES):
+        ids[2, K_MOE - 1 - k] = E // n - 1      # a first-range boundary
+    whole = fused_expert_ffn(x, wg, wu, wd, ids, wts)
+    plain = ref.expert_ffn(x, wg, wu, wd, ids, wts)
+    out = {}
+    for n in EXPERT_RANGES:
+        ranges = expert_ranges(E, n)
+        name = f"fused_expert_ffn over {n} expert ranges"
+        got = ranged_experts(fused_expert_ffn_partial, x, wg, wu, wd, ids,
+                             wts, ranges)
+        compare(f"{name} vs the whole kernel", got, whole)
+        err = compare(f"{name} vs plain", got, plain)
+        dropped = ranged_experts(fused_expert_ffn_partial, x, wg, wu, wd,
+                                 ids, wts, expert_ranges(E, n, True))
+        if holds(dropped, plain):
+            fail(f"{name}: the planted fault (expert {E // n - 1} dropped "
+                 "from the first range) passed the check")
+        fault = (dropped.float() - plain.float()).abs().max().item()
+        log(f"  {name}: the planted fault (expert {E // n - 1} dropped) "
+            f"reads {fault:.3g} and fails the check")
+        call = functools.partial(ranged_experts, fused_expert_ffn_partial,
+                                 x, wg, wu, wd, ids, wts, ranges)
+        per = []
+        for lo, hi in ranges:
+            one = functools.partial(fused_expert_ffn_partial, x, wg[lo:hi],
+                                    wu[lo:hi], wd[lo:hi], ids, wts, lo, hi,
+                                    E)
+            d = int(torch.unique(ids[(ids >= lo) & (ids < hi)]).numel())
+            per.append(dict(lo=lo, hi=hi, distinct_experts=d,
+                            ms=time_ms(one),
+                            device_ms=time_ms(one, lead=True)))
+        t_b, by, distinct = expert_bound(ids, D_MOE, F_MOE)
+        if sum(r["distinct_experts"] for r in per) != distinct:
+            fail(f"{name}: the ranges' distinct experts do not add up")
+        out[n] = dict(
+            max_abs_err=err, **cold_times(call, None),
+            plain_ms=time_ms(functools.partial(
+                ranged_experts, ref.expert_ffn_partial, x, wg, wu, wd, ids,
+                wts, ranges)),
+            bound_ms=t_b, bound_by=by, distinct_experts=distinct,
+            ranges=per, fault_abs_err=fault)
+        log(f"  {name}: ms={out[n]['ms']:.4f} "
+            f"device_ms={out[n]['device_ms']:.4f}; per range "
+            + " ".join(f"[{r['lo']},{r['hi']}) {r['distinct_experts']} "
+                       f"experts {r['ms']:.4f} ({r['device_ms']:.4f})"
+                       for r in per))
+    row = dict(out[SHARDED_DEVICES])
+    row["by_ranges"] = {str(n): out[n] for n in EXPERT_RANGES}
+    return row
 
 
 def adam_inputs(gen, n: int, gdtype, offset: int = 0) -> tuple:
@@ -976,6 +1127,9 @@ def kernel_phase(dev, gen) -> dict:
     rows["fused_expert_ffn"] = dict(expert_kernel(dev, gen),
                                     kernel="fused_expert_ffn",
                                     model="qwen3-moe-30b-a3b")
+    rows[f"fused_expert_ffn@{SHARDED_DEVICES} expert ranges"] = dict(
+        expert_range_kernel(dev, gen), kernel="fused_expert_ffn",
+        model="qwen3-moe-30b-a3b", sharded=True)
     # a leaf of each train model's Adam launches, at the shape its phase
     # runs: gpt2-xl-offload's mlp.w_up (its largest), and rwkv6-7b's
     # tmix.wr at the ZeRO-Offload phase's RECURRENT_TRAIN_LAYERS
@@ -1016,8 +1170,10 @@ def kernels_line(kernels: dict, runs: dict, shape_launches: dict) -> list:
     its own model's serve phases (staged, fused, adaptive, control
     planes and experts; or, for an ``oneshot`` row, the one-shot FlexGen
     placements and the analysis phase's decode and prefill steps, which
-    run at those shapes) or train phases (both placements and the
-    analysis phase's train step), the only runs that launch its build
+    run at those shapes; for a ``sharded`` row, the sharded-serving
+    phase's, whose expert launches are the range form's) or train
+    phases (both placements and the analysis phase's train step), the
+    only runs that launch its build
     at its shapes; plus, for a row with a ``shape``,
     the families phase's launches at that shape (``shape_launches``,
     (kernel, shape) -> count)."""
@@ -1026,7 +1182,9 @@ def kernels_line(kernels: dict, runs: dict, shape_launches: dict) -> list:
                 for label, phase in runs.get(row["model"], {}).items()
                 if "launches" in phase
                 and phase.get("oneshot", label.startswith("flexgen "))
-                == row.get("oneshot", False))
+                == row.get("oneshot", False)
+                and phase.get("sharded", False)
+                == row.get("sharded", False))
         if "shape" in row:
             n += shape_launches.get((row["kernel"], tuple(row["shape"])),
                                     0)
@@ -1051,13 +1209,18 @@ def prompts_for(cfg, n: int, lens) -> list:
         np.int32) for i in range(n)]
 
 
+def serving_config(prompts, new_tokens: int, **sv_kw):
+    from repro_torch.serving import ServingConfig
+    return ServingConfig(block_tokens=BT, max_batch=B,
+                         max_context=max(len(p) for p in prompts)
+                         + new_tokens + BT,
+                         policy="tiering08", slow_kind="pinned_host",
+                         **sv_kw)
+
+
 def serve(cfg, params, prompts, new_tokens: int, device, **sv_kw):
-    from repro_torch.serving import ServingConfig, ServingEngine
-    sv = ServingConfig(block_tokens=BT, max_batch=B,
-                       max_context=max(len(p) for p in prompts)
-                       + new_tokens + BT,
-                       policy="tiering08", slow_kind="pinned_host",
-                       **sv_kw)
+    from repro_torch.serving import ServingEngine
+    sv = serving_config(prompts, new_tokens, **sv_kw)
     eng = ServingEngine(cfg, params, sv, device=device)
     for p in prompts:
         eng.submit(p, max_new_tokens=new_tokens)
@@ -1515,6 +1678,206 @@ def cluster_phase(label: str, cfg, params, prompts, staged: dict) -> dict:
             "weights_bytes": weights, "ledger_fullest": peak,
             "ledger_samples": len(samples), "ties": ties,
             "refused": refused, "mesh_error": mesh_error}
+
+
+def sharded_devices() -> list:
+    """The sharded phase's mesh devices: ``SHARDED_DEVICES`` logical
+    devices of the one card, or the first min(4, n) cards of a machine
+    with n > 1."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", i)
+                for i in range(min(SHARDED_DEVICES, n))]
+    return [torch.device("cuda", 0)] * SHARDED_DEVICES
+
+
+def sharded_plane(label: str, cfg, params, prompts, mapping: dict,
+                  n_replicas: int, fused: bool, want: dict) -> dict:
+    """One run of the cluster plane over ``sharded_devices`` under the
+    axis mapping ``mapping``: every session must finish with
+    ``NEW_TOKENS`` tokens equal to ``want``'s for its prompt up to near
+    ties; placing each replica's params must add 0 B on the card (a
+    split leaf's shards are views, a replicated leaf is the card's one
+    tensor) where the mesh is one card's logical devices; the bytes by
+    replica namespace must sum to the ``*/*`` aggregate after every
+    iteration.  Launch counters are set to 0 just before the run and
+    read just after."""
+    import torch.utils._pytree as pytree
+    from repro_torch.cluster import plane as plane_mod
+    from repro_torch.cluster import replica as replica_mod
+    from repro_torch.cluster import sharding as sh
+    from repro_torch.kernels import build
+    from repro_torch.models import shardings as msh
+    devices = sharded_devices()
+    one_card = len(set(devices)) == 1
+    placed = []
+    place = replica_mod.shard_lm_params
+
+    def measured(*a, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        out = place(*a, **kw)
+        torch.cuda.synchronize()
+        placed.append(torch.cuda.memory_allocated() - before)
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(replica_mod, "shard_lm_params", measured), \
+            sh.axis_mapping(mapping):
+        plane = plane_mod.ClusterPlane(
+            cfg, params, serving=serving_config(prompts, NEW_TOKENS,
+                                                fused_gather=fused),
+            n_replicas=n_replicas, devices=devices)
+    build_s = time.perf_counter() - t0
+    if one_card and any(placed):
+        fail(f"{label}: placing the replicas' params added {placed} B")
+    samples = []
+    for rep in plane.replicas.values():
+        def sampled(*a, _step=rep.engine.metrics.on_iteration, **kw):
+            _step(*a, **kw)
+            samples.append({kind: plane.namespace_conservation(kind)
+                            for kind in ("device", "pinned_host")})
+        rep.engine.metrics.on_iteration = sampled
+    for p in prompts:
+        plane.submit(p, NEW_TOKENS)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = plane.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    shapes = {f"{k}{list(shape)}": n
+              for (k, shape), n in build.SHAPE_LAUNCHES.items()}
+    tokens, margins = {}, {}
+    for rep in plane.replicas.values():
+        for req in rep.engine.sched.finished:
+            i = next(j for j, p in enumerate(prompts)
+                     if np.array_equal(p, req.prompt))
+            tokens[i] = list(req.out_tokens)
+            margins[i] = rep.engine.margins[req.rid]
+    if sorted(tokens) != list(range(len(prompts))) or any(
+            len(t) != NEW_TOKENS for t in tokens.values()):
+        fail(f"{label}: not every session finished with {NEW_TOKENS} "
+             "tokens")
+    ties = agree(f"{label} vs single engine", want["tokens"], tokens,
+                 margins)
+    for sample in samples:
+        for kind, cons in sample.items():
+            if sum(v for h, v in cons.items() if h != "total") \
+                    != cons["total"]:
+                fail(f"{label}: {kind} bytes by replica {cons} do not sum "
+                     "to the */* aggregate")
+    split = sorted("/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                            for k in path)
+                   for path, leaf in pytree.tree_flatten_with_path(
+                       plane.replicas[next(iter(plane.replicas))].params,
+                       is_leaf=lambda t: isinstance(t, msh.ShardedTensor))[0]
+                   if msh.is_split(leaf))
+    s = report.summary
+    log(f"serve {label}: mesh {[str(d) for d in devices]} "
+        f"({'logical devices of one card' if one_card else 'cards'}), "
+        f"{n_replicas} replica(s) of {len(devices) // n_replicas} "
+        f"device(s), mapping {mapping}: wall={wall:.2f} s "
+        f"throughput={s['throughput_tok_s']:.1f} tok/s "
+        f"({len(prompts) * NEW_TOKENS / wall:.1f} over the wall; single "
+        f"engine {want['summary']['throughput_tok_s']:.1f}) "
+        f"worst_p95_latency={s['worst_p95_latency_s'] * 1e3:.1f} ms "
+        f"plane built in {build_s:.2f} s, placement added {placed} B, "
+        f"split leaves {len(split)} ({split[:3]}...), ledger conserved "
+        f"over {len(samples)} iterations, {len(ties)} near tie(s), "
+        f"launches={launches} by shape {shapes}")
+    return {"summary": s, "wall_s": wall, "launches": launches,
+            "shape_launches": shapes, "sharded": True, "ties": ties,
+            "tokens": tokens, "placed_bytes": placed,
+            "ledger_samples": len(samples), "split_leaves": split,
+            "devices": [str(d) for d in devices], "plane": plane}
+
+
+def vocab_argmax_check(label: str, head, gen) -> dict:
+    """Greedy argmax over a vocab-split head's blocks
+    (``models.shardings.argmax``) against ``torch.argmax`` over the
+    gathered row, on 8 rows of hidden states; then with the offset of
+    every block after the first off by one (a planted fault), which
+    must disagree."""
+    from repro_torch.models import shardings as msh
+    x = randn_bf16(gen, 8, head.shape[1])
+    logits = msh.vocab_logits(x, head)
+    want = torch.argmax(msh.gather(logits), dim=-1)
+    if not torch.equal(msh.argmax(logits), want):
+        fail(f"{label}: argmax over vocab blocks != torch.argmax")
+    blocks = msh.ShardedTensor.blocks
+
+    def shifted(self, dim):
+        return [(lo + (1 if lo else 0), hi, d, t)
+                for lo, hi, d, t in blocks(self, dim)]
+
+    with mock.patch.object(msh.ShardedTensor, "blocks", shifted):
+        bad = msh.argmax(logits)
+    wrong = int((bad != want).sum())
+    if not wrong:
+        fail(f"{label}: the planted shard-offset fault passed the argmax "
+             "check")
+    log(f"{label}: argmax over {len(head.blocks(0))} vocab blocks equals "
+        f"torch.argmax on 8 rows; with the offsets off by one {wrong} of "
+        "8 rows differ")
+    return {"rows": 8, "fault_rows": wrong}
+
+
+def sharded_moe_phase(cfg, params, prompts, staged: dict,
+                      fused: dict) -> dict:
+    """qwen3-moe-30b-a3b over ``SHARDED_DEVICES`` logical devices (one
+    replica), experts and vocab split (``SHARDED_MOE_MAPPING``), staged
+    then fused on the weights the MoE phases hold: tokens equal to
+    those phases' up to near ties; the fused run launches the range form
+    of ``fused_expert_ffn`` once per expert shard per MoE layer and
+    step, and never the whole kernel; the staged run none."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    n_moe = cfg.n_units * sum(spec.moe for spec in cfg.pattern)
+    out = {}
+    for path, want in (("staged", staged), ("fused", fused)):
+        label = f"{cfg.name} sharded x{SHARDED_DEVICES} {path}"
+        run = sharded_plane(label, cfg, params, prompts,
+                            SHARDED_MOE_MAPPING, 1, path == "fused", want)
+        plane = run.pop("plane")
+        experts = run["launches"]["fused_expert_ffn"]
+        shards = len(plane.replicas["host0"].mesh.devices.flat)
+        whole = sum(n for k, n in run["shape_launches"].items()
+                    if k.startswith("fused_expert_ffn")
+                    and k.endswith(f", {cfg.n_experts}]"))
+        if path == "fused":
+            if not experts or experts % (shards * n_moe) or whole:
+                fail(f"{label}: {experts} fused_expert_ffn launches "
+                     f"({whole} of the whole kernel), not a multiple of "
+                     f"{shards} shards x {n_moe} MoE layers")
+            log(f"{label}: fused_expert_ffn {experts} launches = "
+                f"{shards} x {n_moe} MoE layers x "
+                f"{experts // (shards * n_moe)} decode steps")
+            head = plane.replicas["host0"].engine.params[
+                "embed" if cfg.tie_embeddings else "lm_head"]
+            run["argmax"] = vocab_argmax_check(label, head, gen)
+        elif experts:
+            fail(f"{label}: fused_expert_ffn launched off the fused path")
+        out[f"sharded {path}"] = run
+        del plane
+    return out
+
+
+def sharded_dense_phase(cfg, params, prompts, staged: dict) -> dict:
+    """llama3-8b through the plane: ``SHARDED_DENSE_REPLICAS`` replicas
+    of ``SHARDED_DEVICES // SHARDED_DENSE_REPLICAS`` logical devices,
+    vocab split, staged: sessions equal to the single engine's up to
+    near ties."""
+    run = sharded_plane(
+        f"{cfg.name} sharded plane {SHARDED_DENSE_REPLICAS}x"
+        f"{SHARDED_DEVICES // SHARDED_DENSE_REPLICAS}", cfg, params,
+        prompts, SHARDED_DENSE_MAPPING, SHARDED_DENSE_REPLICAS, False,
+        staged)
+    run["routed"] = run.pop("plane").router.routed_counts()
+    if not all(run["routed"].values()):
+        fail(f"{cfg.name} sharded plane: routed {run['routed']}")
+    return run
 
 
 def experts_phase(label: str, cfg, params, prompts, plain: dict) -> dict:
@@ -2680,6 +3043,11 @@ def serve_model(arch: str, profile: bool) -> dict:
             out["staged"])
         log(f"cluster {arch}: {time.perf_counter() - t0:.1f} s, "
             f"{memory()}")
+        t0 = time.perf_counter()
+        out["sharded plane"] = sharded_dense_phase(cfg, params, prompts,
+                                                   out["staged"])
+        log(f"sharded {arch}: {time.perf_counter() - t0:.1f} s, "
+            f"{memory()}")
     if arch == FLEXGEN_ARCH:
         t0 = time.perf_counter()
         flex = flexgen_phase(cfg, params)
@@ -2693,6 +3061,11 @@ def serve_model(arch: str, profile: bool) -> dict:
     if arch == EXPERT_ARCH:
         out["experts"] = experts_phase(f"{arch} fused, experts", cfg,
                                        params, prompts, out["fused"])
+        t0 = time.perf_counter()
+        out.update(sharded_moe_phase(cfg, params, prompts, out["staged"],
+                                     out["fused"]))
+        log(f"sharded {arch}: {time.perf_counter() - t0:.1f} s, "
+            f"{memory()}")
     if profile:
         out["profile"] = profile_phase(cfg, params)
     return out

@@ -5,13 +5,15 @@
 
 * a :func:`~repro_torch.topology.multi_host_pod` testbed — one global
   inter-host graph for routing, one local graph per replica — built
-  from transfer probes of the plane's device, taken once;
+  from transfer probes of the first device, taken once;
 * ``n`` :class:`~repro_torch.cluster.replica.Replica`\\ s, each a
-  serving engine whose pool registers in ONE **shared**
-  :class:`~repro_torch.pool.ResidencyLedger` under its
-  ``<replica>/<tenant>`` namespace.  They run as logical replicas on
-  the plane's one device, sharing its weights, each with its own paged
-  pool (``cluster.sharding.replica_meshes`` over that device);
+  serving engine on its mesh of ``devices``
+  (``cluster.sharding.replica_meshes``), its params split under the
+  active axis mapping (``shard_model``), and a pool that registers in
+  ONE **shared** :class:`~repro_torch.pool.ResidencyLedger` under its
+  ``<replica>/<tenant>`` namespace.  With fewer devices than replicas
+  they share a device and its weights, each with its own paged pool;
+  ``devices`` may name one card several times (logical devices);
 * a :class:`~repro_torch.cluster.router.SessionRouter` placing sessions
   by fast-tier headroom and front-end distance;
 * a plane-level :class:`~repro_torch.pool.TierBudgetArbiter` carrying
@@ -26,11 +28,10 @@ scheme, with no double counting and no leakage.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..core.tiered_array import DeviceLike, resolve_device
 from ..obs import MetricsRegistry, TraceRecorder
 from ..pool import ResidencyLedger, TierBudgetArbiter
 from ..serving import ServingConfig
@@ -58,24 +59,26 @@ class ClusterReport:
 
 class ClusterPlane:
     """Front-end + replicas over one shared, namespaced ledger, on
-    ``device`` (CUDA unless the CPU is asked for; ``params`` must live
-    there).  The reference's ``shard_model`` is not taken: on one
-    device its two placements are the same."""
+    ``devices`` (every CUDA device by default, as the reference takes
+    ``jax.devices()``; entries may repeat a device), replicas run in
+    turn; ``shard_model`` splits each replica's params under the active
+    axis mapping."""
 
     def __init__(self, cfg, params,
                  serving: Optional[ServingConfig] = None,
                  n_replicas: int = 2,
                  router_policy: str = "headroom-distance",
                  testbed: Optional[ClusterTestbed] = None,
-                 seed: int = 0, ledger=None, clock=None,
-                 device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 shard_model: bool = True, seed: int = 0,
+                 ledger=None, clock=None,
+                 devices: Optional[Sequence] = None):
+        meshes = replica_meshes(n_replicas, devices=devices)
         if testbed is None:
-            # probe the device once; every host's testbed shares it
+            # probe the first device once; every host's testbed shares it
             from ..obs.calibrate import measure_transfer_probes
             testbed = multi_host_pod(n_replicas, probes=(
                 measure_transfer_probes(kinds=H100_KINDS,
-                                        device=self.device)))
+                                        device=meshes[0].first_device)))
         if len(testbed.hosts) < n_replicas:
             raise ValueError(
                 f"testbed has {len(testbed.hosts)} hosts for "
@@ -84,13 +87,13 @@ class ClusterPlane:
         self.ledger = ledger if ledger is not None else ResidencyLedger()
         self.registry = MetricsRegistry()
         self.tracer = TraceRecorder()
-        meshes = replica_meshes(n_replicas, devices=[self.device])
         self.replicas: Dict[str, Replica] = {}
         for host, mesh in zip(testbed.hosts, meshes):
             self.replicas[host] = Replica(
                 host, cfg, params, serving=serving, mesh=mesh,
                 ledger=self.ledger, host=host,
-                testbed=testbed.replicas.get(host), clock=clock)
+                testbed=testbed.replicas.get(host),
+                shard_model=shard_model, clock=clock)
         self.router = SessionRouter(router_policy, seed=seed)
         for host, rep in self.replicas.items():
             self.router.register(

@@ -2,10 +2,11 @@
 ``repro.cluster.replica``).
 
 A :class:`Replica` owns the full single-host serving stack: params
-placed on its own device mesh, a :class:`~repro_torch.serving.
-ServingEngine` on that mesh's device (the port's ``device`` argument
-takes the place of the reference's mesh-placed ``pool_sharding``), and
-a local topology testbed.
+placed on its own device mesh (split under the active axis mapping, or
+replicated), a :class:`~repro_torch.serving.ServingEngine` that
+computes on the mesh's first device and keeps its paged KV pool there
+(the engine's ``device`` takes the place of the reference's
+mesh-placed ``pool_sharding``), and a local topology testbed.
 
 The ownership boundary the namespace scheme encodes: everything the
 replica allocates registers in the **shared** residency ledger under
@@ -23,20 +24,22 @@ from ..launch.mesh import Mesh
 from ..serving import ServingConfig, ServingEngine
 from ..serving.kv_pool import FAST_KIND
 from .namespace import Namespace
-from .sharding import current_axis_mapping, shard_lm_params
+from .sharding import AxisMapping, current_axis_mapping, shard_lm_params
 
 __all__ = ["Replica"]
 
 
 class Replica:
     """A serving engine on its replica mesh, registered under its
-    namespace.  Without a mesh the engine runs on CUDA and takes
-    ``params`` as they are."""
+    namespace.  ``shard_model``: split the params under the active axis
+    mapping (else replicate them).  Without a mesh the engine runs on
+    CUDA and takes ``params`` as they are."""
 
     def __init__(self, name: str, cfg, params,
                  serving: Optional[ServingConfig] = None,
                  mesh: Optional[Mesh] = None, ledger=None,
                  host: Optional[str] = None, testbed=None,
+                 shard_model: bool = True,
                  clock: Optional[Callable[[], float]] = None):
         self.name = name
         self.host = host or name
@@ -51,11 +54,10 @@ class Replica:
         sv.tenant = str(self.ns)
         device = None
         if mesh is not None:
-            # on a one-device mesh the reference's sharded and
-            # replicated placements (its shard_model) both keep every
-            # leaf whole; a leaf already there is not copied
-            device = mesh.device
-            params = shard_lm_params(params, mesh, current_axis_mapping())
+            device = mesh.first_device
+            params = shard_lm_params(
+                params, mesh,
+                current_axis_mapping() if shard_model else AxisMapping())
         self.params = params
         self.engine = ServingEngine(
             cfg, params, serving=sv, clock=clock or time.perf_counter,

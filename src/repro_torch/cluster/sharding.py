@@ -11,24 +11,28 @@
 The meshes come from :func:`replica_meshes`, which partitions devices
 into per-replica groups.  With fewer devices than replicas every
 replica gets a one-device mesh sharing a device, as the reference's
-tests run on one CPU device: the cluster plane runs its replicas so on
-one card.  On a one-device mesh placement moves a tensor to that
-device (or returns it as it is) and the adapter calls its function
-directly; a mesh of more than one device raises naming
-``launch.mesh.MULTI_DEVICE_ITEM``.
+tests run on one CPU device.  A mesh may list one physical device
+several times (logical devices), as the reference's CI forces several
+host devices onto one CPU.
+
+:func:`shard_lm_params` places an LM param tree on a mesh: each leaf
+becomes a ``models.shardings.ShardedTensor`` (the counterpart of a
+``jax.Array`` with a ``NamedSharding``), split where the mapping routes
+its logical axis to a mesh axis that divides it; the model reads a
+split leaf through the helpers there.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 from contextlib import contextmanager
-from typing import List, Mapping, Optional, Sequence
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..launch.mesh import cuda_devices, Mesh, MULTI_DEVICE_ITEM
-from ..models.shardings import PartitionSpec
+from ..launch.mesh import cuda_devices, Mesh
+from ..models.shardings import PartitionSpec, ShardedTensor, shard_tensor
 
 __all__ = ["AxisMapping", "axis_mapping", "current_axis_mapping",
            "replica_meshes", "replica_shard_map", "shard_lm_params"]
@@ -98,8 +102,8 @@ def axis_mapping(mapping: "AxisMapping | Mapping[str, Optional[str]]"):
 
 def replica_meshes(n_replicas: int, axis_name: str = MODEL_AXIS,
                    devices: Optional[Sequence] = None) -> List[Mesh]:
-    """Partition ``devices`` (every CUDA device by default) into
-    ``n_replicas`` 1-D meshes.
+    """Partition ``devices`` (every CUDA device by default; entries may
+    repeat a device) into ``n_replicas`` 1-D meshes.
 
     With ``d`` devices and ``n`` replicas each mesh gets ``d // n``
     devices (remainder unused, keeping replicas symmetric).  With fewer
@@ -123,12 +127,23 @@ def replica_meshes(n_replicas: int, axis_name: str = MODEL_AXIS,
     return meshes
 
 
-def _one_device(mesh: Mesh, what: str) -> torch.device:
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"{what} over a mesh of {mesh.size} devices "
-            f"{dict(mesh.shape)}: {MULTI_DEVICE_ITEM}")
-    return mesh.device
+# ---------------------------------------------------------------------- #
+# placement                                                               #
+# ---------------------------------------------------------------------- #
+def _leaf_logical_axes(path: Tuple[str, ...],
+                       ndim: int) -> List[Optional[str]]:
+    """Logical axis names for an LM param leaf, by its tree path (the
+    reference's rule).  ``embed``/``lm_head`` are (vocab, d_model); MoE
+    leaves name dim 1 of a unit-stacked leaf (dim 0 otherwise)
+    ``experts``.  So does the stacked router (U, D, E), whose dim 1 is
+    d_model: placed as the reference places it, and gathered whole
+    before the router product."""
+    axes: List[Optional[str]] = [None] * ndim
+    if path and path[-1] in ("embed", "lm_head") and ndim >= 1:
+        axes[0] = "vocab"
+    if "moe" in path and ndim >= 2:
+        axes[1 if "units" in path else 0] = "experts"
+    return axes
 
 
 def _map(fn, tree, path=()):
@@ -142,29 +157,66 @@ def _map(fn, tree, path=()):
 
 def shard_lm_params(params, mesh: Mesh,
                     mapping: Optional[AxisMapping] = None):
-    """Place an LM param tree on ``mesh`` under the axis mapping.
+    """Place an LM param tree on ``mesh`` under the axis mapping (the
+    active one by default).
 
-    The reference partitions a dim whose logical axis (``vocab``,
-    ``experts``) the mapping routes to a mesh axis.  On a one-device
-    mesh every axis has size 1, so every leaf stays whole on that
-    device, whatever the mapping: a leaf already there is returned as
-    it is (replicas sharing a card share its weights), any other is
-    moved there.  A mesh of more than one device raises
-    (``MULTI_DEVICE_ITEM``)."""
-    dev = _one_device(mesh, "shard_lm_params")
+    Every tensor leaf becomes a :class:`ShardedTensor`: dims whose
+    logical axis the mapping routes to a mesh axis are partitioned
+    *when evenly divisible* (otherwise replicated, as the reference
+    does: a 50k vocab on a 3-device mesh should not crash serving), all
+    other dims replicated.  With the default empty mapping this is pure
+    replication.  A leaf already on the mesh's devices is not copied."""
+    mapping = mapping or current_axis_mapping()
+    sizes = dict(mesh.shape)
 
     def place(path, leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        return leaf if leaf.device == dev else leaf.to(dev)
+        spec = []
+        for dim, logical in zip(leaf.shape,
+                                _leaf_logical_axes(path, leaf.ndim)):
+            phys = mapping.physical(logical) if logical else None
+            ok = phys in sizes and dim % sizes[phys] == 0
+            spec.append(phys if ok else None)
+        return shard_tensor(leaf, mesh, PartitionSpec(*spec))
 
     return _map(place, params)
 
 
 def replica_shard_map(fn, mesh: Mesh, in_specs, out_specs,
                       check_rep: bool = False):
-    """``fn`` over a replica mesh: on a one-device mesh every spec keeps
-    whole tensors on that device, so this is ``fn`` itself.  A mesh of
-    more than one device raises (``MULTI_DEVICE_ITEM``)."""
-    _one_device(mesh, "replica_shard_map")
-    return fn
+    """``shard_map`` over a replica mesh: the returned function runs
+    ``fn`` once per mesh device on that device's blocks of its
+    arguments and assembles each output from the devices' outputs as a
+    :class:`ShardedTensor` on the mesh.  ``in_specs``: one
+    ``PartitionSpec`` (or None: passed as it is) per argument, or one
+    spec for a function of one argument; ``out_specs``: one spec, or a
+    tuple of them for a tuple output.  ``check_rep`` is the reference's
+    option and is not read."""
+    specs = (in_specs,) if in_specs is None or isinstance(
+        in_specs, PartitionSpec) else tuple(in_specs)
+
+    def place(a, spec):
+        if spec is None or isinstance(a, ShardedTensor) or \
+                not isinstance(a, torch.Tensor):
+            return a
+        return shard_tensor(a, mesh, spec)
+
+    def mapped(*args):
+        if len(args) != len(specs):
+            raise ValueError(f"{len(args)} arguments for {len(specs)} "
+                             "in_specs")
+        placed = [place(a, s) for a, s in zip(args, specs)]
+        outs = [fn(*(a.shards[i] if isinstance(a, ShardedTensor) else a
+                     for a in placed)) for i in range(mesh.size)]
+        single = not isinstance(outs[0], tuple)
+        ospecs = (out_specs,) if single else tuple(out_specs)
+        res = []
+        for j, ospec in enumerate(ospecs):
+            locs = [o if single else o[j] for o in outs]
+            st = ShardedTensor(locs[0].shape, ospec, mesh, locs)
+            st.shape = torch.Size(n * st.parts(d)
+                                  for d, n in enumerate(locs[0].shape))
+            res.append(st)
+        return res[0] if single else tuple(res)
+    return mapped

@@ -34,6 +34,12 @@
 // tokens by expert, and wgmma at larger batch, are later work.
 //
 // An id outside [0, E) reads nothing and makes its token's output NaN.
+//
+// Over an expert range (an expert shard of a mesh): the weight pointers
+// are the shard's (e_hi - e_lo, D, F) / (.., F, D) stacks, and a
+// (token, slot) whose id lies outside [e_lo, e_hi) reads nothing and
+// adds 0.  With out_f32 the sum is stored as an fp32 (B, D) partial, so
+// that the shards' partials are summed before the one rounding to bf16.
 #include "common.cuh"
 
 namespace {
@@ -79,7 +85,7 @@ __global__ void __launch_bounds__(kThreads)
 expert_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
                  const bf16* __restrict__ wu,
                  const int32_t* __restrict__ ids, float* __restrict__ h,
-                 int K, int D, int F, int E) {
+                 int K, int D, int F, int E, int e_lo, int e_hi) {
   extern __shared__ float smem[];
   float* xs = smem;
   float* red_g = smem + D;
@@ -89,6 +95,14 @@ expert_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   const int e = __ldg(ids + bk);
   const bool valid = e >= 0 && e < E;
   const int tid = threadIdx.x;
+  if (valid && (e < e_lo || e >= e_hi)) {
+    // another shard's expert: nothing read; pass 2 skips the slot
+    for (int c = tid; c < kUpCols; c += kThreads) {
+      const int f = blockIdx.x * kUpCols + c;
+      if (f < F) h[static_cast<int64_t>(bk) * F + f] = 0.f;
+    }
+    return;
+  }
   for (int d = tid; d < D; d += kThreads)
     xs[d] = __bfloat162float(x[static_cast<int64_t>(b) * D + d]);
   __syncthreads();
@@ -97,7 +111,7 @@ expert_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   const int f0 = blockIdx.x * kUpCols + grp * kVec;
   float ag[kVec] = {}, au[kVec] = {};
   if (valid && f0 < F) {
-    const int64_t base = static_cast<int64_t>(e) * D * F + f0;
+    const int64_t base = static_cast<int64_t>(e - e_lo) * D * F + f0;
     const bf16* pg = wg + base;
     const bf16* pu = wu + base;
     int d = row;
@@ -142,12 +156,14 @@ expert_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
 }
 
 // Pass 2.  Shared memory: wts[b,k] * h[b,k,:] (K*F floats), then the
-// (kDownRows, kDownCols) partials.
+// (kDownRows, kDownCols) partials.  Stores bf16 to out, or the fp32 sum
+// to out_f32 where it is given.
 __global__ void __launch_bounds__(kThreads)
 expert_down_kernel(const float* __restrict__ h, const bf16* __restrict__ wd,
                    const int32_t* __restrict__ ids,
                    const float* __restrict__ wts, bf16* __restrict__ out,
-                   int K, int D, int F, int E) {
+                   float* __restrict__ out_f32, int K, int D, int F, int E,
+                   int e_lo, int e_hi) {
   extern __shared__ float smem[];
   float* hs = smem;
   float* red = smem + K * F;
@@ -169,7 +185,8 @@ expert_down_kernel(const float* __restrict__ h, const bf16* __restrict__ wd,
         for (int i = 0; i < kVec; ++i) acc[i] = nan_f();
         continue;
       }
-      const bf16* p = wd + static_cast<int64_t>(e) * F * D + d0;
+      if (e < e_lo || e >= e_hi) continue;          // another shard's
+      const bf16* p = wd + static_cast<int64_t>(e - e_lo) * F * D + d0;
       const float* hk = hs + k * F;
       int f = row;
       for (; f + (kUnroll - 1) * kDownRows < F; f += kUnroll * kDownRows) {
@@ -193,7 +210,10 @@ expert_down_kernel(const float* __restrict__ h, const bf16* __restrict__ wd,
     if (d >= D) continue;
     float s = 0.f;
     for (int r = 0; r < kDownRows; ++r) s += red[r * kDownCols + c];
-    out[static_cast<int64_t>(b) * D + d] = __float2bfloat16(s);
+    if (out_f32)
+      out_f32[static_cast<int64_t>(b) * D + d] = s;
+    else
+      out[static_cast<int64_t>(b) * D + d] = __float2bfloat16(s);
   }
 }
 
@@ -209,16 +229,19 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 }  // namespace
 
-// x (B, D) bf16; wg/wu (E, D, F) bf16; wd (E, F, D) bf16; ids (B, K)
-// int32; wts (B, K) fp32; h (B, K, F) fp32 scratch; out (B, D) bf16.
-// All contiguous and 16-byte aligned; D and F multiples of 8.
+// x (B, D) bf16; wg/wu (e_hi - e_lo, D, F) bf16; wd (e_hi - e_lo, F, D)
+// bf16, the experts [e_lo, e_hi) of E; ids (B, K) int32 global ids; wts
+// (B, K) fp32; h (B, K, F) fp32 scratch; out (B, D) bf16, or fp32 where
+// out_f32 is nonzero.  All contiguous and 16-byte aligned; D and F
+// multiples of 8.  The whole kernel: e_lo 0, e_hi E, out_f32 0.
 extern "C" int fused_expert_ffn_bf16(const void* x, const void* wg,
                                      const void* wu, const void* wd,
                                      const void* ids, const void* wts,
                                      void* h, void* out, int B, int K,
-                                     int D, int F, int E, void* stream) {
+                                     int D, int F, int E, int e_lo,
+                                     int e_hi, int out_f32, void* stream) {
   if (B <= 0 || K <= 0 || D <= 0 || F <= 0 || E <= 0 || D % kVec ||
-      F % kVec || B * K > 65535)
+      F % kVec || B * K > 65535 || e_lo < 0 || e_hi > E || e_lo > e_hi)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t up_smem =
       (static_cast<size_t>(D) + 2 * kUpRows * kUpCols) * sizeof(float);
@@ -232,13 +255,14 @@ extern "C" int fused_expert_ffn_bf16(const void* x, const void* wg,
                      up_smem, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
       static_cast<const bf16*>(wu), static_cast<const int32_t*>(ids),
-      static_cast<float*>(h), K, D, F, E);
+      static_cast<float*>(h), K, D, F, E, e_lo, e_hi);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   expert_down_kernel<<<dim3((D + kDownCols - 1) / kDownCols, B), kThreads,
                        down_smem, st>>>(
       static_cast<const float*>(h), static_cast<const bf16*>(wd),
       static_cast<const int32_t*>(ids), static_cast<const float*>(wts),
-      static_cast<bf16*>(out), K, D, F, E);
+      out_f32 ? nullptr : static_cast<bf16*>(out),
+      out_f32 ? static_cast<float*>(out) : nullptr, K, D, F, E, e_lo, e_hi);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,9 @@ from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import check_args as _flash_check
 from .flash_attention import flash_attention as _flash_kernel
 from .fused_adam import fused_adam as _adam_kernel
+from .tiered_gather import check_expert_range
 from .tiered_gather import fused_expert_ffn as _expert_kernel
+from .tiered_gather import fused_expert_ffn_partial as _expert_range_kernel
 from .tiered_gather import paged_decode_attention as _paged_kernel
 
 
@@ -51,6 +53,19 @@ def fused_expert_ffn(x, w_gate, w_up, w_down, expert_ids,
         return _expert_kernel(x, w_gate, w_up, w_down, expert_ids,
                               expert_wts)
     return ref.expert_ffn(x, w_gate, w_up, w_down, expert_ids, expert_wts)
+
+
+def fused_expert_ffn_partial(x, w_gate, w_up, w_down, expert_ids,
+                             expert_wts, e_lo: int, e_hi: int,
+                             n_experts: int) -> torch.Tensor:
+    """The expert FFN over the experts [e_lo, e_hi) of ``n_experts`` (an
+    expert shard's stacks): the fp32 (B, D) partial."""
+    check_expert_range(e_lo, e_hi, n_experts, w_gate)
+    if _on_cuda(x):
+        return _expert_range_kernel(x, w_gate, w_up, w_down, expert_ids,
+                                    expert_wts, e_lo, e_hi, n_experts)
+    return ref.expert_ffn_partial(x, w_gate, w_up, w_down, expert_ids,
+                                  expert_wts, e_lo, e_hi, n_experts)
 
 
 def fused_adam(master, m, v, g, *, lr, b1, b2, eps, wd, b1c, b2c):

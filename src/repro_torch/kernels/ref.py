@@ -120,3 +120,27 @@ def expert_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         * torch.einsum("bd,bkdf->bkf", xf, wu)
     out = torch.einsum("bkf,bkfd->bkd", h, wd)
     return torch.einsum("bk,bkd->bd", expert_wts.float(), out).to(x.dtype)
+
+
+def expert_ffn_partial(x: torch.Tensor, w_gate: torch.Tensor,
+                       w_up: torch.Tensor, w_down: torch.Tensor,
+                       expert_ids: torch.Tensor, expert_wts: torch.Tensor,
+                       e_lo: int, e_hi: int, n_experts: int) -> torch.Tensor:
+    """Plain version of ``fused_expert_ffn_partial``: the fp32 (B, D)
+    sum over the slots whose global id lies in [e_lo, e_hi), read from
+    the shard's (e_hi - e_lo, ...) stacks; other slots add 0, and a
+    token with an id outside [0, n_experts) gives NaN."""
+    idx = expert_ids.to(torch.int64)
+    mine = (idx >= e_lo) & (idx < e_hi)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    if e_hi > e_lo:
+        loc = torch.where(mine, idx - e_lo, torch.zeros_like(idx))
+        xf = x.float()
+        wg, wu, wd = (w[loc].float() for w in (w_gate, w_up, w_down))
+        h = torch.nn.functional.silu(torch.einsum("bd,bkdf->bkf", xf, wg)) \
+            * torch.einsum("bd,bkdf->bkf", xf, wu)
+        per = torch.einsum("bkf,bkfd->bkd", h, wd)
+        per = torch.where(mine[..., None], per, torch.zeros_like(per))
+        out = torch.einsum("bk,bkd->bd", expert_wts.float(), per)
+    bad = ((idx < 0) | (idx >= n_experts)).any(-1)
+    return torch.where(bad[:, None], torch.full_like(out, math.nan), out)

@@ -32,7 +32,11 @@ into an fp32 scratch, pass 2 (blocks over narrow D tiles and tokens)
 sums ``wts * h Wd`` over the slots in order and stores bf16; threads own
 8 columns each and read weight rows with 16-byte loads.  Known weakness,
 left for a later version: each (token, slot) reads its expert on its
-own, so an expert two tokens route to is read twice.
+own, so an expert two tokens route to is read twice.  Over an expert
+shard (``fused_expert_ffn_partial``) the same call takes the shard's
+stacks and its range [e_lo, e_hi): slots routed elsewhere are skipped
+in both passes, and pass 2 stores an fp32 partial, so that the shards'
+partials meet before the one rounding to bf16.
 """
 from __future__ import annotations
 
@@ -94,24 +98,63 @@ def fused_expert_ffn(x: torch.Tensor, w_gate: torch.Tensor,
     in fp32.  Takes D and F multiples of 8; raises on any other input,
     and on CPU tensors (``kernels.ops`` routes those to
     ``ref.expert_ffn``).  An id outside [0, E) gives NaN for its token."""
+    E = w_gate.shape[0]
+    return _expert_launch(x, w_gate, w_up, w_down, expert_ids, expert_wts,
+                          0, E, E, partial=False)
+
+
+def check_expert_range(e_lo: int, e_hi: int, n_experts: int,
+                       w_gate: torch.Tensor) -> None:
+    """Raise unless 0 <= e_lo <= e_hi <= n_experts and the stack holds
+    the e_hi - e_lo experts of the range."""
+    if not 0 <= e_lo <= e_hi <= n_experts:
+        raise ValueError(f"expert range [{e_lo}, {e_hi}) outside "
+                         f"[0, {n_experts}]")
+    if w_gate.shape[0] != e_hi - e_lo:
+        raise ValueError(f"expert stack of {w_gate.shape[0]} experts for "
+                         f"the range [{e_lo}, {e_hi})")
+
+
+def fused_expert_ffn_partial(x: torch.Tensor, w_gate: torch.Tensor,
+                             w_up: torch.Tensor, w_down: torch.Tensor,
+                             expert_ids: torch.Tensor,
+                             expert_wts: torch.Tensor, e_lo: int, e_hi: int,
+                             n_experts: int) -> torch.Tensor:
+    """``fused_expert_ffn`` over the experts [e_lo, e_hi) of
+    ``n_experts``, an expert shard: the weights are the shard's
+    (e_hi - e_lo, ...) stacks and ``expert_ids`` hold global ids.
+    Returns the (B, D) fp32 partial sum over the slots routed into the
+    range: a slot routed elsewhere reads nothing and adds 0, an id
+    outside [0, n_experts) gives NaN for its token.  The shards'
+    partials summed and rounded to bf16 once give the whole kernel's
+    output up to the order of the fp32 sum."""
+    check_expert_range(e_lo, e_hi, n_experts, w_gate)
+    return _expert_launch(x, w_gate, w_up, w_down, expert_ids, expert_wts,
+                          e_lo, e_hi, n_experts, partial=True)
+
+
+def _expert_launch(x, w_gate, w_up, w_down, expert_ids, expert_wts,
+                   e_lo: int, e_hi: int, E: int, partial: bool):
     B, D = x.shape
-    E, _, F = w_gate.shape
+    Es, F = w_gate.shape[0], w_gate.shape[2]
     K = expert_ids.shape[1]
     require(x, "x", torch.bfloat16, (B, D))
-    require(w_gate, "w_gate", torch.bfloat16, (E, D, F))
-    require(w_up, "w_up", torch.bfloat16, (E, D, F))
-    require(w_down, "w_down", torch.bfloat16, (E, F, D))
+    require(w_gate, "w_gate", torch.bfloat16, (Es, D, F))
+    require(w_up, "w_up", torch.bfloat16, (Es, D, F))
+    require(w_down, "w_down", torch.bfloat16, (Es, F, D))
     ids = expert_ids.to(torch.int32).contiguous()
     wts = expert_wts.to(torch.float32).contiguous()
     require(ids, "expert_ids", torch.int32, (B, K))
     require(wts, "expert_wts", torch.float32, (B, K))
     h = torch.empty((B, K, F), dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
+    out = torch.empty((B, D), dtype=torch.float32 if partial
+                      else torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         rc = build.load("fused_expert_ffn").fused_expert_ffn_bf16(
             x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
             w_down.data_ptr(), ids.data_ptr(), wts.data_ptr(), h.data_ptr(),
-            out.data_ptr(), B, K, D, F, E, stream_of(x))
+            out.data_ptr(), B, K, D, F, E, e_lo, e_hi, int(partial),
+            stream_of(x))
     build.check(rc, "fused_expert_ffn")
-    build.count("fused_expert_ffn", B, K, D, F, E)
+    build.count("fused_expert_ffn", B, K, D, F, Es)
     return out

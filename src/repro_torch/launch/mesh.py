@@ -5,9 +5,12 @@ shape and names ``jax.sharding.Mesh`` carries: the partition rules
 (``models.shardings``, ``models.psharding``, ``cluster.sharding``) read
 only ``axis_names`` and ``devices.shape``.  It is not a
 ``torch.distributed.DeviceMesh``, which needs a process group for each
-device: splitting tensors over several cards is ROADMAP queue 1, item
-11 (``MULTI_DEVICE_ITEM``), and until then work is placed on meshes of
-one device only.
+device: one process drives every device of the mesh.  A mesh may name
+one physical device several times (*logical* devices, ``["cuda:0"] *
+4``): ``models.shardings.ShardedTensor`` then keeps one shard per
+entry, each at the shard's shape, on that one device.  The serving
+plane places its replicas so; what is still placed on meshes of one
+device only is training (``MULTI_DEVICE_ITEM``).
 
 Functions, not module-level constants, so importing this module never
 touches CUDA.
@@ -24,9 +27,10 @@ import torch
 
 from ..core.tiered_array import resolve_device
 
-# what a placement that would split a tensor over more than one device
-# raises with: the ROADMAP item that ports it
-MULTI_DEVICE_ITEM = "ROADMAP queue 1, item 11 (multi-device sharding)"
+# what a training placement that would split a tensor over more than one
+# device raises with: the ROADMAP item that ports it
+MULTI_DEVICE_ITEM = ("ROADMAP queue 1, item 11b (training under FSDP x TP "
+                     "over a torch.distributed world)")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -43,7 +47,9 @@ class Mesh:
         if devs.ndim != len(names):
             raise ValueError(f"mesh of shape {devs.shape} needs "
                              f"{devs.ndim} axis names, got {names}")
-        object.__setattr__(self, "devices", devs)
+        flat = np.empty(devs.size, dtype=object)
+        flat[:] = [_existing(d) for d in devs.flat]
+        object.__setattr__(self, "devices", flat.reshape(devs.shape))
         object.__setattr__(self, "axis_names", names)
 
     @property
@@ -62,6 +68,31 @@ class Mesh:
                 f"a mesh of {self.size} devices {dict(self.shape)}: "
                 f"{MULTI_DEVICE_ITEM}")
         return self.devices.flat[0]
+
+    @property
+    def first_device(self) -> torch.device:
+        """The device that runs the work on replicated operands and
+        receives sums and gathers across shards."""
+        return self.devices.flat[0]
+
+    @property
+    def physical_devices(self) -> list:
+        """The distinct devices of the mesh, in order of first entry."""
+        return list(dict.fromkeys(self.devices.flat))
+
+
+def _existing(d) -> torch.device:
+    """``d`` as a ``torch.device``, a CUDA one with its index; raises for
+    a CUDA device this machine does not have."""
+    d = torch.device(d)
+    if d.type == "cuda":
+        n = torch.cuda.device_count()
+        i = torch.cuda.current_device() if d.index is None and n else d.index
+        if i is None or not 0 <= i < n:
+            raise ValueError(f"mesh device {d}: this machine has {n} CUDA "
+                             "device(s)")
+        d = torch.device("cuda", i)
+    return d
 
 
 def cuda_devices() -> list:

@@ -40,7 +40,8 @@ probes of this machine's memory kinds), interference-class QoS
 
 The multi-host cluster plane: ``--replicas`` engines, each its own
 paged pool, over one shared namespaced ledger, sessions placed by the
-``--router`` policy; on one card the replicas share its weights:
+``--router`` policy; the replicas' meshes split every CUDA device (on
+one card the replicas share it and its weights):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --smoke --scheduler continuous --replicas 2 \
@@ -208,7 +209,7 @@ def run_cluster(args, cfg, params):
     plane = ClusterPlane(
         cfg, params, serving=sv, n_replicas=args.replicas,
         router_policy=args.router or "headroom-distance",
-        device=args.device)
+        devices=None if args.device == "cuda" else [args.device])
     for line in plane.testbed.describe():
         print(line)
     rs = np.random.RandomState(0)
@@ -384,7 +385,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="multi-host serving plane: this many replica "
                          "engines, one paged pool each, sharing one "
                          "namespaced residency ledger (continuous only; "
-                         "on one card the replicas share its weights)")
+                         "meshes over every CUDA device; on one card "
+                         "the replicas share its weights)")
     from ..serving.config import ROUTER_POLICIES
     ap.add_argument("--router", default=None,
                     choices=list(ROUTER_POLICIES),

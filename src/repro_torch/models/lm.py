@@ -28,6 +28,14 @@ Attention routes:
 An int8 KV cache is dequantized to bf16 for its attention, as in the
 reference.
 
+Prefill and the decode step also take parameters placed on a mesh
+(``cluster.sharding.shard_lm_params``, through
+``shardings.compute_view``): a vocab-split ``embed`` is looked up block
+by block (``shardings.embed_rows``), a vocab-split head gives its logits
+as a ``shardings.ShardedTensor`` of fp32 blocks (``vocab_logits``: read
+them with ``shardings.argmax`` or ``shardings.gather``), and
+expert-split MoE stacks run in ``modules.moe_fwd`` block by block.
+
 Cache layout (the reference's; axis 0 = unit):
   kv_k/kv_v        (U, n_attn, B, S_max, KV, hd)  bf16, or int8 with
   kv_k/v_scale     (U, n_attn, B, S_max, KV)      bf16
@@ -52,6 +60,7 @@ from ..configs.base import LayerSpec, ModelConfig
 from ..core.tiered_array import DeviceLike, resolve_device
 from ..kernels import ops
 from . import modules as M
+from . import shardings as SH
 
 Params = Dict[str, Any]
 
@@ -257,7 +266,7 @@ def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``index`` onwards (0 onwards without ``index``): learned rows (the
     start clamped so that the S rows fit, as the reference's
     ``lax.dynamic_slice`` clamps it) or the sinusoidal table."""
-    x = p["embed"][tokens].to(torch.bfloat16)
+    x = SH.embed_rows(p["embed"], tokens).to(torch.bfloat16)
     S = tokens.shape[1]
     if cfg.pos_emb == "learned":
         i = 0 if index is None else min(max(int(index), 0),
@@ -514,8 +523,9 @@ def prefill(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cross_inputs: Optional[torch.Tensor] = None,
             units: Optional[List[Params]] = None
             ) -> Tuple[torch.Tensor, Params]:
-    """Prefill: tokens (B, S) -> (last-token logits (B, V) fp32, cache
-    of the model's keys (the module docstring's layout) and ``index``
+    """Prefill: tokens (B, S) -> (last-token logits (B, V) fp32, a
+    ``ShardedTensor`` under a vocab-split head; cache of the model's
+    keys (the module docstring's layout) and ``index``
     S).  ``cross_inputs`` (B, S_enc, D): the image embeddings, or the
     frames the encoder reads; models without cross layers ignore them."""
     dev = p["embed"].device
@@ -529,7 +539,7 @@ def prefill(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
         x, _, c = _unit_fwd(cfg, up, x, positions, cross)
         per_unit.append(c)
     x = M.apply_norm(cfg.norm, p["final_norm"], x[:, -1:])
-    logits = (x[:, 0] @ _lm_head(p, cfg).T).float()
+    logits = SH.vocab_logits(x[:, 0], _lm_head(p, cfg))
     cache = _stack_cache(per_unit)
     cache["index"] = S
     return logits, cache
@@ -651,7 +661,7 @@ def decode_step(p: Params, cfg: ModelConfig, cache: Params,
         x = _decode_unit_fwd(cfg, up, x, {k: t[u] for k, t in bufs.items()},
                              idx, lens, enc_lens)
     x = M.apply_norm(cfg.norm, p["final_norm"], x)
-    logits = (x[:, 0] @ _lm_head(p, cfg).T).float()
+    logits = SH.vocab_logits(x[:, 0], _lm_head(p, cfg))
     return logits, dict(bufs, index=idx + S)
 
 

@@ -18,6 +18,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import shardings as SH
+
 Params = Dict[str, Any]
 
 
@@ -230,9 +232,16 @@ def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
     slot in order.  The expert products are batched matmuls over E, as
     the reference leaves them to XLA's einsum.
 
+    Expert stacks split over ``experts`` (``shardings``): the
+    router is gathered whole first (so routing is the one-device
+    routing), each block's buckets run on its device against its own
+    experts, and their outputs are gathered to the first device, where
+    the combine runs in the same slot order as on one device.
+
     Returns (out (B, S, D), aux_loss): the Switch load-balancing loss."""
     B, S, D = x.shape
-    E = p["router"].shape[1]
+    router = SH.gather(p["router"])
+    E = router.shape[1]
     N = B * S
     G = min(n_groups, N)
     while N % G:
@@ -240,7 +249,7 @@ def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
     T = N // G
     xt = x.reshape(G, T, D)
 
-    probs = torch.softmax(xt.float() @ p["router"], dim=-1)   # (G,T,E)
+    probs = torch.softmax(xt.float() @ router, dim=-1)        # (G,T,E)
     topw, topi = torch.topk(probs, top_k, dim=-1)             # (G,T,k)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
 
@@ -265,12 +274,18 @@ def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
                        accumulate=True)
     # (E, G*C, D): one batched product over the experts
     be = buf[:, :, :C].permute(1, 0, 2, 3).reshape(E, G * C, D)
-    if act == "silu":
-        h = F.silu(torch.bmm(be, p["w_gate"])) * torch.bmm(be, p["w_up"])
-    else:
-        h = F.gelu(torch.bmm(be, p["w_up"]), approximate="tanh")
-    out_buf = torch.bmm(h, p["w_down"]).reshape(E, G, C, D).permute(
-        1, 0, 2, 3)                                           # (G,E,C,D)
+    names = ("w_gate", "w_up", "w_down") if act == "silu" \
+        else ("w_up", "w_down")
+    outs = []
+    for lo, hi, dev, ws in SH.expert_blocks(*(p[n] for n in names)):
+        b = (be if hi - lo == E else be[lo:hi]).to(dev)
+        if act == "silu":
+            h = F.silu(torch.bmm(b, ws[0])) * torch.bmm(b, ws[1])
+        else:
+            h = F.gelu(torch.bmm(b, ws[0]), approximate="tanh")
+        outs.append(torch.bmm(h, ws[-1]).to(x.device))
+    out_buf = (outs[0] if len(outs) == 1 else torch.cat(outs)).reshape(
+        E, G, C, D).permute(1, 0, 2, 3)                       # (G,E,C,D)
 
     w_comb = (topw * keep).to(x.dtype)
     last = torch.clamp(safe_pos, max=C - 1)

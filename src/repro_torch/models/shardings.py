@@ -20,15 +20,37 @@ production mesh shapes without the devices.  ``to_named`` places a
 tree on a mesh where no spec splits a tensor over more than one
 device, and raises naming ``launch.mesh.MULTI_DEVICE_ITEM`` where one
 would.
+
+A leaf placed on a mesh for serving (``cluster.sharding.shard_lm_params``)
+is a :class:`ShardedTensor`, the counterpart of a ``jax.Array`` with a
+``NamedSharding``: one local tensor per mesh device.  One process drives
+every device of the mesh:
+
+* a split dimension gives each device its block, a *view* of the source
+  where the source lives on that device (placement adds 0 B), else a
+  copy of the block alone;
+* a replicated leaf is kept once per physical device, shared by the
+  logical devices on it;
+* work on replicated operands runs once, on the mesh's first device;
+  sums, gathers and maxima across shards are plain tensor ops there,
+  after ``.to(first)`` (in-device on one card, a device-to-device copy
+  across cards).
+
+The helpers after it are the few places the model and the serving
+engine read a split leaf: :func:`embed_rows` and :func:`vocab_logits`
+(``vocab``), :func:`argmax` over vocab shards, :func:`expert_blocks`
+(``experts``), :func:`gather` and :func:`compute_view`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core.tiered_array import to_kind
-from ..launch.mesh import MULTI_DEVICE_ITEM
+from ..launch.mesh import Mesh, MULTI_DEVICE_ITEM
 
 F = "__fsdp__"   # placeholder resolved to the fsdp axis
 T = "__tp__"     # placeholder resolved to the tp axis
@@ -287,3 +309,216 @@ def to_named(tree, specs, mesh, memory_kind: Optional[str] = None):
         return leaf if leaf.device == dev else leaf.to(dev)
 
     return _map_with_path(place, tree, specs)
+
+
+# ---------------------------------------------------------------------- #
+# sharded tensors                                                         #
+# ---------------------------------------------------------------------- #
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class ShardedTensor:
+    """A tensor split over a mesh: its global ``shape``, its ``spec``
+    (a ``PartitionSpec`` of one entry per dimension), the ``mesh``, and
+    ``shards``, one local tensor per mesh device in ``mesh.devices.flat``
+    order.  Entries on one physical device that hold the same block are
+    one tensor."""
+
+    def __init__(self, shape, spec, mesh: Mesh, shards: Sequence):
+        self.shape = torch.Size(shape)
+        self.spec = PartitionSpec(*(tuple(spec)
+                                    + (None,) * (len(shape) - len(spec))))
+        self.mesh = mesh
+        self.shards = list(shards)
+        if len(self.spec) != len(self.shape) or \
+                len(self.shards) != mesh.size:
+            raise ValueError(f"spec {self.spec} / {len(self.shards)} "
+                             f"shards for shape {tuple(self.shape)} on "
+                             f"a mesh of {mesh.size}")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def device(self) -> torch.device:
+        """The mesh's first device, where replicated work runs."""
+        return self.mesh.first_device
+
+    def parts(self, dim: int) -> int:
+        """How many blocks dimension ``dim`` is split into."""
+        sizes = dict(self.mesh.shape)
+        return math.prod(sizes[a] for a in _axes(self.spec[dim]))
+
+    @property
+    def is_split(self) -> bool:
+        return any(self.parts(d) > 1 for d in range(self.ndim))
+
+    def block_of(self, i: int, dim: int) -> Tuple[int, int]:
+        """The global [lo, hi) of mesh device ``i``'s block along
+        ``dim``."""
+        names = _axes(self.spec[dim])
+        pos = np.unravel_index(i, self.mesh.devices.shape)
+        sizes = dict(self.mesh.shape)
+        axis = {a: k for k, a in enumerate(self.mesh.axis_names)}
+        b = 0
+        for a in names:
+            b = b * sizes[a] + int(pos[axis[a]])
+        n = self.shape[dim] // self.parts(dim)
+        return b * n, (b + 1) * n
+
+    def blocks(self, dim: int) -> List[Tuple[int, int, torch.device,
+                                             torch.Tensor]]:
+        """(lo, hi, device, local) of each distinct block along ``dim``,
+        in ascending order, each from the first mesh device holding it."""
+        seen: Dict[Tuple[int, int], tuple] = {}
+        for i, local in enumerate(self.shards):
+            lo, hi = self.block_of(i, dim)
+            if (lo, hi) not in seen:
+                seen[(lo, hi)] = (lo, hi, self.mesh.devices.flat[i], local)
+        return [seen[k] for k in sorted(seen)]
+
+    def shard_shapes(self) -> List[Tuple[int, ...]]:
+        return [tuple(t.shape) for t in self.shards]
+
+    def __getitem__(self, i: int) -> "ShardedTensor":
+        """Index the leading dimension (the stacked units), which must
+        not be split."""
+        if not isinstance(i, int) or self.parts(0) > 1:
+            raise IndexError(f"a ShardedTensor indexes only an unsplit "
+                             f"leading dimension (spec {self.spec})")
+        views: Dict[int, torch.Tensor] = {}
+        shards = [views.setdefault(id(t), t[i]) for t in self.shards]
+        return ShardedTensor(self.shape[1:], self.spec[1:], self.mesh,
+                             shards)
+
+    def full(self) -> torch.Tensor:
+        """The whole tensor on the first device: the first shard of a
+        leaf that nothing splits, else its blocks assembled there."""
+        if not self.is_split:
+            return self.shards[0]
+        first = self.device
+        out = torch.empty(self.shape, dtype=self.dtype, device=first)
+        for i, local in enumerate(self.shards):
+            idx = tuple(slice(*self.block_of(i, d))
+                        for d in range(self.ndim))
+            out[idx] = local.to(first)
+        return out
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={tuple(self.shape)}, "
+                f"spec={self.spec}, shards={self.shard_shapes()})")
+
+
+def shard_tensor(t: torch.Tensor, mesh: Mesh, spec) -> ShardedTensor:
+    """Place ``t`` on ``mesh`` under ``spec`` (padded with None to
+    ``t.ndim``).  Each mesh device gets its block: a view of ``t`` where
+    ``t`` lives on that device (``t`` itself where nothing splits), else
+    the block copied there once per physical device."""
+    shell = ShardedTensor(t.shape, spec, mesh, [t] * mesh.size)
+    spec = shell.spec
+    for d in range(t.ndim):
+        if t.shape[d] % shell.parts(d):
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                             f"into {shell.parts(d)} under {spec}")
+    made: Dict[tuple, torch.Tensor] = {}
+    shards = []
+    for i, dev in enumerate(mesh.devices.flat):
+        idx = tuple(shell.block_of(i, d) for d in range(t.ndim))
+        key = (dev, idx)
+        if key not in made:
+            whole = all(hi - lo == t.shape[d]
+                        for d, (lo, hi) in enumerate(idx))
+            local = t if whole else t[tuple(slice(*b) for b in idx)]
+            made[key] = local if local.device == dev else local.to(dev)
+        shards.append(made[key])
+    return ShardedTensor(t.shape, spec, mesh, shards)
+
+
+def is_split(t) -> bool:
+    return isinstance(t, ShardedTensor) and t.is_split
+
+
+def gather(t) -> torch.Tensor:
+    """``t`` whole on the first device (a plain tensor as it is)."""
+    return t.full() if isinstance(t, ShardedTensor) else t
+
+
+def compute_view(tree):
+    """The tree the model computes on: a leaf split over more than one
+    block stays a ``ShardedTensor``; every other placed leaf is its
+    first device's local (the whole tensor)."""
+    def view(path, leaf):
+        if isinstance(leaf, ShardedTensor) and not leaf.is_split:
+            return leaf.shards[0]
+        return leaf
+    return _map_with_path(view, tree)
+
+
+def embed_rows(W, tokens: torch.Tensor) -> torch.Tensor:
+    """``W[tokens]`` for an embedding table (V, D).  Split over vocab,
+    each block looks up the ids in its own range and writes zeros
+    elsewhere, and the blocks are summed on the first device: exact,
+    since one term per token is nonzero."""
+    if not is_split(W):
+        return gather(W)[tokens]
+    first, out = W.device, None
+    for lo, hi, dev, local in W.blocks(0):
+        ids = tokens.to(dev)
+        mine = (ids >= lo) & (ids < hi)
+        rows = local[torch.clamp(ids - lo, 0, hi - lo - 1)]
+        rows = torch.where(mine[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=dev)).to(first)
+        out = rows if out is None else out + rows
+    return out
+
+
+def vocab_logits(x: torch.Tensor, W):
+    """fp32 logits ``x @ W.T`` of a (V, D) head.  Split over vocab: a
+    ``ShardedTensor`` (..., V) of each block's logits on its device (see
+    :func:`argmax`, :func:`gather`)."""
+    if not is_split(W):
+        return (x @ gather(W).T).float()
+    shape = tuple(x.shape[:-1]) + (W.shape[0],)
+    lead = (None,) * (x.ndim - 1)
+    done: Dict[int, torch.Tensor] = {}
+    shards = [done.setdefault(id(w), (x.to(w.device) @ w.T).float())
+              for w in W.shards]
+    return ShardedTensor(shape, lead + (W.spec[0],), W.mesh, shards)
+
+
+def argmax(logits) -> torch.Tensor:
+    """Greedy argmax over the last dimension, on the first device.
+    Over vocab shards: each block's (max, index + its offset), then the
+    largest value, the lowest index on ties; this equals
+    ``torch.argmax`` over the whole row."""
+    if not is_split(logits):
+        return torch.argmax(gather(logits), dim=-1)
+    first, vals, idxs = logits.device, [], []
+    for lo, _, _, local in logits.blocks(logits.ndim - 1):
+        i = torch.argmax(local, dim=-1, keepdim=True)
+        vals.append(local.gather(-1, i).to(first))
+        idxs.append((i + lo).to(first))
+    vals, idxs = torch.cat(vals, -1), torch.cat(idxs, -1)
+    best = torch.argmax(vals, dim=-1, keepdim=True)   # first of equal maxima
+    return idxs.gather(-1, best)[..., 0]
+
+
+def expert_blocks(*weights) -> List[Tuple[int, int, torch.device, tuple]]:
+    """(e_lo, e_hi, device, local weights) of each expert block of
+    (E, ...) expert stacks split alike over ``experts``; one block for
+    plain tensors."""
+    per = [w.blocks(0) if isinstance(w, ShardedTensor)
+           else [(0, w.shape[0], w.device, w)] for w in weights]
+    if len({tuple(b[:2] for b in p) for p in per}) != 1:
+        raise ValueError("expert stacks split differently")
+    return [(bs[0][0], bs[0][1], bs[0][2], tuple(b[3] for b in bs))
+            for bs in zip(*per)]

@@ -56,7 +56,12 @@ The other control planes, wired as the reference wires them:
 
 The multi-host plane (``cluster.ClusterPlane``) runs one engine per
 replica over one shared, namespaced ledger; ``ServingConfig.cluster``
-is its options section, which the engine itself does not read.
+is its options section, which the engine itself does not read.  A
+replica's parameters may be split over its mesh (vocab and experts,
+``cluster.sharding.shard_lm_params``): the embedding, the head, greedy argmax over the
+vocab blocks and the MoE layers then run block by block, the rest (and
+the KV pool) on the mesh's first device.  Expert residency over a split
+expert store is not ported (``EXPERT_SPLIT_ITEM``).
 """
 from __future__ import annotations
 
@@ -76,6 +81,7 @@ from ..kernels import ops
 from ..launch import steps as steps_mod
 from ..models import lm
 from ..models import modules as M
+from ..models import shardings as SH
 from ..obs import (BlameLedger, CostModelCalibrator, LagRatioMonitor,
                    measure_transfer_probes, MetricsRegistry, PredictionLedger,
                    probed_kind_bases, SLOMonitor, SLOTarget, TraceRecorder,
@@ -92,6 +98,11 @@ from .metrics import ServingMetrics
 from .scheduler import (ContinuousBatchingScheduler, plan_admission, Request,
                         RequestState, SchedulerConfig)
 from .tiering import KVBlockTierer
+
+# what expert residency over a split expert store raises with
+EXPERT_SPLIT_ITEM = ("ROADMAP queue 1, item 11a' (expert residency over "
+                     "an expert store split across a mesh)")
+
 
 def check_paged_support(cfg: ModelConfig) -> None:
     """Raise if the config can't run on the paged decode path."""
@@ -151,34 +162,54 @@ def _routed_experts(cfg: ModelConfig, mp, h: torch.Tensor):
     drop (the reference's fused routing), then the ``fused_expert_ffn``
     kernel over the routed experts.
 
+    Expert stacks split over ``experts`` run the kernel once per shard
+    (``fused_expert_ffn_partial``).
+
     Returns (out (B, 1, D), ids (B, K) int32, near (B, 2)): near holds
     the router probabilities of each token's K-th and (K+1)-th experts
     (0 where there is no (K+1)-th), whose difference says how near the
     routing came to a tie."""
     K = cfg.top_k
-    probs = torch.softmax(h[:, 0].float() @ mp["router"], dim=-1)
+    router = SH.gather(mp["router"])
+    probs = torch.softmax(h[:, 0].float() @ router, dim=-1)
     vals, idx = torch.topk(probs, min(K + 1, probs.shape[-1]), dim=-1)
     topw, topi = vals[:, :K], idx[:, :K].to(torch.int32)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     if vals.shape[-1] == K:
         vals = torch.nn.functional.pad(vals, (0, 1))
-    out = ops.fused_expert_ffn(h[:, 0].contiguous(), mp["w_gate"],
-                               mp["w_up"], mp["w_down"], topi, topw)
+    x = h[:, 0].contiguous()
+    ws = (mp["w_gate"], mp["w_up"], mp["w_down"])
+    if not SH.is_split(ws[0]):
+        out = ops.fused_expert_ffn(x, *ws, topi, topw)
+    else:
+        # the kernel once per expert shard over its range; the fp32
+        # partials are summed on the first device in shard order and
+        # rounded to bf16 once
+        acc = None
+        for lo, hi, dev, local in SH.expert_blocks(*ws):
+            part = ops.fused_expert_ffn_partial(
+                x.to(dev), *local, topi.to(dev), topw.to(dev), lo, hi,
+                router.shape[1]).to(x.device)
+            acc = part if acc is None else acc + part
+        out = acc.to(x.dtype)
     return out[:, None], topi, vals[:, K - 1:]
 
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
            lengths: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens[:, 0]].to(torch.bfloat16)[:, None]
+    x = SH.embed_rows(params["embed"], tokens[:, 0]).to(
+        torch.bfloat16)[:, None]
     if cfg.pos_emb == "learned":
         x = x + params["pos_emb"][lengths].to(x.dtype)[:, None]
     return x
 
 
-def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: ModelConfig, params, x: torch.Tensor):
+    """fp32 logits (B, V); a ``ShardedTensor`` of vocab blocks under a
+    vocab-split head."""
     x = M.apply_norm(cfg.norm, params["final_norm"], x)
     W = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return (x[:, 0] @ W.T).float()
+    return SH.vocab_logits(x[:, 0], W)
 
 
 def _paged_unit_fwd(cfg: ModelConfig, up, x, kv_k, kv_v, lengths):
@@ -214,7 +245,8 @@ def _paged_decode(cfg: ModelConfig, units, params, tokens, kv_k, kv_v,
     """tokens (B, 1); kv_k/kv_v (U, n_attn, B, S_pad, KV, hd); lengths
     (B,) int32 — tokens already cached per sequence.
 
-    Returns (logits (B, V), new_k, new_v (U, n_attn, B, KV, hd))."""
+    Returns (logits (B, V) (``_logits``), new_k, new_v (U, n_attn, B,
+    KV, hd))."""
     x = _embed(cfg, params, tokens, lengths)
     new_k, new_v = [], []
     for u, up in enumerate(units):
@@ -438,7 +470,11 @@ class ServingEngine:
 
     ``device``: CUDA unless ``"cpu"`` is asked for; the parameters must
     already live there (``lm.init_params`` / ``lm.params_from_numpy``
-    with the same device)."""
+    with the same device), or be placed on a mesh whose first device it
+    is (``cluster.sharding.shard_lm_params``; the engine computes on
+    their ``compute_view``).  The paged KV pool lives on ``device``:
+    the counterpart of the reference's ``pool_sharding`` on a replica
+    mesh, whose first device the engine runs on."""
 
     def __init__(self, cfg: ModelConfig, params,
                  serving: Optional[ServingConfig] = None,
@@ -449,9 +485,11 @@ class ServingEngine:
         self.sv = sv = serving or ServingConfig()
         self.clock = clock
         self.device = resolve_device(device)
-        if params is not None and params["embed"].device != self.device:
-            raise ValueError(f"params live on {params['embed'].device}, "
-                             f"the engine runs on {self.device}")
+        if params is not None:
+            params = SH.compute_view(params)
+            if params["embed"].device != self.device:
+                raise ValueError(f"params live on {params['embed'].device}"
+                                 f", the engine runs on {self.device}")
         self.params = params
         bt = sv.block_tokens
         self.max_seq_blocks = max(1, math.ceil(sv.max_context / bt))
@@ -632,6 +670,12 @@ class ServingEngine:
             if n_moe == 0:
                 raise ValueError(f"{cfg.name}: expert_policy set but "
                                  "the model has no MoE layers")
+            if params is not None and any(
+                    SH.is_split(lp["moe"]["w_up"])
+                    for lp in params["units"]["layers"] if "moe" in lp):
+                raise NotImplementedError(
+                    "expert residency over an expert store split across "
+                    f"a mesh: {EXPERT_SPLIT_ITEM}")
             total = n_moe * cfg.n_experts
             budget = max(1, int(round(total * sv.expert_fast_fraction)))
             self.expert_pool = ExpertPool(
@@ -658,9 +702,8 @@ class ServingEngine:
         self._track_routes = self._moe and sv.fused_gather
         self._route_log: List[Tuple[List[int], Optional[torch.Tensor]]] = []
 
-    def _record_margins(self, rids: Sequence[int],
-                        logits: torch.Tensor) -> None:
-        top2 = torch.topk(logits[:len(rids)], 2, dim=-1).values
+    def _record_margins(self, rids: Sequence[int], logits) -> None:
+        top2 = torch.topk(SH.gather(logits)[:len(rids)], 2, dim=-1).values
         for rid, m in zip(rids, (top2[:, 0] - top2[:, 1]).tolist()):
             self.margins.setdefault(rid, []).append(m)
 
@@ -740,7 +783,7 @@ class ServingEngine:
         self._record_margins([req.rid], logits)
         if self._track_routes:
             self._route_log.append(([req.rid], None))
-        req.out_tokens.append(int(torch.argmax(logits[0])))
+        req.out_tokens.append(int(SH.argmax(logits)[0]))
         self.metrics.on_token(req.rid, self._now())
         if req.done:
             self.sched.finish(req)
@@ -831,7 +874,7 @@ class ServingEngine:
             logits, new_k, new_v = self._fused_decode_batch(batch)
         else:
             logits, new_k, new_v = self._staged_decode_batch(batch)
-        next_toks = torch.argmax(logits, dim=-1).tolist()
+        next_toks = SH.argmax(logits).tolist()
         self._record_margins([r.rid for r in batch], logits)
         now_tok = self._now()
         for i, req in enumerate(batch):

@@ -170,6 +170,40 @@ class StepClock:
         return self.dt * (s + (s % 4) / 4)
 
 
+class PlaneSteps:
+    """A cluster plane's step count: the sum of its engines' iteration
+    counters, so one ``StepClock`` serves replicas that run in turn."""
+
+    def __init__(self, plane):
+        self.plane = plane
+
+    @property
+    def _step(self):
+        return sum(r.engine._step for r in self.plane.replicas.values())
+
+
+def ref_pod_parts():
+    """The per-host parts of the reference's ``multi_host_pod``, as the
+    port's ``multi_host_pod(tiers=...)`` takes them: its TPU HBM, its
+    host DRAM behind the 700 ns PCIe/CXL hop it models, and its ICI
+    links.  Parity input only."""
+    import dataclasses
+
+    from repro.core import tpu_v5e_tiers
+    from repro_torch.core.tiers import MemoryTier
+    t = tpu_v5e_tiers()
+    tier = {k: MemoryTier(**dataclasses.asdict(t[k]))
+            for k in ("HBM", "HOST", "ICI_PEER")}
+    hbm, host, ici = tier["HBM"], tier["HOST"], tier["ICI_PEER"]
+    hop = 700.0
+    return {"fast": hbm,
+            "capacity": dataclasses.replace(
+                host, unloaded_latency_ns=host.unloaded_latency_ns - hop),
+            "capacity_link": (hop, host.peak_bw_GBps),
+            "host_link": (ici.unloaded_latency_ns - hbm.unloaded_latency_ns,
+                          ici.peak_bw_GBps)}
+
+
 def tiny_model(arch: str, seed: int, lens):
     """(reference config, reference params, port config, port params,
     prompts) of ``arch``'s smoke config: the port's params are the

@@ -254,20 +254,32 @@ def test_validate_args_matches_reference(kw):
 ])
 def test_unported_planes_name_their_roadmap_item(option, value, item):
     """The cluster plane is ported: its section is accepted as the
-    reference's.  What it cannot do yet, split a replica over more than
-    one device, raises naming its ROADMAP item."""
+    reference's, and a replica's params split over a mesh of two
+    devices.  What it cannot do yet, expert residency over an expert
+    store split across the mesh, raises naming its ROADMAP item
+    (``item`` 11, part a')."""
     from repro.serving import ClusterOptions as JClusterOptions
-    from repro_torch.cluster import shard_lm_params
+    from repro_torch.cluster import (axis_mapping, AxisMapping,
+                                     shard_lm_params)
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
     from repro_torch.serving import ClusterOptions
     sv = ServingConfig(**{option: ClusterOptions(**value)})
     ref = JServingConfig(**{option: JClusterOptions(**value)})
     assert dataclasses.asdict(sv.cluster) == dataclasses.asdict(ref.cluster)
     cpu = torch.device("cpu")
     two = make_mesh((2,), ("model",), devices=[cpu, cpu])
+    placed = shard_lm_params({"embed": torch.zeros(4, 2)}, two,
+                             AxisMapping({"vocab": "model"}))
+    assert placed["embed"].shard_shapes() == [(2, 2), (2, 2)]
+    cfg = get_smoke_config("qwen3-moe-30b-a3b")
+    with axis_mapping({"experts": "model"}):
+        split = shard_lm_params(lm.init_params(cfg, seed=0, device="cpu"),
+                                two)
     with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1, {item} "):
-        shard_lm_params({"embed": torch.zeros(4, 2)}, two)
+                       match=f"ROADMAP queue 1, {item}a' "):
+        ServingEngine(cfg, split, ServingConfig(
+            fused_gather=True, expert_policy="lru"), device="cpu")
     assert ServingConfig(adaptive=True).adaptive
 
 

@@ -11,7 +11,6 @@ namespace conservation, the published gauges, the merged trace); and
 The reference's pod is built from its TPU tiers; the port's takes the
 same per-host parts (``REF_PARTS``) where distances are compared.
 Integers and decisions must be equal, floats within 1e-9 relative."""
-import dataclasses
 import random
 import re
 
@@ -20,11 +19,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
-from _torch_parity import (assert_same, package, StepClock,  # noqa: E402
-                           tiny_model)
-
-from repro.core import tpu_v5e_tiers  # noqa: E402
-from repro_torch.core.tiers import MemoryTier  # noqa: E402
+from repro_torch.models import shardings as msh  # noqa: E402
+from _torch_parity import (assert_same, package, PlaneSteps,  # noqa: E402
+                           ref_pod_parts, StepClock, tiny_model)
 
 MODS = ("cluster", "cluster.router", "cluster.sharding", "pool",
         "topology", "serving")
@@ -34,25 +31,7 @@ POLICIES = ("headroom-distance", "round-robin", "random", "least-loaded")
 CPU = torch.device("cpu")
 
 
-def _ref_parts():
-    """The per-host parts of the reference's ``multi_host_pod``, as the
-    port's ``multi_host_pod(tiers=...)`` takes them: its TPU HBM, its
-    host DRAM behind the 700 ns PCIe/CXL hop it models, and its ICI
-    links.  Parity input only."""
-    t = tpu_v5e_tiers()
-    tier = {k: MemoryTier(**dataclasses.asdict(t[k]))
-            for k in ("HBM", "HOST", "ICI_PEER")}
-    hbm, host, ici = tier["HBM"], tier["HOST"], tier["ICI_PEER"]
-    hop = 700.0
-    return {"fast": hbm,
-            "capacity": dataclasses.replace(
-                host, unloaded_latency_ns=host.unloaded_latency_ns - hop),
-            "capacity_link": (hop, host.peak_bw_GBps),
-            "host_link": (ici.unloaded_latency_ns - hbm.unloaded_latency_ns,
-                          ici.peak_bw_GBps)}
-
-
-REF_PARTS = _ref_parts()
+REF_PARTS = ref_pod_parts()
 
 
 def _pod(ns, n):
@@ -200,7 +179,7 @@ def test_multi_host_pod_from_probes_keeps_the_reference_routing():
 # ===================================================================== #
 # replica meshes and placement                                          #
 # ===================================================================== #
-def test_replica_meshes_share_or_partition_like_reference():
+def test_replica_meshes_share_or_partition_like_reference(monkeypatch):
     import jax
     for n in (1, 2, 3):
         ref = REF.cluster_sharding.replica_meshes(n)
@@ -210,6 +189,8 @@ def test_replica_meshes_share_or_partition_like_reference():
         assert [m.axis_names for m in got] == [m.axis_names for m in ref]
         assert len(jax.devices()) == 1 and \
             all(m.device == CPU for m in got)
+    # five cards, as a machine that has them (a mesh checks its devices)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 5)
     cards = [torch.device("cuda", i) for i in range(5)]
     for n, groups in ((2, [[0, 1], [2, 3]]), (5, [[i] for i in range(5)]),
                       (7, [[i % 5] for i in range(7)])):
@@ -220,52 +201,60 @@ def test_replica_meshes_share_or_partition_like_reference():
 
 
 def test_shard_lm_params_keeps_tensors_on_one_device_and_raises_on_split():
+    """On a one-device mesh every leaf stays whole, whatever the mapping,
+    and a leaf already there is the placed leaf's one shard (replicas
+    sharing a device share its weights); a leaf elsewhere is moved onto
+    the mesh's device.  On a mesh of two logical devices vocab and
+    experts split into views of the leaves.  What still raises: a mesh
+    naming a device the machine lacks, and expert residency over a
+    split expert store (ROADMAP queue 1, item 11a')."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import make_mesh, Mesh
     from repro_torch.models import lm
     sh = PORT.cluster_sharding
-    params = lm.init_params(get_smoke_config("qwen3-moe-30b-a3b"), seed=0,
-                            device="cpu")
+    cfg = get_smoke_config("qwen3-moe-30b-a3b")
+    params = lm.init_params(cfg, seed=0, device="cpu")
     one = sh.replica_meshes(2, devices=[CPU])[1]
     with sh.axis_mapping({"vocab": "model", "experts": "model"}) as m:
         assert sh.current_axis_mapping() is m
         assert m.spec("vocab", None) == ("model", None)
         placed = sh.shard_lm_params(params, one)
     assert sh.current_axis_mapping().mapping == {}
-    assert placed["embed"] is params["embed"]
-    assert all(a is b for a, b in zip(
+    assert placed["embed"].shards == [params["embed"]]
+    assert not placed["embed"].is_split
+    assert all(a.shards[0] is b for a, b in zip(
         placed["units"]["layers"][0]["moe"].values(),
         params["units"]["layers"][0]["moe"].values()))
+    assert msh.compute_view(placed)["embed"] is params["embed"]
     # a leaf elsewhere is moved onto the mesh's device
     meta = make_mesh((1,), ("model",), devices=["meta"])
     moved = sh.shard_lm_params(params, meta)
-    assert moved["embed"].device.type == "meta"
+    assert moved["embed"].shards[0].device.type == "meta"
     assert moved["embed"].shape == params["embed"].shape
-    fn = lambda x: x  # noqa: E731
-    assert sh.replica_shard_map(fn, one, None, None) is fn
+    fn = lambda x: x + 1  # noqa: E731
+    x = torch.arange(4.0)
+    out = sh.replica_shard_map(fn, one, (None,), sh.PartitionSpec())(x)
+    assert torch.equal(out.full(), x + 1)
     two = make_mesh((2,), ("model",), devices=[CPU, CPU])
-    for call in (lambda: sh.shard_lm_params(params, two),
-                 lambda: sh.replica_shard_map(fn, two, None, None)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 11"):
-            call()
+    with sh.axis_mapping({"vocab": "model", "experts": "model"}):
+        split = sh.shard_lm_params(params, two)
+    emb = split["embed"]
+    assert emb.shard_shapes() == [(cfg.vocab // 2, cfg.d_model)] * 2
+    assert [t.data_ptr() for t in emb.shards] == [
+        params["embed"][i * cfg.vocab // 2].data_ptr() for i in range(2)]
+    with pytest.raises(ValueError, match="has 0 CUDA device"):
+        Mesh(np.array([CPU, torch.device("cuda", 0)], dtype=object),
+             ("model",))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1, item 11a'"):
+        PORT.serving.ServingEngine(
+            cfg, msh.compute_view(split), PORT.serving.ServingConfig(
+                fused_gather=True, expert_policy="lru"), device="cpu")
 
 
 # ===================================================================== #
 # ClusterPlane end to end (the llama3-8b smoke model, one step clock)    #
 # ===================================================================== #
-class _PlaneSteps:
-    """The plane's step count: the sum of its engines' iteration
-    counters, so one ``StepClock`` serves replicas that run in turn."""
-
-    def __init__(self, plane):
-        self.plane = plane
-
-    @property
-    def _step(self):
-        return sum(r.engine._step for r in self.plane.replicas.values())
-
-
 PROMPT_LENS = (12, 7, 9, 20, 5)
 NEW_TOKENS = 6
 
@@ -280,7 +269,7 @@ def _serve_plane(ns, model, policy):
     clock = StepClock()
     kw = {}
     if ns is PORT:
-        kw = {"device": "cpu", "testbed": _pod(ns, 2)}
+        kw = {"devices": ["cpu"], "testbed": _pod(ns, 2)}
         c, p = cfg, params
     else:
         c, p = jcfg, jparams
@@ -289,7 +278,7 @@ def _serve_plane(ns, model, policy):
             block_tokens=8, max_batch=2, max_context=32,
             policy="tiering08"),
         n_replicas=2, router_policy=policy, clock=clock, seed=1, **kw)
-    clock.engine = _PlaneSteps(plane)
+    clock.engine = PlaneSteps(plane)
     sids = [plane.submit(pr, NEW_TOKENS, arrival_s=0.005 * i)
             for i, pr in enumerate(prompts)]
     rep = plane.run()
@@ -338,7 +327,7 @@ def test_cluster_plane_shares_the_weights(model):
     plane = PORT.cluster.ClusterPlane(
         cfg, params, serving=PORT.serving.ServingConfig(
             block_tokens=8, max_batch=2, max_context=32),
-        device="cpu", testbed=_pod(PORT, 2))
+        devices=["cpu"], testbed=_pod(PORT, 2))
     engines = [r.engine for r in plane.replicas.values()]
     assert all(e.params["embed"] is params["embed"] for e in engines)
     assert engines[0].pool is not engines[1].pool
@@ -346,8 +335,8 @@ def test_cluster_plane_shares_the_weights(model):
     assert [str(r.ns) for r in plane.replicas.values()] == \
         ["host0/serving", "host1/serving"]
     with pytest.raises(ValueError, match="hosts for"):
-        PORT.cluster.ClusterPlane(cfg, params, n_replicas=4, device="cpu",
-                                  testbed=_pod(PORT, 2))
+        PORT.cluster.ClusterPlane(cfg, params, n_replicas=4,
+                                  devices=["cpu"], testbed=_pod(PORT, 2))
 
 
 # ===================================================================== #
@@ -394,7 +383,7 @@ def test_plane_over_a_larger_testbed_fails_like_reference(model):
     jcfg, jparams, cfg, params, _ = model
     out = []
     for ns, c, p, kw in ((REF, jcfg, jparams, {}),
-                         (PORT, cfg, params, {"device": "cpu"})):
+                         (PORT, cfg, params, {"devices": ["cpu"]})):
         plane = ns.cluster.ClusterPlane(
             c, p, serving=ns.serving.ServingConfig(
                 block_tokens=8, max_batch=2, max_context=32),

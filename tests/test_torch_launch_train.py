@@ -464,15 +464,15 @@ def test_cli_prints_restored_step(tmp_path):
 def test_mesh_of_more_than_one_device_names_item_9(spec, ok):
     """``--mesh`` builds a mesh over the CPU's one device, as the
     reference's builds one over its devices: a mesh of more devices
-    raises, naming the ROADMAP item that splits work over several
-    devices (queue 1, item 11, since item 9 ported the mesh)."""
+    raises, naming the ROADMAP item that trains over several devices
+    (queue 1, item 11b, since item 9 ported the mesh)."""
     if ok:
         mesh = train.parse_mesh(spec, "cpu")
         assert mesh.devices.shape == tuple(int(d) for d in spec.split("x"))
         assert list(mesh.devices.flat) == [torch.device("cpu")]
         return
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 11"):
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 11b "):
         train.parse_mesh(spec, "cpu")
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="item 11b "):
         train.main(["--arch", "llama3-8b", "--smoke", "--steps", "1",
                     "--device", "cpu", "--mesh", spec])

@@ -315,18 +315,31 @@ def test_staged_prefill_kv_matches_reference_pool(tiny):
 
 
 @pytest.mark.parametrize("option,value", [("cluster", dict(replicas=2))])
-def test_unported_options_raise(option, value):
-    """The cluster option is ported: the section is accepted.  What the
-    plane cannot do yet, a replica over more than one device, raises
-    naming its ROADMAP item."""
-    from repro_torch.cluster import replica_shard_map
+def test_unported_options_raise(option, value, tiny_moe):
+    """The cluster option is ported: the section is accepted, and a
+    replica's mesh may hold several devices (``replica_shard_map`` runs
+    its function per device).  What the plane cannot do yet, expert
+    residency over an expert store split across the mesh, raises naming
+    its ROADMAP item."""
+    from repro_torch.cluster import (axis_mapping, replica_shard_map,
+                                     shard_lm_params)
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.shardings import PartitionSpec
     from repro_torch.serving import ClusterOptions
     section = ClusterOptions(**value)
     assert getattr(ServingConfig(**{option: section}), option) == section
     two = make_mesh((2,), ("model",), devices=["cpu", "cpu"])
+    x = torch.arange(4.0)
+    out = replica_shard_map(lambda t: t * 2, two, PartitionSpec("model"),
+                            PartitionSpec("model"))(x)
+    assert out.shard_shapes() == [(2,), (2,)]
+    assert torch.equal(out.full(), x * 2)
+    _, _, cfg, params, _ = tiny_moe
+    with axis_mapping({"experts": "model"}):
+        split = shard_lm_params(params, two)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        replica_shard_map(lambda x: x, two, None, None)
+        ServingEngine(cfg, split, ServingConfig(
+            fused_gather=True, expert_policy="lru"), device="cpu")
 
 
 # each control-plane option with the options the reference requires

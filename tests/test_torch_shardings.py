@@ -169,7 +169,7 @@ def test_make_mesh_counts_devices(monkeypatch):
     pod = pmesh.make_production_mesh(multi_pod=True)
     assert pod.axis_names == ("pod", "data", "model")
     assert pod.devices.shape == (2, 16, 16)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11b "):
         pod.device
 
 
@@ -182,7 +182,8 @@ def _leaves(tree) -> list:
 def test_to_named_places_whole_tensors_on_one_device():
     """On a mesh of one device placement keeps every tensor it was given
     (they already live there); a spec that splits over more than one
-    device raises, naming the ROADMAP item."""
+    device raises, naming the ROADMAP item that ports training over
+    several devices (11b)."""
     from repro_torch.configs import get_smoke_config
     params = lm.init_params(get_smoke_config("llama3-8b"), seed=0,
                             device="cpu")
@@ -194,7 +195,7 @@ def test_to_named_places_whole_tensors_on_one_device():
         assert len(a) == len(b) and all(x is y for x, y in zip(a, b))
     _, big = _meshes((2, 4))
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 11"):
+                       match="ROADMAP queue 1, item 11b "):
         sh.to_named(params, sh.param_pspecs(params, big), big)
 
 
@@ -212,6 +213,6 @@ def test_constrain_is_the_identity_where_nothing_splits():
         assert psharding.constrain(x, None, "tp") is x
         y = torch.zeros(3, 5)
         assert psharding.constrain(y, "dp", "tp") is y
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="item 11b "):
             psharding.constrain(x, "dp", None, "tp")
     assert not psharding.active()
