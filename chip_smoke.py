@@ -224,19 +224,40 @@ Phases, in order; any failure exits non-zero:
    resumed under each of three planted restore faults must not.  Bytes
    written, save and restore seconds and the checksum-verified leaves
    are printed;
+6d. training over FSDP x TP meshes of logical devices of the card
+   (``sharded_train_phase``): llama3-8b at full width, its depth cut to
+   ``SHARDED_TRAIN_LAYERS`` layers, 8 x 128 tokens, ``SHARDED_TRAIN_STEPS``
+   steps at 1x1 and at 2x4, through ``make_train_step`` with
+   ``fused_adam`` (once per distinct block of every leaf, each block's
+   update held against the plain update of the same block on the card
+   at the first step) and through the launcher (``launch.train.run``
+   over ``["cuda:0"] * 8``, the plain AdamW); a second 2x4 run
+   checkpointed after two steps, restored onto 4x2 (every leaf's
+   checksum verified, then bit-equal to the saved state, still on the
+   card) and stepped once more; then gpt2-xl-offload at full width and
+   depth through the launcher at 1x1 and 2x2 (its 25 heads split off
+   head boundaries).  Each mesh's losses must equal the 1x1 run's
+   within ``SHARDED_TRAIN_LOSS_ATOL``, and two planted faults (one
+   shard's update skipped: the first mesh entry's block of every leaf;
+   one data shard's gradient dropped) must read above it; placement
+   must add 0 B of distinct storage; step ms and peak device memory
+   are printed;
 7. print the ``kernels`` JSON line, then the device line last.  The
    line has one row per kernel build the main paths launch: each
    attention kernel at each model's KV geometry (``decode_attention@KV8``
    for llama3-8b, ``...@KV4`` for qwen3-moe-30b-a3b), the two one-shot
    kernels at that phase's shapes (``decode_attention@KV8/oneshot``,
    ``flash_attention@KV8/oneshot``), ``fused_expert_ffn``, its range
-   form (``fused_expert_ffn@4 expert ranges``) and ``fused_adam`` and
-   ``fused_adam@rwkv6-7b``; each row's times, bound and error come from
-   its own build and shapes, and its launches from the phases that run
+   form (``fused_expert_ffn@4 expert ranges``), ``fused_adam``,
+   ``fused_adam@rwkv6-7b`` and ``fused_adam@llama3-8b 2x4 shard`` (the
+   sharded-train phase's ``mlp.w_gate`` block); each row's times, bound
+   and error come from its own build and shapes, and its launches from
+   the phases that run
    it at those shapes: a ``/oneshot`` row's from the one-shot phase, the
    range row's from the sharded phase, the other attention rows' from
    their model's other serve phases, an Adam row's from its model's
-   train phases.
+   train phases (the shard row's: the sharded-train phase's 2x4 run,
+   every block).
 
 The kernel phase also holds ``fused_adam`` against its plain version at
 gpt2-xl-offload's largest leaf and at rwkv6-7b's ``tmix.wr`` at the
@@ -412,6 +433,21 @@ CKPT_ARCH = "bert-large-offload"
 # ulps of a loss near 10) over runs that read equal; every planted
 # restore fault of checkpoint_phase must read above it
 CKPT_RTOL = 1e-6
+# training over meshes of logical devices of the card: llama3-8b at full
+# width cut to 4 layers (at 32 its fp32 master, m and v alone are 96 GB;
+# at 4, 1.92 G parameters: 23 GB of state, 3.8 GB of bf16 params), 8 x
+# 128 tokens, 1x1 against 2x4 and a restore onto 4x2; gpt2-xl-offload
+# at full width and depth, 1x1 against 2x2 (25 heads of 64: wq splits
+# at column 800, off head boundaries), through the launcher
+SHARDED_TRAIN_ARCH, SHARDED_TRAIN_LAYERS = "llama3-8b", 4
+SHARDED_TRAIN_STEPS, SHARDED_TRAIN_MESH, SHARDED_RESTORE_MESH = \
+    3, "2x4", "4x2"
+SHARDED_GPT2_MESH, SHARDED_GPT2_STEPS = "2x2", 2
+# a mesh run's loss at each step against the 1x1 run's: the reference's
+# own spread between its 1x1 and 2x4 runs of llama3-8b's smoke model
+# (6.7e-4 at step 2) plus test_torch_train.LOSS_ATOL (2e-4), rounded up
+# (CPU readings of tests/test_torch_sharded_train.py's reference runs)
+SHARDED_TRAIN_LOSS_ATOL = 1e-3
 EXPERT_ARCH, EXPERT_FAST_FRACTION = "qwen3-moe-30b-a3b", 0.25
 # the cluster phase: the serve CLI's multi-host plane, two logical
 # replicas on the one card over its staged path; building the plane may
@@ -1019,11 +1055,12 @@ def poison(n: int, dev) -> None:
 
 
 def check_adam(name: str, got: tuple, want: tuple,
-               master: torch.Tensor) -> float:
+               master: torch.Tensor, quiet: bool = False) -> float:
     """Kernel against plain: the update ``master' - master`` to
     ``ADAM_RTOL`` of the plain update plus ``ADAM_MASTER_ULPS`` fp32
     ulps of the master; m' and v' to ``ADAM_RTOL`` plus that fraction of
-    their rms.  Returns the largest absolute error of the three."""
+    their rms.  Returns the largest absolute error of the three (logged
+    unless ``quiet``)."""
     torch.cuda.synchronize()
     eps32 = torch.finfo(torch.float32).eps
     pairs = (("update", got[0] - master, want[0] - master,
@@ -1043,8 +1080,9 @@ def check_adam(name: str, got: tuple, want: tuple,
             fail(f"{name}: {what}: {int(bad.sum())} elements off by up to "
                  f"{err.max().item():.4g} (mean |plain| "
                  f"{w.abs().mean().item():.4g})")
-        log(f"  {name} {what}: max_abs_err={err.max().item():.3g} "
-            f"mean|plain|={w.abs().mean().item():.3g}")
+        if not quiet:
+            log(f"  {name} {what}: max_abs_err={err.max().item():.3g} "
+                f"mean|plain|={w.abs().mean().item():.3g}")
         worst = max(worst, err.max().item())
     return worst
 
@@ -1103,6 +1141,28 @@ def adam_kernel(dev, gen, shape: tuple, ragged: bool) -> dict:
     return row
 
 
+def sharded_adam_row(dev, gen) -> dict:
+    """``fused_adam`` at the block of ``mlp.w_gate`` that each mesh
+    entry holds at ``SHARDED_TRAIN_MESH`` in the sharded-train phase
+    (units x d_model / data x d_ff / model); its launches are that
+    phase's mesh run's, every block."""
+    from repro_torch.launch import train
+    from repro_torch.models import shardings as sh
+    cfg = sharded_cfg()
+    mesh = train.parse_mesh(SHARDED_TRAIN_MESH, "cuda",
+                            devices=mesh_devices(SHARDED_TRAIN_MESH))
+    shape = (cfg.n_units, cfg.d_model, cfg.d_ff)
+    spec = sh.param_pspecs({"units": {"layers": ({"mlp": {
+        "w_gate": torch.empty(shape, device="meta")}},)}}, mesh)
+    st = sh.ShardedTensor(shape, spec["units"]["layers"][0]["mlp"]["w_gate"],
+                          mesh, [None] * mesh.size)
+    block = tuple(n // st.parts(d) for d, n in enumerate(shape))
+    return {f"fused_adam@{SHARDED_TRAIN_ARCH} {SHARDED_TRAIN_MESH} shard":
+            dict(adam_kernel(dev, gen, block, ragged=False),
+                 kernel="fused_adam", model=f"{SHARDED_TRAIN_ARCH} sharded",
+                 sharded=True)}
+
+
 def kernel_phase(dev, gen) -> dict:
     """Rows of the ``kernels`` line, one per kernel build and shape the
     main paths launch: each attention kernel at both models' KV geometry
@@ -1143,6 +1203,7 @@ def kernel_phase(dev, gen) -> dict:
     rows[f"fused_adam@{RECURRENT_ARCH}"] = dict(
         adam_kernel(dev, gen, (rwkv.n_units, rwkv.d_model, rwkv.d_model),
                     ragged=False), kernel="fused_adam", model=RECURRENT_ARCH)
+    rows.update(sharded_adam_row(dev, gen))
     for name, row in rows.items():
         lib = row["library_ms"]
         log(f"kernel {name}: max_abs_err={row['max_abs_err']:.3g} "
@@ -3549,10 +3610,11 @@ def launcher_lr(arch: str) -> float:
         / get_config(arch).d_model
 
 
-def run_launcher(argv, cfg=None) -> tuple:
-    """``launch.train.run`` on ``argv``, the launch counters set to 0
-    just before; with ``cfg``, the ``--arch``'s config is ``cfg`` (its
-    cut in depth) for the call.  Returns (its ``TrainRun``, launches,
+def run_launcher(argv, cfg=None, devices=None) -> tuple:
+    """``launch.train.run`` on ``argv`` (its ``--mesh`` over ``devices``,
+    where given), the launch counters set to 0 just before; with
+    ``cfg``, the ``--arch``'s config is ``cfg`` (its cut in depth) for
+    the call.  Returns (its ``TrainRun``, launches,
     wall s, its standard output, which is also echoed)."""
     import io
 
@@ -3565,7 +3627,7 @@ def run_launcher(argv, cfg=None) -> tuple:
     cut = contextlib.nullcontext() if cfg is None else \
         mock.patch.object(train_cli, "get_config", lambda arch: cfg)
     with contextlib.redirect_stdout(buf), cut:
-        res = train_cli.run(args)
+        res = train_cli.run(args, devices)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     text = buf.getvalue()
@@ -3887,6 +3949,342 @@ def planted_restore_faults(restore, train_cli) -> list:
                 lambda self, state: None))]
 
 
+# ---------------------------------------------------------------------- #
+# training over FSDP x TP meshes of logical devices                       #
+# ---------------------------------------------------------------------- #
+def mesh_devices(spec: str) -> list:
+    """The card named once per entry of the ``--mesh`` spec."""
+    return [torch.device("cuda", 0)] * math.prod(
+        int(d) for d in spec.split("x"))
+
+
+def distinct_bytes(*trees) -> int:
+    """Bytes of the distinct storages the trees' tensors (each placed
+    leaf's blocks) hold."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.models import shardings as sh
+    seen = {}
+    for tree in trees:
+        for leaf in pytree.tree_leaves(tree):
+            for t in sh.local_tensors(leaf):
+                st = t.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def sharded_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SHARDED_TRAIN_ARCH),
+                               n_layers=SHARDED_TRAIN_LAYERS)
+
+
+def sharded_batches(cfg, n: int) -> list:
+    """The launcher's first ``n`` batches of 8 x 128 on the card."""
+    from repro_torch.data import DataConfig, DataIterator
+    it = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                 global_batch=8))
+    return [{k: torch.from_numpy(b[k]).cuda() for k in ("tokens", "labels")}
+            for b in (next(it) for _ in range(n))]
+
+
+def first_blocks(params) -> set:
+    """The positions, among one step's ``fused_adam`` calls (leaves in
+    tree order, each leaf's distinct blocks in mesh order), of the
+    blocks the mesh's first entry holds: each leaf's first."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.models import shardings as sh
+    out, i = set(), 0
+    for x in pytree.tree_leaves(params):
+        out.add(i)
+        i += len(sh.local_tensors(x))
+    return out
+
+
+def step_route(cfg, spec: str, batches, first: int = 0, state=None,
+               check: bool = False, save=None, fault=None,
+               keep: bool = False) -> dict:
+    """``launch.steps.make_train_step`` with ``fused_adam`` on ``cfg``
+    placed on ``spec`` over logical devices of the card (seeded weights,
+    or ``state``, a restored {"params", "opt"}), one step per batch from
+    step ``first``, the launch counters set to 0 just before.  ``check``:
+    at the first step every ``fused_adam`` call's result is held against
+    the plain update of the same block (``check_adam``).  ``save``: (dir,
+    n) checkpoints after n steps.  ``fault``: "skip" leaves the first
+    mesh entry's shard (its block of every leaf) unupdated at every
+    step; "drop" drops data shard 1's gradient (its loss still
+    counted).  ``keep``: the final state stays on the card, in the
+    result's "state"."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.checkpoint import store
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm, shardings as sh
+    from repro_torch.optim import AdamConfig, init_state
+    acfg = AdamConfig(lr=launcher_lr(SHARDED_TRAIN_ARCH),
+                      use_fused_kernel=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = train.parse_mesh(spec, "cuda", devices=mesh_devices(spec))
+    if state is None:
+        params = lm.init_params(cfg, seed=SEED, device="cuda")
+        params = sh.to_named(params, sh.param_pspecs(params, mesh), mesh)
+        opt = init_state(params, acfg)
+    else:
+        params, opt = state["params"], state["opt"]
+        state.clear()
+    torch.cuda.synchronize()
+    out = {"bytes": distinct_bytes(params, opt),
+           "resident": torch.cuda.memory_allocated(),
+           "blocks": sum(len(sh.local_tensors(x))
+                         for x in pytree.tree_leaves(params))}
+    step_fn = steps.make_train_step(cfg, acfg)
+    real, calls, worst = ops.fused_adam, [0], [0.0]
+    skip = first_blocks(params) if fault == "skip" else set()
+
+    def checking(master, m, v, g, **kw):
+        got = real(master, m, v, g, **kw)
+        worst[0] = max(worst[0], check_adam(
+            f"sharded train {spec} fused_adam block {calls[0]}", got,
+            ref.fused_adam(master, m, v, g, **kw), master, quiet=True))
+        calls[0] += 1
+        return got
+
+    def skipping(master, m, v, g, **kw):
+        calls[0] += 1
+        if (calls[0] - 1) % out["blocks"] in skip:
+            return master, m, v
+        return real(master, m, v, g, **kw)
+
+    shard_loss = lm._shard_loss
+
+    def dropping(p, cfg_, shard, *a):
+        ce, terms = shard_loss(p, cfg_, shard, *a)
+        return (ce.detach() if shard.index == 1 else ce), terms
+
+    losses, ms = {}, []
+    build.reset_launches()
+    for i, b in enumerate(batches, start=first):
+        patch = contextlib.ExitStack()
+        if check and i == first:
+            patch.enter_context(mock.patch.object(ops, "fused_adam",
+                                                  checking))
+        if fault == "skip":
+            patch.enter_context(mock.patch.object(ops, "fused_adam",
+                                                  skipping))
+        if fault == "drop":
+            patch.enter_context(mock.patch.object(lm, "_shard_loss",
+                                                  dropping))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with patch:
+            params, opt, loss = step_fn(params, opt, b)
+        losses[i] = float(loss)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if save is not None and i + 1 == save[1]:
+            t1 = time.perf_counter()
+            path = store.save(save[0], i + 1, {"params": params,
+                                               "opt": opt},
+                              metadata={"step": i + 1})
+            out["save"] = {"s": time.perf_counter() - t1, "bytes": sum(
+                f.stat().st_size for f in Path(path).iterdir())}
+    torch.cuda.synchronize()
+    out.update(losses=losses, step_ms=ms,
+               launches=dict(build.LAUNCHES),
+               peak=torch.cuda.max_memory_allocated())
+    if check:
+        out.update(checked=calls[0], max_abs_err=worst[0])
+    if keep:
+        out["state"] = {"params": params, "opt": opt}
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_restore(cfg, ckpt_dir: str, spec: str, saved) -> tuple:
+    """The checkpoint of ``ckpt_dir`` restored onto ``spec`` over logical
+    devices of the card (``store.restore`` with named shardings; every
+    leaf's checksum verified), each leaf then held bit for bit against
+    the global array of ``saved``, the state that was saved, still on
+    the card; ``saved`` is emptied after.  Returns (the restored state,
+    its metadata, restore s, compare s)."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import specs, train
+    from repro_torch.models import lm, shardings as sh
+    from repro_torch.optim import AdamConfig, init_state_shapes
+    mesh = train.parse_mesh(spec, "cuda", devices=mesh_devices(spec))
+    shapes = specs.eval_shape(lm.init_params, cfg, device="cpu")
+    p_specs = sh.param_pspecs(shapes, mesh)
+    template = {"params": shapes,
+                "opt": init_state_shapes(shapes, AdamConfig())}
+    placement = sh.named_shardings(
+        {"params": p_specs, "opt": sh.opt_state_pspecs(p_specs, mesh)},
+        mesh)
+    t0 = time.perf_counter()
+    state, meta = store.restore(ckpt_dir, template, placement=placement)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.int32: torch.int32}
+    for (path, x), w in zip(pytree.tree_flatten_with_path(state)[0],
+                            pytree.tree_leaves(saved)):
+        got, want = sh.gather(x), sh.gather(w).to(x.device)
+        if got.shape != want.shape or not torch.equal(
+                got.view(bits[got.dtype]), want.view(bits[want.dtype])):
+            fail(f"elastic restore onto {spec}: {store._leaf_key(path)} "
+                 "differs from the saved global array")
+        if isinstance(x, sh.ShardedTensor) and x.mesh is not mesh:
+            fail(f"elastic restore onto {spec}: {store._leaf_key(path)} "
+                 "is not on the mesh")
+    saved.clear()
+    torch.cuda.synchronize()
+    return state, meta, restore_s, time.perf_counter() - t0
+
+
+def mesh_gaps(label: str, got: dict, want: dict) -> float:
+    """The largest |loss difference| over the steps both ran; fails past
+    ``SHARDED_TRAIN_LOSS_ATOL`` or on a non-finite loss."""
+    steps_ = sorted(set(got) & set(want))
+    if not steps_ or not all(math.isfinite(got[i]) for i in steps_):
+        fail(f"{label}: losses {got}")
+    gap = max(abs(got[i] - want[i]) for i in steps_)
+    log(f"{label}: losses {[round(got[i], 6) for i in steps_]} vs 1x1 "
+        f"{[round(want[i], 6) for i in steps_]}, largest gap {gap:.3g} "
+        f"(limit {SHARDED_TRAIN_LOSS_ATOL})")
+    if gap > SHARDED_TRAIN_LOSS_ATOL:
+        fail(f"{label}: the losses part from 1x1 by {gap:.3g}")
+    return gap
+
+
+def sharded_train_phase() -> dict:
+    """Phase 6d (the module docstring): the step route, its planted
+    faults and the elastic restore on llama3-8b at full width, then the
+    launcher route on it and on gpt2-xl-offload."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config
+    cfg = sharded_cfg()
+    steps_ = SHARDED_TRAIN_STEPS
+    batches = sharded_batches(cfg, steps_)
+    label = f"sharded train {SHARDED_TRAIN_ARCH} ({SHARDED_TRAIN_LAYERS} "\
+        "layers)"
+    out = {}
+    one = out["step 1x1"] = step_route(cfg, "1x1", batches)
+    split = out[f"step {SHARDED_TRAIN_MESH}"] = step_route(
+        cfg, SHARDED_TRAIN_MESH, batches, check=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"{label}: checkpoint directory free "
+            f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB")
+        saved = out[f"step {SHARDED_TRAIN_MESH} saved"] = step_route(
+            cfg, SHARDED_TRAIN_MESH, batches[:steps_ - 1],
+            save=(tmp, steps_ - 1), keep=True)
+        state, meta, restore_s, compare_s = elastic_restore(
+            cfg, tmp, SHARDED_RESTORE_MESH, saved.pop("state"))
+    if int(meta["step"]) != steps_ - 1:
+        fail(f"{label}: restored step {meta['step']}")
+    resumed = out[f"step {SHARDED_RESTORE_MESH} restored"] = step_route(
+        cfg, SHARDED_RESTORE_MESH, batches[-1:], first=steps_ - 1,
+        state=state)
+    resumed.update(restore_s=restore_s, compare_s=compare_s)
+    for name, run in out.items():
+        want = run["blocks"] * len(run["losses"])
+        others = {k: v for k, v in run["launches"].items()
+                  if v and k != "fused_adam"}
+        if run["launches"]["fused_adam"] != want or others:
+            fail(f"{label} {name}: launches {run['launches']}, expected "
+                 f"fused_adam x {want} alone")
+    if split["bytes"] != one["bytes"]:
+        fail(f"{label}: placement at {SHARDED_TRAIN_MESH} holds "
+             f"{split['bytes']} B of distinct storage, 1x1 {one['bytes']}")
+    if not one["losses"][steps_ - 1] < one["losses"][0]:
+        fail(f"{label}: the loss did not fall ({one['losses']})")
+    gaps = {name: mesh_gaps(f"{label} {name}", run["losses"],
+                            one["losses"])
+            for name, run in out.items() if name != "step 1x1"}
+    faults = {}
+    for fault in ("skip", "drop"):
+        run = step_route(cfg, SHARDED_TRAIN_MESH, batches[:2], fault=fault)
+        faults[fault] = max(abs(run["losses"][i] - one["losses"][i])
+                            for i in run["losses"])
+    log(f"{label}: planted faults (the first mesh entry's shard not "
+        f"updated; data shard 1's gradient dropped), largest gap to 1x1 "
+        f"{faults} (limit {SHARDED_TRAIN_LOSS_ATOL})")
+    for fault, gap in faults.items():
+        if not gap > SHARDED_TRAIN_LOSS_ATOL:
+            fail(f"{label}: the planted fault '{fault}' reads {gap:.3g}, "
+                 "inside the limit")
+    for name, run in out.items():
+        mid = statistics.median(run["step_ms"][1:] or run["step_ms"])
+        log(f"{label} {name}: step ms {[round(x, 1) for x in run['step_ms']]}"
+            f" (median after the first {mid:.1f}), fused_adam x "
+            f"{run['launches']['fused_adam']} over {run['blocks']} blocks, "
+            f"distinct storage {run['bytes']} B, resident "
+            f"{run['resident'] / 2**30:.2f} GiB, peak "
+            f"{run['peak'] / 2**30:.2f} GiB")
+    log(f"{label}: every fused_adam block at the first {SHARDED_TRAIN_MESH} "
+        f"step held against the plain update ({split['checked']} blocks, "
+        f"max_abs_err {split['max_abs_err']:.3g}); saved after "
+        f"{steps_ - 1} steps ({saved['save']['bytes']} B in "
+        f"{saved['save']['s']:.1f} s), restored onto "
+        f"{SHARDED_RESTORE_MESH} in {restore_s:.1f} s, bit-equal "
+        f"(compared in {compare_s:.1f} s); placement adds "
+        f"{split['bytes'] - one['bytes']} B")
+    # the launcher (plain AdamW, as the reference's) at 1x1 and the mesh
+    launcher = {}
+    for arch, spec, n, cut in (
+            (SHARDED_TRAIN_ARCH, "1x1", steps_, cfg),
+            (SHARDED_TRAIN_ARCH, SHARDED_TRAIN_MESH, steps_, cfg),
+            (TRAIN_ARCH, "1x1", SHARDED_GPT2_STEPS, None),
+            (TRAIN_ARCH, SHARDED_GPT2_MESH, SHARDED_GPT2_STEPS, None)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, launches, wall, _ = run_launcher(
+            ["--arch", arch, "--steps", str(n), "--batch", "8", "--seq",
+             "128", "--lr", repr(launcher_lr(arch)), "--mesh", spec], cut,
+            mesh_devices(spec))
+        if any(launches.values()):
+            fail(f"launcher {arch} {spec}: hand-written kernels launched "
+                 f"{launches}")
+        launcher[f"{arch} {spec}"] = {
+            "losses": res.losses, "step_s": res.step_s, "wall_s": wall,
+            "bytes": distinct_bytes(res.params, res.opt),
+            "peak": torch.cuda.max_memory_allocated()}
+        del res
+    for arch, spec in ((SHARDED_TRAIN_ARCH, SHARDED_TRAIN_MESH),
+                       (TRAIN_ARCH, SHARDED_GPT2_MESH)):
+        a, b = launcher[f"{arch} 1x1"], launcher[f"{arch} {spec}"]
+        gaps[f"launcher {arch} {spec}"] = mesh_gaps(
+            f"launcher {arch} {spec}", b["losses"], a["losses"])
+        if a["bytes"] != b["bytes"]:
+            fail(f"launcher {arch} {spec}: {b['bytes']} B of distinct "
+                 f"storage, 1x1 {a['bytes']}")
+    for name, run in launcher.items():
+        st = [run["step_s"][i] * 1e3 for i in sorted(run["step_s"])]
+        log(f"launcher {name}: step ms {[round(x, 1) for x in st]} "
+            f"(median after the first "
+            f"{statistics.median(st[1:] or st):.1f}), wall "
+            f"{run['wall_s']:.1f} s, distinct storage {run['bytes']} B, "
+            f"peak {run['peak'] / 2**30:.2f} GiB")
+    gpt2 = get_config(TRAIN_ARCH)
+    log(f"{TRAIN_ARCH}: {gpt2.n_heads} heads of {gpt2.head_dim} over "
+        f"{SHARDED_GPT2_MESH}: wq's {gpt2.n_heads * gpt2.head_dim} columns "
+        "split off head boundaries")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": out, "launcher": launcher, "gaps": gaps,
+            "faults": faults,
+            SHARDED_TRAIN_MESH: {"launches": split["launches"],
+                                 "sharded": True}}
+
+
 def sass_counts(libs: dict) -> dict:
     """Per kernel library: how many tensor-core mma (``HMMA``), ldmatrix
     (``LDSM``), ``cp.async`` (``LDGSTS``) and fp32 FMA (``FFMA``)
@@ -3976,7 +4374,8 @@ def main() -> int:
             (f"launcher {RECURRENT_ARCH}", lambda: launcher_phase(
                 RECURRENT_ARCH, n_layers=RECURRENT_LAUNCHER_LAYERS)),
             (f"launcher {JAMBA_ARCH} smoke", jamba_launcher_phase),
-            ("checkpoint", checkpoint_phase)):
+            ("checkpoint", checkpoint_phase),
+            ("sharded train", sharded_train_phase)):
         t0 = time.perf_counter()
         record[name] = phase()
         log(f"{name} phase: {time.perf_counter() - t0:.1f} s, {memory()}")
@@ -3990,8 +4389,10 @@ def main() -> int:
     for arch in FAMILY_ARCHS:
         for kernel, shape, n in families[arch]["shape_launches"]:
             shape_launches[(kernel, tuple(shape))] += n
-    rows = kernels_line(kernels, {**record["serve"], **record["train"]},
-                        shape_launches)
+    rows = kernels_line(kernels, {
+        **record["serve"], **record["train"],
+        f"{SHARDED_TRAIN_ARCH} sharded": record["sharded train"]},
+        shape_launches)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

@@ -16,9 +16,13 @@ so that a checkpoint written by either package restores in the other:
   * the manifest also holds user metadata (step, data state);
   * keep-last-k garbage collection.
 
+A leaf placed on a mesh (``models.shardings.ShardedTensor``) is written
+as its global array, as the reference writes a sharded ``jax.Array``.
 ``restore`` takes, in place of the reference's shardings, a target per
 leaf: a memory kind (``device``, ``pinned_host``, ``unpinned_host``) of
-an engine on ``device``, or a torch device.
+an engine on ``device``, a torch device, or a
+``models.shardings.NamedSharding`` (a spec on a mesh), which re-shards
+the global array onto that mesh whatever mesh wrote it (elastic).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch.utils._pytree as pytree
 from ..core.interleave import _path_part
 from ..core.tiered_array import (DeviceLike, LOGICAL_KINDS, resolve_device,
                                  to_kind)
+from ..models.shardings import NamedSharding, ShardedTensor
 
 
 def _leaf_key(path) -> str:
@@ -49,6 +54,8 @@ def _adler32(arr: np.ndarray) -> int:
 
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as a numpy array and its manifest dtype name."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.full()
     if not isinstance(leaf, torch.Tensor):
         arr = np.asarray(leaf)
         return arr, str(arr.dtype)
@@ -116,8 +123,13 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 def _destination(t: torch.Tensor, target, leaf, device: DeviceLike
                  ) -> torch.Tensor:
     """``t`` (CPU) moved to its target: a memory kind of an engine on
-    ``device``, a torch device, or (None) the target leaf's own device
-    (``device`` where that leaf has no storage)."""
+    ``device``, a torch device, a ``NamedSharding``, or (None) the
+    target leaf's own placement: its mesh and spec where it is placed,
+    else its device (``device`` where that leaf has no storage)."""
+    if target is None and isinstance(leaf, ShardedTensor):
+        target = NamedSharding(leaf.mesh, leaf.spec)
+    if isinstance(target, NamedSharding):
+        return target.place(t)
     if isinstance(target, str) and target in LOGICAL_KINDS:
         return to_kind(t, target, resolve_device(device))
     if target is None:
@@ -136,9 +148,9 @@ def restore(ckpt_dir: str | Path, target_tree: Any,
 
     ``placement``: one target for every leaf, or a tree of the target's
     structure holding one per leaf (None for the default).  A target is
-    a memory kind of an engine on ``device`` (CUDA unless ``"cpu"``) or
-    a torch device; by default a leaf lands on the target leaf's
-    device."""
+    a memory kind of an engine on ``device`` (CUDA unless ``"cpu"``), a
+    torch device, or a ``NamedSharding`` (elastic re-shard onto its
+    mesh); by default a leaf lands where the target leaf is placed."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -148,7 +160,8 @@ def restore(ckpt_dir: str | Path, target_tree: Any,
     manifest = json.loads((d / "manifest.json").read_text())
 
     flat, spec = pytree.tree_flatten_with_path(target_tree)
-    if placement is None or isinstance(placement, (str, torch.device)):
+    if placement is None or isinstance(placement, (str, torch.device,
+                                                   NamedSharding)):
         targets = [placement] * len(flat)
     else:
         targets = spec.flatten_up_to(placement)

@@ -27,10 +27,12 @@ import torch
 
 from ..core.tiered_array import resolve_device
 
-# what a training placement that would split a tensor over more than one
-# device raises with: the ROADMAP item that ports it
-MULTI_DEVICE_ITEM = ("ROADMAP queue 1, item 11b (training under FSDP x TP "
-                     "over a torch.distributed world)")
+# what a mesh of more entries than this machine's devices raises with,
+# where no list of (logical) devices was given: the ROADMAP item that
+# runs over several physical cards
+MULTI_DEVICE_ITEM = ("ROADMAP queue 1, item 11c (a run over several "
+                     "physical cards; pass devices= to lay the mesh over "
+                     "logical devices of one)")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -62,11 +64,12 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
-        """The device a one-device mesh places on."""
+        """The device a one-device mesh places on; a larger mesh has
+        none (``first_device``, ``physical_devices``)."""
         if self.size != 1:
-            raise NotImplementedError(
-                f"a mesh of {self.size} devices {dict(self.shape)}: "
-                f"{MULTI_DEVICE_ITEM}")
+            raise ValueError(
+                f"a mesh of {self.size} devices {dict(self.shape)} has no "
+                "one device: read first_device or physical_devices")
         return self.devices.flat[0]
 
     @property

@@ -22,11 +22,22 @@ there too.  ``--ckpt-dir`` writes checkpoints in the reference's format
 
 The train step is ``launch.steps.make_train_step`` with the plain AdamW
 and the plain ``chunked_attention``, as the reference's is: this path
-launches no hand-written kernel.  ``--mesh`` places the parameters as
-the reference does (``launch.mesh``, ``models.shardings.param_pspecs``,
-``to_named``): a mesh of one device runs as it is; a mesh of more
-devices than the machine has raises, and so does one whose specs would
-split a tensor over several devices (``launch.mesh.MULTI_DEVICE_ITEM``).
+launches no hand-written kernel.  ``--mesh`` places the parameters and
+the optimizer state as the reference does (``launch.mesh``,
+``models.shardings.param_pspecs``, ``to_named``: FSDP over ``data``, TP
+over ``model``), the batch splits over the data axes, and a checkpoint
+restores onto whatever mesh is given (elastic).  One process drives the
+whole mesh.  ``run(args, devices=...)`` lays the mesh over a list of
+devices, which may name one device several times (logical devices):
+
+    run(parse_args(["--arch", "llama3-8b", "--smoke", "--mesh", "2x4",
+                    "--device", "cpu"]), devices=["cpu"] * 8)
+
+Without ``devices`` a mesh needs as many devices as it has entries, as
+the reference's does, and raises naming
+``launch.mesh.MULTI_DEVICE_ITEM`` where the machine has fewer.
+``--adaptive`` on a mesh of more than one device raises, as the
+reference's fails there (``SPLIT_ADAPTIVE_FAULT``).
 """
 from __future__ import annotations
 
@@ -51,7 +62,7 @@ from ..obs import (BlameLedger, CostModelCalibrator, measure_transfer_probes,
                    MetricsRegistry, PredictionLedger, probed_kind_bases,
                    TierProbe, TraceRecorder)
 from ..offload.train_engine import emit_step_traffic
-from ..optim import AdamConfig, init_state
+from ..optim import AdamConfig, init_state, init_state_shapes
 from ..pool import ResidencyLedger, TieredStateStore
 from ..telemetry import (AccessSampler, AccessTrace, AdaptiveReplanner,
                          PhaseDetector, ReplanConfig, SamplerConfig)
@@ -59,21 +70,30 @@ from ..topology import build_topology, Flow, TOPOLOGY_CHOICES
 from . import steps as steps_mod
 from .mesh import dp_axes, make_mesh, Mesh, MULTI_DEVICE_ITEM
 
+# what --adaptive on a mesh of more than one device raises with: the
+# reference's launcher fails there (its TieredStateStore puts pinned-host
+# blocks beside device-sharded ones), and the port keeps the failure
+SPLIT_ADAPTIVE_FAULT = ("ROADMAP section 3, faults of the reference the "
+                        "port keeps: --adaptive under a split mesh")
 
-def parse_mesh(spec: str, device: DeviceLike = None) -> Mesh:
+
+def parse_mesh(spec: str, device: DeviceLike = None,
+               devices=None) -> Mesh:
     """The ``--mesh`` spec as a mesh, the reference's axis names, over
+    ``devices`` (a list, which may repeat a device) or, without it,
     ``device`` on the CPU and every CUDA device otherwise.  A mesh of
-    more devices than there are raises ``ValueError``, naming the
-    ROADMAP item that splits work over several devices."""
+    more entries than there are devices raises ``ValueError``, naming
+    the ROADMAP item that runs over several physical devices."""
     dims = tuple(int(x) for x in spec.split("x"))
     axes = {1: ("model",), 2: ("data", "model"),
             3: ("pod", "data", "model")}.get(len(dims))
     if axes is None:
         raise ValueError(f"--mesh {spec!r}: give 1 to 3 axis sizes")
-    dev = resolve_device(device)
+    if devices is None:
+        dev = resolve_device(device)
+        devices = [dev] if dev.type == "cpu" else None
     try:
-        return make_mesh(dims, axes,
-                         devices=[dev] if dev.type == "cpu" else None)
+        return make_mesh(dims, axes, devices=devices)
     except ValueError as e:
         raise ValueError(f"--mesh {spec}: {e} ({MULTI_DEVICE_ITEM})") \
             from e
@@ -375,7 +395,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--mesh", default="1x1",
-                    help="device mesh; the port takes one device only")
+                    help="device mesh (DxM or PxDxM): FSDP over data, TP "
+                         "over model")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
@@ -469,15 +490,16 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run(args: argparse.Namespace) -> TrainRun:
-    """Train as ``args`` (from ``parse_args``) say: restore the latest
-    checkpoint of ``--ckpt-dir`` if there is one, take the steps up to
-    ``--steps``, checkpoint every ``--ckpt-every`` steps and at the
-    end."""
+def run(args: argparse.Namespace, devices=None) -> TrainRun:
+    """Train as ``args`` (from ``parse_args``) say, on the ``--mesh``
+    laid over ``devices`` (``parse_mesh``): restore the latest
+    checkpoint of ``--ckpt-dir`` if there is one, onto that mesh, take
+    the steps up to ``--steps``, checkpoint every ``--ckpt-every`` steps
+    and at the end."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
-    dev = resolve_device(args.device)
-    mesh = parse_mesh(args.mesh, dev)
+    mesh = parse_mesh(args.mesh, args.device, devices)
+    dev = mesh.first_device
     with PS.use_mesh(mesh, dp=dp_axes(mesh), tp="model"):
         return _train(args, cfg, dev, mesh)
 
@@ -487,8 +509,11 @@ def _train(args: argparse.Namespace, cfg, dev: torch.device,
     acfg = AdamConfig(lr=args.lr, compress_grads=args.compress_grads)
 
     params = lm.init_params(cfg, seed=0, device=dev)
-    params = sh.to_named(params, sh.param_pspecs(params, mesh), mesh)
-    opt = init_state(params, acfg)
+    p_specs = sh.param_pspecs(params, mesh)
+    params = sh.to_named(params, p_specs, mesh)
+    if args.adaptive and mesh.size > 1:
+        raise ValueError(f"--adaptive under --mesh {args.mesh}, a mesh of "
+                         f"{mesh.size} devices: {SPLIT_ADAPTIVE_FAULT}")
     step_fn = steps_mod.make_train_step(cfg, acfg)
 
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
@@ -496,13 +521,27 @@ def _train(args: argparse.Namespace, cfg, dev: torch.device,
     it = DataIterator(dc)
     start = 0
     if args.ckpt_dir and store.latest_step(args.ckpt_dir) is not None:
-        state = {"params": params, "opt": opt}
-        del params, opt
-        state, meta = store.restore(args.ckpt_dir, state)
+        # restore onto this mesh (elastic), into the state's shapes
+        shapes = pytree.tree_map(lambda p: torch.empty(
+            tuple(p.shape), dtype=p.dtype, device="meta"), params)
+        template = {"params": shapes,
+                    "opt": init_state_shapes(shapes, acfg)}
+        # the state's specs; err (--compress-grads) is placed as params
+        o_specs = sh.opt_state_pspecs(p_specs, mesh)
+        placement = sh.named_shardings(
+            {"params": p_specs,
+             "opt": {k: o_specs.get(k, p_specs) for k in template["opt"]}},
+            mesh)
+        del params
+        state, meta = store.restore(args.ckpt_dir, template,
+                                    placement=placement)
         params, opt = state["params"], state["opt"]
         start = int(meta.get("step", 0))
         it.restore({"step": start})
-        print(f"restored step {start} (onto {dev}, mesh {args.mesh})")
+        print(f"restored step {start} (elastic re-shard onto {args.mesh}, "
+              f"{mesh.size} entries over {dev})")
+    else:
+        opt = init_state(params, acfg)
 
     telem = (_TrainTelemetry(params, opt, args.replan_every,
                              args.sample_rate, args.topology,

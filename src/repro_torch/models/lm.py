@@ -34,7 +34,11 @@ Prefill and the decode step also take parameters placed on a mesh
 by block (``shardings.embed_rows``), a vocab-split head gives its logits
 as a ``shardings.ShardedTensor`` of fp32 blocks (``vocab_logits``: read
 them with ``shardings.argmax`` or ``shardings.gather``), and
-expert-split MoE stacks run in ``modules.moe_fwd`` block by block.
+expert-split MoE stacks run in ``modules.moe_fwd`` block by block.  The
+training loss takes parameters placed for training
+(``shardings.to_named``, FSDP x TP): ``loss_terms`` runs the batch's
+data shards in turn, each gathering what it reads (``local_params``),
+the vocab and expert splits kept.
 
 Cache layout (the reference's; axis 0 = unit):
   kv_k/kv_v        (U, n_attn, B, S_max, KV, hd)  bf16, or int8 with
@@ -240,7 +244,9 @@ def _views(tree: Params, n: int) -> List[Params]:
 
 def unit_views(params: Params, cfg: ModelConfig) -> List[Params]:
     """Per-unit parameter views (``units[u]``): the loop body's inputs
-    in place of the reference's ``lax.scan`` slices."""
+    in place of the reference's ``lax.scan`` slices.  A leaf placed on a
+    mesh gives the ``ShardedTensor`` of its blocks' unit-``u`` views
+    (nothing gathered)."""
     return _views(params["units"], cfg.n_units)
 
 
@@ -296,14 +302,17 @@ def project_qkv(cfg: ModelConfig, ap: Params, h: torch.Tensor):
             v.reshape(B, S, cfg.n_kv, cfg.head_dim))
 
 
-def ffn(cfg: ModelConfig, spec, lp: Params, h: torch.Tensor):
+def ffn(cfg: ModelConfig, spec, lp: Params, h: torch.Tensor,
+        shards: Optional[int] = None):
     """The layer's MLP, or its MoE (``moe_fwd``, capacity and drop as
     the config sets them) where the layer spec says so.  Returns (out,
-    MoE aux loss, or None for an MLP)."""
+    MoE aux loss, or None for an MLP); with ``shards`` (``h`` one of that
+    many data shards) the MoE's (2, E) aux terms in place of its loss."""
     if spec.moe:
         return M.moe_fwd(lp["moe"], h, top_k=cfg.top_k,
                          capacity_factor=cfg.capacity_factor,
-                         n_groups=cfg.moe_groups, act=cfg.act)
+                         n_groups=cfg.moe_groups, act=cfg.act,
+                         shards=shards)
     return M.mlp_fwd(lp["mlp"], h, cfg.act), None
 
 
@@ -345,16 +354,20 @@ def _gate(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 def _unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
               positions: torch.Tensor, cross: Optional[torch.Tensor],
-              train: bool = False, causal: bool = True):
+              train: bool = False, causal: bool = True,
+              shards: Optional[int] = None):
     """One unit over the whole sequence (prefill, training, and the
     encoder); returns (x, MoE aux loss (fp32), cache) where cache maps
     each of the unit's cache keys to its per-layer entries (None with
-    ``train``).  Causal self-attention runs through
-    ``ops.flash_attention`` (the kernel on the card); with ``train``, or
-    non-causal, through the plain ``chunked_attention``, as the
-    reference's train mode does: the kernel has no backward."""
+    ``train``).  With ``shards`` (``x`` one of that many data shards)
+    the aux is a tuple of each MoE layer's (2, E) terms (``moe_fwd``).
+    Causal self-attention runs through ``ops.flash_attention`` (the
+    kernel on the card); with ``train``, or non-causal, through the
+    plain ``chunked_attention``, as the reference's train mode does:
+    the kernel has no backward."""
     B, S, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    terms: List[torch.Tensor] = []
     cache: Dict[str, list] = {k: [] for k in CACHE_KEYS}
 
     def put(key: str, t: torch.Tensor) -> None:
@@ -414,11 +427,13 @@ def _unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
             x = x + _cross_attend(cfg, lp["cross"], h, xk, xv, None)
             put("cross_k", xk.to(torch.bfloat16))
             put("cross_v", xv.to(torch.bfloat16))
-        x, a = _mlp_sublayer(cfg, spec, lp, x)
-        if a is not None:
+        x, a = _mlp_sublayer(cfg, spec, lp, x, shards)
+        if a is not None and shards:
+            terms.append(a)
+        elif a is not None:
             aux = aux + a
-    return x, aux, (None if train else
-                    {k: v for k, v in cache.items() if v})
+    return x, (tuple(terms) if shards else aux), (
+        None if train else {k: v for k, v in cache.items() if v})
 
 
 def _rwkv_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
@@ -437,11 +452,12 @@ def _rwkv_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 
 def _mlp_sublayer(cfg: ModelConfig, spec: LayerSpec, lp: Params,
-                  x: torch.Tensor):
+                  x: torch.Tensor, shards: Optional[int] = None):
     """The MLP / MoE sublayer behind ``norm2`` (tanh-gated in a cross
-    layer).  Returns (x, MoE aux loss or None)."""
+    layer).  Returns (x, MoE aux loss (terms, with ``shards``) or
+    None)."""
     h = M.apply_norm(cfg.norm, lp["norm2"], x)
-    out, a = ffn(cfg, spec, lp, h)
+    out, a = ffn(cfg, spec, lp, h, shards)
     if spec.kind == "cross":
         out = _gate(lp["gate_mlp"], out)
     return x + out, a
@@ -455,16 +471,26 @@ def _stack_cache(per_unit: List[Dict[str, list]]) -> Params:
 
 def _stack_fwd(cfg: ModelConfig, units: List[Params], x: torch.Tensor,
                positions: torch.Tensor, cross: Optional[torch.Tensor],
-               causal: bool = True):
+               causal: bool = True, shard: Optional[SH.DataShard] = None):
     """The units in order over the whole sequence with the plain
     attention (the reference's train-mode ``lax.scan``); with
     ``cfg.remat`` under autograd each unit is recomputed in the
     backward pass, so only the unit boundaries are kept.  Returns (x,
-    summed aux loss)."""
+    summed aux loss).
+
+    With ``shard`` (``x`` that data shard's rows; ``units`` placed on a
+    mesh) each unit's leaves are gathered onto the shard's devices
+    first, inside the remat region, so the backward gathers them again
+    and no more than one unit is ever whole (FSDP per scanned unit);
+    the aux is then the list of each MoE layer's (2, E) terms."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    terms: List[torch.Tensor] = []
 
     def body(up, h, pos, xc):
-        h, a, _ = _unit_fwd(cfg, up, h, pos, xc, train=True, causal=causal)
+        if shard is not None:
+            up = local_params(up, shard)
+        h, a, _ = _unit_fwd(cfg, up, h, pos, xc, train=True, causal=causal,
+                            shards=shard.n if shard is not None else None)
         return h, a
 
     for up in units:
@@ -473,16 +499,19 @@ def _stack_fwd(cfg: ModelConfig, units: List[Params], x: torch.Tensor,
                               cross, use_reentrant=False)
         else:
             x, a = body(up, x, positions, cross)
-        aux = aux + a
-    return x, aux
+        if shard is not None:
+            terms.extend(a)
+        else:
+            aux = aux + a
+    return x, (terms if shard is not None else aux)
 
 
-def encode(p: Params, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(p: Params, cfg: ModelConfig, frames: torch.Tensor,
+           shard: Optional[SH.DataShard] = None) -> torch.Tensor:
     """Whisper-style encoder over stubbed frame embeddings (B, S_enc,
     D): sinusoidal positions, ``encoder_layers`` non-causal attention
     layers (the plain ``chunked_attention``), the final norm.  Returns
-    (B, S_enc, D) bf16."""
+    (B, S_enc, D) bf16.  ``shard``: as for ``_stack_fwd``."""
     S_enc = frames.shape[1]
     x = frames.to(torch.bfloat16)
     x = x + _sinusoidal(S_enc, cfg.d_model,
@@ -491,12 +520,15 @@ def encode(p: Params, cfg: ModelConfig,
     x, _ = _stack_fwd(_enc_cfg(cfg), _views(enc["units"],
                                             cfg.encoder_layers), x,
                       torch.arange(S_enc, device=x.device), None,
-                      causal=False)
-    return M.apply_norm(cfg.norm, enc["final_norm"], x)
+                      causal=False, shard=shard)
+    norm = enc["final_norm"] if shard is None else local_params(
+        enc["final_norm"], shard)
+    return M.apply_norm(cfg.norm, norm, x)
 
 
-def _cross_inputs(p: Params, cfg: ModelConfig, cross_inputs,
-                  dev) -> Optional[torch.Tensor]:
+def _cross_inputs(p: Params, cfg: ModelConfig, cross_inputs, dev,
+                  shard: Optional[SH.DataShard] = None
+                  ) -> Optional[torch.Tensor]:
     """The cross inputs on ``dev`` (float64 arrays as fp32, as JAX reads
     them), run through the encoder where the model has one; None for a
     model that takes none.  Raises when a model that needs them gets
@@ -515,7 +547,7 @@ def _cross_inputs(p: Params, cfg: ModelConfig, cross_inputs,
         raise ValueError(f"{cfg.name}: cross_inputs of shape "
                          f"{tuple(t.shape)}, expected (B, S_enc, "
                          f"{cfg.d_model})")
-    return encode(p, cfg, t) if cfg.encoder_layers else t
+    return encode(p, cfg, t, shard) if cfg.encoder_layers else t
 
 
 @torch.no_grad()
@@ -710,13 +742,146 @@ def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
 # ====================================================================== #
 # Training loss                                                          #
 # ====================================================================== #
-def _chunk_ce(xi: torch.Tensor, yi: torch.Tensor,
-              W: torch.Tensor) -> torch.Tensor:
-    """Summed cross-entropy of one sequence chunk, logits in fp32."""
-    logits = (xi @ W.T).float()                               # (B,C,V)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, yi[..., None])[..., 0]
-    return torch.sum(lse - gold)
+def _chunk_ce(xi: torch.Tensor, yi: torch.Tensor, W) -> torch.Tensor:
+    """Summed cross-entropy of one sequence chunk, logits in fp32.  A
+    head split over vocab (a ``ShardedTensor``) gives each block's
+    logits on its device: the log-sum-exp merges the blocks' own
+    log-sum-exps (their maxima and sums of exponentials), and the gold
+    logit comes from the block that owns the label."""
+    if not SH.is_split(W):
+        logits = (xi @ SH.gather(W).T).float()                # (B,C,V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, yi[..., None])[..., 0]
+        return torch.sum(lse - gold)
+    first, lses, gold = xi.device, [], None
+    logits = SH.vocab_logits(xi, W)
+    for lo, hi, dev, local in logits.blocks(logits.ndim - 1):
+        lses.append(torch.logsumexp(local, dim=-1).to(first))
+        y = yi.to(dev)
+        g = local.gather(-1, torch.clamp(y - lo, 0, hi - lo - 1)[..., None])
+        g = torch.where((y >= lo) & (y < hi), g[..., 0],
+                        torch.zeros((), dtype=g.dtype, device=dev)).to(first)
+        gold = g if gold is None else gold + g
+    return torch.sum(torch.logsumexp(torch.stack(lses), dim=0) - gold)
+
+
+def _split_rows(path: Tuple[str, ...]) -> bool:
+    """Whether a leaf keeps a ``model`` split of its dimension 0 when a
+    data shard gathers it: the vocab rows of the embedding and head, and
+    the expert stacks, which the model reads block by block
+    (``embed_rows``, ``vocab_logits``, ``expert_blocks``)."""
+    return path[-1] in ("embed", "lm_head") or (
+        len(path) > 1 and path[-2] == "moe"
+        and path[-1] in ("w_gate", "w_up", "w_down"))
+
+
+def local_params(tree: Params, shard: SH.DataShard) -> Params:
+    """``tree``'s leaves gathered onto data shard ``shard``'s devices
+    (``shardings.local_view``): whole, but the vocab and expert splits
+    kept (``_split_rows``)."""
+    return SH._map_with_path(
+        lambda path, t: SH.local_view(t, shard, _split_rows(path)), tree)
+
+
+def _moe_groups(cfg: ModelConfig, n_tokens: int) -> int:
+    """The MoE dispatch groups of a batch of ``n_tokens`` (``moe_fwd``'s
+    G); 0 for a model without MoE layers."""
+    if not any(s.moe for s in cfg.pattern):
+        return 0
+    G = min(cfg.moe_groups, n_tokens)
+    while n_tokens % G:
+        G -= 1
+    return G
+
+
+def _shard_loss(p: Params, cfg: ModelConfig, shard: SH.DataShard,
+                tokens: torch.Tensor, labels: torch.Tensor, cross_inputs
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """One data shard's summed token cross-entropy and its MoE layers'
+    aux terms, computed on its devices from params placed on a mesh."""
+    dev = shard.device
+    tokens = tokens.to(device=dev, dtype=torch.int64)
+    labels = labels.to(device=dev, dtype=torch.int64)
+    top = local_params({k: v for k, v in p.items()
+                        if k not in ("units", "encoder")}, shard)
+    cross = _cross_inputs(p, cfg, cross_inputs, dev, shard)
+    x = _embed_tokens(top, cfg, tokens)
+    S = tokens.shape[1]
+    x, terms = _stack_fwd(cfg, unit_views(p, cfg), x,
+                          torch.arange(S, device=dev), cross, shard=shard)
+    return _ce_sum(cfg, M.apply_norm(cfg.norm, top["final_norm"], x),
+                   labels, _lm_head(top, cfg)), terms
+
+
+def _ce_sum(cfg: ModelConfig, x: torch.Tensor, labels: torch.Tensor,
+            W) -> torch.Tensor:
+    """Summed token cross-entropy of the final hidden states, over
+    chunks of ``cfg.loss_chunk`` positions so the (B, S, V) logits never
+    exist at once."""
+    S = x.shape[1]
+    C = min(cfg.loss_chunk, S)
+    if S % C:
+        raise ValueError(f"sequence length {S} is not a multiple of "
+                         f"loss_chunk {C}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, C):
+        xi, yi = x[:, c0:c0 + C], labels[:, c0:c0 + C]
+        if cfg.remat:
+            total = total + checkpoint(_chunk_ce, xi, yi, W,
+                                       use_reentrant=False)
+        else:
+            total = total + _chunk_ce(xi, yi, W)
+    return total
+
+
+def _shards_aux(terms: List[List[torch.Tensor]], first) -> torch.Tensor:
+    """The MoE aux loss from every data shard's per-layer (2, E) terms:
+    each layer's ``me`` and ``ce`` summed over the shards first (they
+    are the whole batch's), then ``moe_aux``, summed over the layers."""
+    aux = torch.zeros((), dtype=torch.float32, device=first)
+    for layer in zip(*terms):
+        me, ce = sum(t.to(first) for t in layer)
+        aux = aux + M.moe_aux(me, ce)
+    return aux
+
+
+def loss_terms(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+               labels: torch.Tensor,
+               cross_inputs: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training loss's two terms, 0-d fp32: the mean token
+    cross-entropy and the MoE aux loss (``forward_loss`` adds 0.01 x the
+    aux).  ``cross_inputs`` as for ``prefill``.
+
+    Params placed on a mesh (``shardings.to_named``) split the global
+    batch into ``shardings.data_shards``, each computed on its own data
+    row's devices (``_shard_loss``): the mean is the shards' summed
+    token losses over the global B x S, and the aux is the global
+    batch's (``_shards_aux``).  The terms land on the mesh's first
+    device."""
+    B, S = tokens.shape
+    mesh = SH.mesh_of(p)
+    if mesh is not None:
+        first = mesh.first_device
+        ce = torch.zeros((), dtype=torch.float32, device=first)
+        terms = []
+        for shard in SH.data_shards(mesh, B, _moe_groups(cfg, B * S)):
+            rows = slice(shard.lo, shard.hi)
+            c, t = _shard_loss(p, cfg, shard, tokens[rows], labels[rows],
+                               None if cross_inputs is None
+                               else cross_inputs[rows])
+            ce = ce + c.to(first)
+            terms.append(t)
+        return ce / (B * S), _shards_aux(terms, first)
+    dev = p["embed"].device
+    tokens = tokens.to(device=dev, dtype=torch.int64)
+    labels = labels.to(device=dev, dtype=torch.int64)
+    cross = _cross_inputs(p, cfg, cross_inputs, dev)
+    x = _embed_tokens(p, cfg, tokens)
+    x, aux = _stack_fwd(cfg, unit_views(p, cfg), x,
+                        torch.arange(S, device=dev), cross)
+    x = M.apply_norm(cfg.norm, p["final_norm"], x)
+    return _ce_sum(cfg, x, labels, _lm_head(p, cfg)) / (B * S), aux
 
 
 def forward_loss(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -725,28 +890,8 @@ def forward_loss(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  ) -> torch.Tensor:
     """Training loss, a 0-d fp32 tensor: the mean token cross-entropy,
     computed over chunks of ``cfg.loss_chunk`` positions so the (B, S, V)
-    logits never exist at once, plus 0.01 x the MoE aux loss.
-    ``cross_inputs`` as for ``prefill``."""
-    dev = p["embed"].device
-    tokens = tokens.to(device=dev, dtype=torch.int64)
-    labels = labels.to(device=dev, dtype=torch.int64)
-    cross = _cross_inputs(p, cfg, cross_inputs, dev)
-    x = _embed_tokens(p, cfg, tokens)
-    B, S = tokens.shape
-    x, aux = _stack_fwd(cfg, unit_views(p, cfg), x,
-                        torch.arange(S, device=dev), cross)
-    x = M.apply_norm(cfg.norm, p["final_norm"], x)
-    W = _lm_head(p, cfg)
-    C = min(cfg.loss_chunk, S)
-    if S % C:
-        raise ValueError(f"sequence length {S} is not a multiple of "
-                         f"loss_chunk {C}")
-    total = torch.zeros((), dtype=torch.float32, device=dev)
-    for c0 in range(0, S, C):
-        xi, yi = x[:, c0:c0 + C], labels[:, c0:c0 + C]
-        if cfg.remat:
-            total = total + checkpoint(_chunk_ce, xi, yi, W,
-                                       use_reentrant=False)
-        else:
-            total = total + _chunk_ce(xi, yi, W)
-    return total / (B * S) + 0.01 * aux
+    logits never exist at once, plus 0.01 x the MoE aux loss
+    (``loss_terms``; params placed on a mesh too).  ``cross_inputs`` as
+    for ``prefill``."""
+    ce, aux = loss_terms(p, cfg, tokens, labels, cross_inputs)
+    return ce + 0.01 * aux

@@ -219,7 +219,8 @@ def mlp_fwd(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 # Mixture of Experts (group-local capacity dispatch)                      #
 # ====================================================================== #
 def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
-            capacity_factor: float, n_groups: int, act: str = "silu"):
+            capacity_factor: float, n_groups: int, act: str = "silu",
+            shards: Optional[int] = None):
     """Token-choice top-k MoE with group-local capacity and drop, the
     reference's function step for step.
 
@@ -238,14 +239,29 @@ def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
     experts, and their outputs are gathered to the first device, where
     the combine runs in the same slot order as on one device.
 
+    ``shards``: ``x`` is one of that many equal data shards of the global
+    batch (``shardings.data_shards``).  The groups are the global
+    batch's (G from the global token count), this shard taking its
+    G / shards of them, so capacity and drops are those of the whole
+    batch; and in place of the aux loss it returns this shard's terms
+    of the global ``me`` and ``ce``, (2, E) fp32 (each over the global
+    token count), which ``moe_aux`` turns into the loss once they are
+    summed over the shards.
+
     Returns (out (B, S, D), aux_loss): the Switch load-balancing loss."""
     B, S, D = x.shape
     router = SH.gather(p["router"])
     E = router.shape[1]
     N = B * S
-    G = min(n_groups, N)
-    while N % G:
+    Ng = N * (shards or 1)                # the global batch's tokens
+    G = min(n_groups, Ng)
+    while Ng % G:
         G -= 1
+    if shards:
+        if G % shards:
+            raise ValueError(f"{G} MoE groups do not split over {shards} "
+                             "data shards")
+        G //= shards
     T = N // G
     xt = x.reshape(G, T, D)
 
@@ -253,11 +269,14 @@ def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
     topw, topi = torch.topk(probs, top_k, dim=-1)             # (G,T,k)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
 
-    me = probs.mean(dim=(0, 1))
     flat = topi.reshape(-1)
     ce = torch.zeros(E, device=x.device).index_add_(
-        0, flat, torch.full(flat.shape, 1.0 / (N * top_k), device=x.device))
-    aux = E * torch.sum(me * ce)
+        0, flat, torch.full(flat.shape, 1.0 / (Ng * top_k),
+                            device=x.device))
+    if shards:
+        aux = torch.stack([probs.sum(dim=(0, 1)) / Ng, ce])
+    else:
+        aux = moe_aux(probs.mean(dim=(0, 1)), ce)
 
     C = max(int(T * top_k * capacity_factor / E), 4)
     # position of each (token, slot) within its expert bucket, per group
@@ -294,6 +313,13 @@ def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
         gat = out_buf[g, topi[..., j], last[..., j]]          # (G,T,D)
         acc = acc + gat * w_comb[..., j, None]
     return acc.reshape(B, S, D), aux
+
+
+def moe_aux(me: torch.Tensor, ce: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balancing loss E * sum(me * ce) of the whole
+    batch's mean router probabilities ``me`` and routed fractions ``ce``
+    (E,)."""
+    return me.shape[-1] * torch.sum(me * ce)
 
 
 # ====================================================================== #

@@ -1,17 +1,16 @@
 """Logical-axis sharding constraints for model internals (counterpart of
 ``repro.models.psharding``).
 
-Models call ``constrain(x, "dp", None, "tp", None)`` with *logical*
-axes; the launcher activates a mapping to concrete mesh axes per run.
-Inactive by default.  Dimensions that don't divide their mesh axes are
-replicated (same policy as ``shardings._fit``).
+The reference's models call ``constrain(x, "dp", None, "tp", None)``
+with *logical* axes; its launcher activates a mapping to concrete mesh
+axes per run (``use_mesh``; inactive by default), as the port's does.
 
-On a mesh of one device a constraint computes nothing, so ``constrain``
-returns ``x`` itself wherever every axis it resolves has size 1, and
-raises naming ``launch.mesh.MULTI_DEVICE_ITEM`` where it would split
-``x`` over more than one device.  The port's model modules call it
-nowhere yet: the item that splits tensors over several cards places
-the calls.
+A sharding constraint changes no value, so ``constrain`` returns ``x``
+itself under any mesh.  The port places activations by the data split
+of the batch (``models.shardings.data_shards``: each data shard computes
+on its own devices), not by constraints, and its model modules call
+``constrain`` nowhere; the mesh state is kept for callers that read
+it (``active``).
 """
 from __future__ import annotations
 
@@ -19,8 +18,6 @@ import contextlib
 from typing import Optional, Sequence
 
 import torch
-
-from ..launch.mesh import MULTI_DEVICE_ITEM
 
 _STATE = {"mesh": None, "dp": (), "tp": None}
 
@@ -48,36 +45,5 @@ def active() -> bool:
 
 
 def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """``x`` under logical axes 'dp'/'tp'/None: ``x`` itself where the
-    resolved spec splits it over one device."""
-    mesh = _STATE["mesh"]
-    if mesh is None:
-        return x
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
-    spec = []
-    n = 1
-    for dim, l in zip(x.shape, logical):
-        if l == "dp":
-            axes = [a for a in _STATE["dp"] if a in sizes]
-            total = 1
-            for a in axes:
-                total *= sizes[a]
-            if axes and dim % total == 0:
-                spec.append(tuple(axes))
-                n *= total
-            else:
-                spec.append(None)
-        elif l == "tp":
-            a = _STATE["tp"]
-            if a in sizes and dim % sizes[a] == 0:
-                spec.append(a)
-                n *= sizes[a]
-            else:
-                spec.append(None)
-        else:
-            spec.append(None)
-    if n > 1:
-        raise NotImplementedError(
-            f"constrain: {tuple(spec)} splits a tensor of shape "
-            f"{tuple(x.shape)} over {n} devices: {MULTI_DEVICE_ITEM}")
+    """``x`` under logical axes 'dp'/'tp'/None: ``x`` itself."""
     return x

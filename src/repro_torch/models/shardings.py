@@ -16,19 +16,18 @@ The rules read only shapes and the mesh's ``axis_names`` and
 ``devices.shape``: they take a tree of tensors, fake tensors (built
 under ``torch._subclasses.fake_tensor.FakeTensorMode``, the counterpart
 of ``jax.eval_shape``) or anything with a ``shape``, so they run at
-production mesh shapes without the devices.  ``to_named`` places a
-tree on a mesh where no spec splits a tensor over more than one
-device, and raises naming ``launch.mesh.MULTI_DEVICE_ITEM`` where one
-would.
+production mesh shapes without the devices.
 
-A leaf placed on a mesh for serving (``cluster.sharding.shard_lm_params``)
-is a :class:`ShardedTensor`, the counterpart of a ``jax.Array`` with a
+A leaf placed on a mesh of more than one device (``to_named`` for
+training, ``cluster.sharding.shard_lm_params`` for serving) is a
+:class:`ShardedTensor`, the counterpart of a ``jax.Array`` with a
 ``NamedSharding``: one local tensor per mesh device.  One process drives
 every device of the mesh:
 
-* a split dimension gives each device its block, a *view* of the source
-  where the source lives on that device (placement adds 0 B), else a
-  copy of the block alone;
+* a split dimension gives each device its block (``shard_tensor``: a
+  view of the source where the source lives on that device; for
+  training, ``to_named``, a contiguous copy, so each block is its own
+  tensor a kernel can take);
 * a replicated leaf is kept once per physical device, shared by the
   logical devices on it;
 * work on replicated operands runs once, on the mesh's first device;
@@ -39,18 +38,26 @@ every device of the mesh:
 The helpers after it are the few places the model and the serving
 engine read a split leaf: :func:`embed_rows` and :func:`vocab_logits`
 (``vocab``), :func:`argmax` over vocab shards, :func:`expert_blocks`
-(``experts``), :func:`gather` and :func:`compute_view`.
+(``experts``), :func:`gather` and :func:`compute_view`.  Training reads
+one through :func:`local_view`: the global batch splits into
+:func:`data_shards` (``batch_pspec``), and each shard gathers a unit's
+leaves onto its own devices just before the unit runs (FSDP per
+scanned unit), by ``torch.cat`` of the blocks, so that the backward
+hands each block the gradient of its part, summed over the data shards
+that gathered it (the reduce-scatter).  :func:`per_shard` runs a
+function once per distinct block of placed leaves (the optimizer).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.tiered_array import to_kind
-from ..launch.mesh import Mesh, MULTI_DEVICE_ITEM
+from ..launch.mesh import Mesh
 
 F = "__fsdp__"   # placeholder resolved to the fsdp axis
 T = "__tp__"     # placeholder resolved to the tp axis
@@ -286,27 +293,48 @@ def _spec_devices(spec, mesh) -> int:
     return n
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A placement: ``spec`` on ``mesh`` (``jax.sharding.NamedSharding``);
+    a leaf of a placement tree (``checkpoint.store.restore``)."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def place(self, t: torch.Tensor):
+        """``t`` on the mesh under the spec: on the mesh's first device
+        for a one-device mesh or a 0-d ``t`` (the optimizer's step),
+        else a :class:`ShardedTensor` of contiguous blocks
+        (``shard_tensor``)."""
+        if self.mesh.size == 1 or t.dim() == 0:
+            dev = self.mesh.first_device
+            return t if t.device == dev else t.to(dev)
+        return shard_tensor(t, self.mesh, self.spec, contiguous=True)
+
+
+def named_shardings(specs, mesh) -> Any:
+    """The spec tree as a tree of :class:`NamedSharding` on ``mesh``."""
+    return _map_with_path(lambda keys, s: NamedSharding(mesh, s), specs)
+
+
 def to_named(tree, specs, mesh, memory_kind: Optional[str] = None):
     """``tree`` placed on ``mesh`` under ``specs`` (a spec tree mirroring
-    it, e.g. ``param_pspecs``): every leaf on the mesh's device and, with
-    ``memory_kind``, on that memory kind (``core.tiered_array`` kinds).
-    A leaf already there is returned as it is.  Raises where a spec
-    splits a tensor over more than one device, or the mesh has more
-    than one (a replica on each device): ``MULTI_DEVICE_ITEM``."""
+    it, e.g. ``param_pspecs``).  On a mesh of one device every leaf goes
+    to that device and, with ``memory_kind``, to that memory kind
+    (``core.tiered_array`` kinds); a leaf already there is returned as
+    it is.  On a larger mesh every tensor leaf but a 0-d one becomes a
+    :class:`ShardedTensor` of contiguous blocks, each on its device (and
+    memory kind); the source is not kept, so placement adds 0 B once
+    the caller drops it."""
 
     def place(keys, leaf, spec):
-        if _spec_devices(spec, mesh) > 1:
-            raise NotImplementedError(
-                f"{'/'.join(keys)}: {spec} splits a tensor over "
-                f"{_spec_devices(spec, mesh)} devices of the mesh "
-                f"{dict(zip(mesh.axis_names, mesh.devices.shape))}: "
-                f"{MULTI_DEVICE_ITEM}")
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        dev = mesh.device
-        if memory_kind is not None:
-            return to_kind(leaf, memory_kind, dev)
-        return leaf if leaf.device == dev else leaf.to(dev)
+        placed = NamedSharding(mesh, spec).place(leaf)
+        if memory_kind is None:
+            return placed
+        return per_shard(lambda t: to_kind(t, memory_kind, t.device),
+                         placed)
 
     return _map_with_path(place, tree, specs)
 
@@ -388,6 +416,20 @@ class ShardedTensor:
     def shard_shapes(self) -> List[Tuple[int, ...]]:
         return [tuple(t.shape) for t in self.shards]
 
+    def block_key(self, i: int) -> Tuple[Tuple[int, int], ...]:
+        """Mesh device ``i``'s block: its global [lo, hi) per dim."""
+        return tuple(self.block_of(i, d) for d in range(self.ndim))
+
+    def distinct_blocks(self) -> Dict[tuple, List[torch.Tensor]]:
+        """Block key -> the distinct tensors holding that block (one per
+        physical device that holds it), in mesh order."""
+        out: Dict[tuple, List[torch.Tensor]] = {}
+        for i, local in enumerate(self.shards):
+            ts = out.setdefault(self.block_key(i), [])
+            if all(t is not local for t in ts):
+                ts.append(local)
+        return out
+
     def __getitem__(self, i: int) -> "ShardedTensor":
         """Index the leading dimension (the stacked units), which must
         not be split."""
@@ -417,11 +459,14 @@ class ShardedTensor:
                 f"spec={self.spec}, shards={self.shard_shapes()})")
 
 
-def shard_tensor(t: torch.Tensor, mesh: Mesh, spec) -> ShardedTensor:
+def shard_tensor(t: torch.Tensor, mesh: Mesh, spec,
+                 contiguous: bool = False) -> ShardedTensor:
     """Place ``t`` on ``mesh`` under ``spec`` (padded with None to
     ``t.ndim``).  Each mesh device gets its block: a view of ``t`` where
     ``t`` lives on that device (``t`` itself where nothing splits), else
-    the block copied there once per physical device."""
+    the block copied there once per physical device.  With
+    ``contiguous`` a block that is not the whole of ``t`` is always a
+    contiguous copy of its own."""
     shell = ShardedTensor(t.shape, spec, mesh, [t] * mesh.size)
     spec = shell.spec
     for d in range(t.ndim):
@@ -437,7 +482,11 @@ def shard_tensor(t: torch.Tensor, mesh: Mesh, spec) -> ShardedTensor:
             whole = all(hi - lo == t.shape[d]
                         for d, (lo, hi) in enumerate(idx))
             local = t if whole else t[tuple(slice(*b) for b in idx)]
-            made[key] = local if local.device == dev else local.to(dev)
+            if local.device != dev:
+                local = local.to(dev)
+            elif contiguous and not whole:
+                local = local.clone(memory_format=torch.contiguous_format)
+            made[key] = local
         shards.append(made[key])
     return ShardedTensor(t.shape, spec, mesh, shards)
 
@@ -522,3 +571,147 @@ def expert_blocks(*weights) -> List[Tuple[int, int, torch.device, tuple]]:
         raise ValueError("expert stacks split differently")
     return [(bs[0][0], bs[0][1], bs[0][2], tuple(b[3] for b in bs))
             for bs in zip(*per)]
+
+
+# ---------------------------------------------------------------------- #
+# training over a mesh                                                    #
+# ---------------------------------------------------------------------- #
+def mesh_of(tree) -> Optional[Mesh]:
+    """The mesh of the first :class:`ShardedTensor` leaf of ``tree``;
+    None where no leaf is placed on a mesh of more than one device."""
+    found: List[Mesh] = []
+
+    def look(path, leaf):
+        if not found and isinstance(leaf, ShardedTensor):
+            found.append(leaf.mesh)
+    _map_with_path(look, tree)
+    return found[0] if found else None
+
+
+def per_shard(fn: Callable, *leaves):
+    """``fn`` over plain tensors, or once per distinct local of leaves
+    placed alike (``fn(*locals)`` on the locals of one mesh entry, the
+    entries holding one tensor of the first leaf computed once); its
+    output (a tensor or a tuple of them) placed as the first leaf is."""
+    first = leaves[0]
+    if not isinstance(first, ShardedTensor):
+        return fn(*leaves)
+    done: Dict[int, Any] = {}
+    outs = []
+    for i, local in enumerate(first.shards):
+        if id(local) not in done:
+            done[id(local)] = fn(*(t.shards[i] for t in leaves))
+        outs.append(done[id(local)])
+
+    def placed(shards):
+        return ShardedTensor(first.shape, first.spec, first.mesh, shards)
+    if isinstance(outs[0], tuple):
+        return tuple(placed([o[j] for o in outs])
+                     for j in range(len(outs[0])))
+    return placed(outs)
+
+
+def local_tensors(t) -> List[torch.Tensor]:
+    """The distinct tensors of a placed leaf (a plain tensor: itself)."""
+    if not isinstance(t, ShardedTensor):
+        return [t]
+    return list({id(x): x for x in t.shards}.values())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DataShard:
+    """Rows [lo, hi) of the global batch, block ``index`` of ``n``, and
+    where they run: ``mesh``, the devices of the first data row holding
+    that block along ``model`` (a 1-D mesh); the work runs on its first
+    device."""
+
+    index: int
+    n: int
+    lo: int
+    hi: int
+    mesh: Mesh
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.first_device
+
+
+def data_shards(mesh, batch: int, groups: int = 0) -> List[DataShard]:
+    """The global batch over ``mesh``'s data axes (all but ``model``), as
+    ``batch_pspec`` splits it: over every data axis where ``batch``
+    divides, else the first, else not at all.  ``groups`` > 0 (the MoE
+    dispatch groups of the global batch) must divide too, so that each
+    shard holds whole groups.  A block held by several data rows (the
+    batch split over fewer axes than the mesh has) runs once, on the
+    first of them."""
+    sizes = _axis_sizes(mesh)
+    dp = [a for a in mesh.axis_names if a != "model"]
+    for axes in (tuple(dp), tuple(dp[:1]), ()):
+        n = math.prod(sizes[a] for a in axes)
+        if batch % n == 0 and (not groups or groups % n == 0):
+            break
+    names = list(mesh.axis_names)
+    devs = mesh.devices
+    if "model" in names:
+        devs = np.moveaxis(devs, names.index("model"), -1)
+    rows = devs.reshape(-1, sizes.get("model", 1))
+    out: Dict[int, DataShard] = {}
+    for r in range(rows.shape[0]):
+        coord = dict(zip(dp, np.unravel_index(r, [sizes[a] for a in dp])))
+        b = 0
+        for a in axes:
+            b = b * sizes[a] + int(coord[a])
+        if b not in out:
+            row = np.empty(rows.shape[1], dtype=object)
+            row[:] = list(rows[r])
+            step = batch // n
+            out[b] = DataShard(b, n, b * step, (b + 1) * step,
+                               Mesh(row, ("model",)))
+    return [out[b] for b in sorted(out)]
+
+
+def _assemble(blocks: Dict[tuple, torch.Tensor], dev) -> torch.Tensor:
+    """The tensor that ``blocks`` (key: global [lo, hi) per dim) tile, on
+    ``dev``, by ``torch.cat`` (differentiable)."""
+    def cat(keys, d):
+        if len(keys) == 1:
+            t = blocks[keys[0]]
+            return t if t.device == dev else t.to(dev)
+        los = sorted({k[d][0] for k in keys})
+        if len(los) == 1:
+            return cat(keys, d + 1)
+        return torch.cat([cat([k for k in keys if k[d][0] == lo], d + 1)
+                          for lo in los], dim=d)
+    return cat(sorted(blocks), 0)
+
+
+def local_view(t, shard: DataShard, split_rows: bool = False):
+    """``t`` as data shard ``shard`` computes on it: a plain tensor moved
+    to the shard's device; a placed leaf gathered from its blocks there
+    (each block read from a copy on that device where there is one).
+    With ``split_rows`` a dimension 0 split over ``model`` (vocab rows,
+    experts) stays split: a :class:`ShardedTensor` over the shard's
+    devices, each one's block whole over the other dimensions.  The
+    gather is ``torch.cat``: its backward hands each block its slice of
+    the gradient, and autograd sums the slices of every data shard that
+    gathered it."""
+    dev = shard.device
+    if not isinstance(t, ShardedTensor):
+        return t if t.device == dev else t.to(dev)
+
+    def pick(ts, d):
+        return next((x for x in ts if x.device == d), ts[0])
+
+    blocks = t.distinct_blocks()
+    if not (split_rows and t.ndim and t.spec[0] == "model"
+            and t.parts(0) > 1):
+        return _assemble({k: pick(ts, dev) for k, ts in blocks.items()},
+                         dev)
+    n = t.shape[0] // t.parts(0)
+    cols = []
+    for k, d in enumerate(shard.mesh.devices.flat):
+        lo = k * n
+        cols.append(_assemble({key: pick(ts, d)
+                               for key, ts in blocks.items()
+                               if lo <= key[0][0] < lo + n}, d))
+    return ShardedTensor(t.shape, ("model",), shard.mesh, cols)

@@ -9,6 +9,15 @@ updates each leaf either with the plain math (``kernels.ref``) or, with
 kernel on the card, its plain version on the CPU.  The reference streams
 layer-stacked leaves through ``lax.map`` only to bound fp32 temporaries;
 one call per leaf computes the same function.
+
+Params placed on a mesh (``models.shardings.to_named``, FSDP x TP):
+master, m, v and err are placed as the params are (one tensor per
+distinct block, ``opt_state_pspecs``), and the update runs once per
+distinct block of every leaf (``shardings.per_shard``): AdamW is
+elementwise, so each block's update is the whole leaf's restricted to
+it.  The global norm counts each block once (``_norm_blocks``).  The
+reference's fused Pallas call returns the state replicated; the port
+keeps it split.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import torch.utils._pytree as pytree
 
 from ..kernels import ops as kops
 from ..kernels import ref as kref
+from ..models import shardings as SH
 
 Params = Any
 
@@ -43,14 +53,16 @@ class AdamConfig:
 
 def init_state(params: Params, cfg: AdamConfig) -> Dict[str, Any]:
     """Fresh state; every leaf is a new tensor (fp32 params are copied,
-    not aliased).  ``step`` is a 0-d int32 tensor on the params' device."""
+    not aliased), placed as its parameter is.  ``step`` is a 0-d int32
+    tensor on the params' (first) device."""
     def f32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return SH.per_shard(lambda t: torch.zeros(
+            t.shape, dtype=torch.float32, device=t.device), p)
 
     leaves = pytree.tree_leaves(params)
     state = {
-        "master": pytree.tree_map(
-            lambda p: p.detach().to(torch.float32, copy=True), params),
+        "master": pytree.tree_map(lambda p: SH.per_shard(
+            lambda t: t.detach().to(torch.float32, copy=True), p), params),
         "m": pytree.tree_map(f32, params),
         "v": pytree.tree_map(f32, params),
         "step": torch.zeros((), dtype=torch.int32,
@@ -65,10 +77,11 @@ def init_state_shapes(param_shapes: Params, cfg: AdamConfig
                       ) -> Dict[str, Any]:
     """The twin of ``init_state`` without storage: every leaf a tensor
     on the ``meta`` device, fp32 in the shape of its parameter (anything
-    with a ``shape``), and ``step`` a 0-d int32."""
+    with a ``shape``; a placed parameter gives a leaf placed alike, each
+    block a ``meta`` tensor), and ``step`` a 0-d int32."""
     def f32(p):
-        return torch.empty(tuple(p.shape), dtype=torch.float32,
-                           device="meta")
+        return SH.per_shard(lambda t: torch.empty(
+            tuple(t.shape), dtype=torch.float32, device="meta"), p)
 
     state = {
         "master": pytree.tree_map(f32, param_shapes),
@@ -96,9 +109,19 @@ def _chunked(update, ma, m, v, g, scale, kw):
     return outs
 
 
+def _norm_blocks(g) -> list:
+    """The tensors a gradient leaf adds to the global norm: a placed
+    leaf's distinct blocks, each once however many devices hold it."""
+    if isinstance(g, SH.ShardedTensor):
+        return [ts[0] for ts in g.distinct_blocks().values()]
+    return [g]
+
+
 def _global_norm(leaves) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves))
+    parts = [torch.sum(torch.square(t.float()))
+             for g in leaves for t in _norm_blocks(g)]
+    first = parts[0].device if parts else None
+    return torch.sqrt(sum(t.to(first) for t in parts))
 
 
 def apply_update(params: Params, state: Dict[str, Any], grads: Params,
@@ -110,13 +133,14 @@ def apply_update(params: Params, state: Dict[str, Any], grads: Params,
     step = state["step"] + 1
     if cfg.compress_grads:
         # error-feedback compression: quantize (grad + residual) to bf16,
-        # keep the quantization error for the next step
-        flat_e = spec.flatten_up_to(state["err"])
-        comp = [(g.float() + e).to(torch.bfloat16)
-                for g, e in zip(flat_g, flat_e)]
-        new_err = [g.float() + e - c.float()
-                   for g, e, c in zip(flat_g, flat_e, comp)]
-        flat_g = comp
+        # keep the quantization error for the next step (per block)
+        def compress(g, e):
+            c = (g.float() + e).to(torch.bfloat16)
+            return c, g.float() + e - c.float()
+        pairs = [SH.per_shard(compress, g, e) for g, e in
+                 zip(flat_g, spec.flatten_up_to(state["err"]))]
+        flat_g = [c for c, _ in pairs]
+        new_err = [e for _, e in pairs]
     gnorm = _global_norm(flat_g)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
@@ -129,20 +153,24 @@ def apply_update(params: Params, state: Dict[str, Any], grads: Params,
     kw = dict(lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
               wd=cfg.weight_decay, b1c=b1c, b2c=b2c)
 
+    def update(ma, m, v, g):
+        # one block (or leaf) on its device
+        here = {k: x.to(ma.device) if isinstance(x, torch.Tensor) else x
+                for k, x in kw.items()}
+        s = scale.to(ma.device)
+        if cfg.use_fused_kernel:
+            return kops.fused_adam(ma, m, v, g.float() * s, **here)
+        return _chunked(kref.fused_adam, ma, m, v, g, s, here)
+
     new_mast, new_m, new_v, new_p = [], [], [], []
     for p, ma, m, v, g in zip(flat_p, spec.flatten_up_to(state["master"]),
                               spec.flatten_up_to(state["m"]),
                               spec.flatten_up_to(state["v"]), flat_g):
-        if cfg.use_fused_kernel:
-            nm_, m2_, v2_ = kops.fused_adam(ma, m, v, g.float() * scale,
-                                            **kw)
-        else:
-            nm_, m2_, v2_ = _chunked(kref.fused_adam, ma, m, v, g, scale,
-                                     kw)
+        nm_, m2_, v2_ = SH.per_shard(update, ma, m, v, g)
         new_mast.append(nm_)
         new_m.append(m2_)
         new_v.append(v2_)
-        new_p.append(nm_.to(p.dtype))
+        new_p.append(SH.per_shard(lambda t, dt=p.dtype: t.to(dt), nm_))
     out_state = dict(state)
     out_state["master"] = pytree.tree_unflatten(new_mast, spec)
     out_state["m"] = pytree.tree_unflatten(new_m, spec)

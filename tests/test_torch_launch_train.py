@@ -7,6 +7,7 @@ reference's adaptive scenarios, replan parity on the reference's tiers,
 resume after restore, and the one-device mesh."""
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -463,16 +464,32 @@ def test_cli_prints_restored_step(tmp_path):
                                      ("1x4", False), ("2x16x16", False)])
 def test_mesh_of_more_than_one_device_names_item_9(spec, ok):
     """``--mesh`` builds a mesh over the CPU's one device, as the
-    reference's builds one over its devices: a mesh of more devices
-    raises, naming the ROADMAP item that trains over several devices
-    (queue 1, item 11b, since item 9 ported the mesh)."""
+    reference's builds one over its devices: without a list of devices
+    a mesh of more entries raises, naming the ROADMAP item that runs
+    over several physical devices (queue 1, item 11c; item 9 ported the
+    mesh).  Over ``devices`` (logical: the CPU named n times) every
+    mesh builds, and the launcher trains on the small ones."""
+    dims = tuple(int(d) for d in spec.split("x"))
+    n = math.prod(dims)
+    cpu = torch.device("cpu")
     if ok:
         mesh = train.parse_mesh(spec, "cpu")
-        assert mesh.devices.shape == tuple(int(d) for d in spec.split("x"))
-        assert list(mesh.devices.flat) == [torch.device("cpu")]
+        assert mesh.devices.shape == dims
+        assert list(mesh.devices.flat) == [cpu]
         return
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 11b "):
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 11c "):
         train.parse_mesh(spec, "cpu")
-    with pytest.raises(ValueError, match="item 11b "):
+    with pytest.raises(ValueError, match="item 11c "):
         train.main(["--arch", "llama3-8b", "--smoke", "--steps", "1",
                     "--device", "cpu", "--mesh", spec])
+    mesh = train.parse_mesh(spec, "cpu", devices=[cpu] * n)
+    assert mesh.devices.shape == dims and mesh.physical_devices == [cpu]
+    if n > 8:
+        return
+    args = ["--arch", "llama3-8b", "--smoke", "--steps", "2", "--batch",
+            "4", "--seq", "32", "--device", "cpu"]
+    one = train.run(train.parse_args(args))
+    split = train.run(train.parse_args(args + ["--mesh", spec]),
+                      devices=[cpu] * n)
+    assert split.losses[0] == pytest.approx(one.losses[0], abs=1e-5)
+    assert split.losses[1] == pytest.approx(one.losses[1], abs=1e-3)

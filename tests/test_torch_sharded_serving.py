@@ -176,7 +176,7 @@ def test_mesh_of_logical_devices():
     from repro_torch.launch.mesh import make_mesh, Mesh
     mesh = make_mesh((4,), ("model",), devices=["cpu"] * 4)
     assert mesh.first_device == CPU and mesh.physical_devices == [CPU]
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(ValueError, match="has no one device"):
         mesh.device
     with pytest.raises(ValueError, match="CUDA device"):
         Mesh(np.array([torch.device("cuda", 3)], dtype=object), ("model",))

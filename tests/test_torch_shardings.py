@@ -2,8 +2,9 @@
 the CPU: ``param_pspecs``, ``opt_state_pspecs``, ``cache_pspecs`` and
 ``batch_pspec`` for every config of the registry at full size, at the
 meshes (1, 1), (2, 4), (16, 16) and (2, 16, 16); ``dp_axes``,
-``dp_size`` and ``tp_size``; ``constrain`` and ``to_named`` as the
-identity where nothing splits, raising where something would.
+``dp_size`` and ``tp_size``; ``constrain`` as the identity under any
+mesh; ``to_named`` keeping the tensors on one device and splitting
+them into contiguous blocks over logical devices.
 
 The rules read only shapes and the mesh's axis names and shape, so
 neither side needs the devices: the reference gets a duck-typed mesh
@@ -11,6 +12,7 @@ and ``jax.eval_shape`` trees, the port its own ``Mesh`` over a grid of
 CPU device entries and trees of fake tensors."""
 import dataclasses
 import functools
+import math
 import types
 
 import pytest
@@ -169,7 +171,8 @@ def test_make_mesh_counts_devices(monkeypatch):
     pod = pmesh.make_production_mesh(multi_pod=True)
     assert pod.axis_names == ("pod", "data", "model")
     assert pod.devices.shape == (2, 16, 16)
-    with pytest.raises(NotImplementedError, match="item 11b "):
+    assert pod.first_device == CPU
+    with pytest.raises(ValueError, match="has no one device"):
         pod.device
 
 
@@ -181,9 +184,10 @@ def _leaves(tree) -> list:
 
 def test_to_named_places_whole_tensors_on_one_device():
     """On a mesh of one device placement keeps every tensor it was given
-    (they already live there); a spec that splits over more than one
-    device raises, naming the ROADMAP item that ports training over
-    several devices (11b)."""
+    (they already live there).  On a mesh of 2 x 4 logical devices every
+    leaf is a ``ShardedTensor`` whose blocks are contiguous tensors of
+    their own at the spec's shard shape, one per distinct block, and
+    assemble to the source."""
     from repro_torch.configs import get_smoke_config
     params = lm.init_params(get_smoke_config("llama3-8b"), seed=0,
                             device="cpu")
@@ -193,10 +197,22 @@ def test_to_named_places_whole_tensors_on_one_device():
                              memory_kind=kind)
         a, b = _leaves(params), _leaves(placed)
         assert len(a) == len(b) and all(x is y for x, y in zip(a, b))
-    _, big = _meshes((2, 4))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 11b "):
-        sh.to_named(params, sh.param_pspecs(params, big), big)
+    big = pmesh.make_mesh((2, 4), ("data", "model"), devices=[CPU] * 8)
+    specs = sh.param_pspecs(params, big)
+    placed = sh.to_named(params, specs, big)
+    base = {t.untyped_storage().data_ptr() for t in _leaves(params)}
+    for src, st, spec in zip(_leaves(params), _leaves(placed),
+                             _leaves(specs)):
+        assert isinstance(st, sh.ShardedTensor) and st.spec == spec
+        parts = [st.parts(d) for d in range(st.ndim)]
+        want = tuple(n // p for n, p in zip(src.shape, parts))
+        assert st.shard_shapes() == [want] * 8
+        locs = sh.local_tensors(st)
+        assert len(locs) == math.prod(parts)
+        assert all(t.is_contiguous() for t in locs)
+        if len(locs) > 1:
+            assert not {t.untyped_storage().data_ptr() for t in locs} & base
+        assert torch.equal(st.full(), src)
 
 
 def test_constrain_is_the_identity_where_nothing_splits():
@@ -213,6 +229,6 @@ def test_constrain_is_the_identity_where_nothing_splits():
         assert psharding.constrain(x, None, "tp") is x
         y = torch.zeros(3, 5)
         assert psharding.constrain(y, "dp", "tp") is y
-        with pytest.raises(NotImplementedError, match="item 11b "):
-            psharding.constrain(x, "dp", None, "tp")
+        # splits over 2 x 4 devices: a constraint changes no value
+        assert psharding.constrain(x, "dp", None, "tp") is x
     assert not psharding.active()
