@@ -169,6 +169,26 @@ Phases, in order; any failure exits non-zero:
    the four vocab blocks of the head is held against ``torch.argmax``
    of the gathered row, and with the blocks' offsets off by one (a
    planted fault) must disagree (``vocab_argmax_check``);
+5b''. qwen3-moe-30b-a3b through the plane as 5b' fused (one replica over
+   ``SHARDED_DEVICES`` logical devices, experts and vocab split) with
+   expert residency over the split store (``expert_policy="predictive"``
+   at ``EXPERT_FAST_FRACTION``) under every control plane of 4c, QoS
+   with a p99 decode SLO of ``SLO_FRACTION`` of 5b' fused's p95 decode
+   gap (``sharded_experts_phase``).  Tokens must equal 5b' fused tokens
+   exactly for every request QoS never preempted; a preempted one must
+   equal them up to its recompute and may part after it (the recompute
+   is a prefill, whose ``moe_fwd`` drops by capacity at full size, as
+   the reference's does); ``record_routing`` must be called once per
+   live row per MoE layer of every decode step; an expert must be
+   promoted; the range form of ``fused_expert_ffn`` must launch 4 x 48
+   times a decode step and the whole kernel never; placement adds 0 B
+   and the ledger is conserved at every iteration.  Where the routing
+   feed equals 5b's call for call (layer, step and ids digested in
+   order), the expert counters must equal 5b's exactly; otherwise both
+   are printed side by side.  Fast-hit and prefetch-hit ratios, replans
+   and moved bytes, QoS violations and blame, the calibrated slow-tier
+   rate, the routing feed's host time and tok/s beside 5b' fused and 5b
+   are printed;
 5c. train rwkv6-7b through ``ZeroOffloadEngine`` at full width and
    ``RECURRENT_TRAIN_LAYERS`` of its 32 layers (a host of 101 GiB, as
    the single-H100 machines this script runs on have, holds the pinned
@@ -321,6 +341,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import io
 import json
 import math
@@ -1753,16 +1774,23 @@ def sharded_devices() -> list:
 
 
 def sharded_plane(label: str, cfg, params, prompts, mapping: dict,
-                  n_replicas: int, fused: bool, want: dict) -> dict:
+                  n_replicas: int, fused: bool, want: dict, prepare=None,
+                  **sv_kw) -> dict:
     """One run of the cluster plane over ``sharded_devices`` under the
-    axis mapping ``mapping``: every session must finish with
-    ``NEW_TOKENS`` tokens equal to ``want``'s for its prompt up to near
-    ties; placing each replica's params must add 0 B on the card (a
+    axis mapping ``mapping``, with the serving options ``sv_kw`` beside
+    ``fused``: every session must finish with ``NEW_TOKENS`` tokens
+    equal to ``want``'s for its prompt up to near ties; a session that
+    was preempted and recomputed must equal them up to its recompute
+    and may part after it (the recompute is a prefill over the prompt
+    and the tokens so far, whose ``moe_fwd`` drops by capacity, as the
+    reference's does: another function than the decode steps it
+    replaces); placing each replica's params must add 0 B on the card (a
     split leaf's shards are views, a replicated leaf is the card's one
     tensor) where the mesh is one card's logical devices; the bytes by
     replica namespace must sum to the ``*/*`` aggregate after every
-    iteration.  Launch counters are set to 0 just before the run and
-    read just after."""
+    iteration.  ``prepare(plane)`` runs once the sessions are queued.
+    Launch counters are set to 0 just before the run and read just
+    after."""
     import torch.utils._pytree as pytree
     from repro_torch.cluster import plane as plane_mod
     from repro_torch.cluster import replica as replica_mod
@@ -1787,20 +1815,35 @@ def sharded_plane(label: str, cfg, params, prompts, mapping: dict,
             sh.axis_mapping(mapping):
         plane = plane_mod.ClusterPlane(
             cfg, params, serving=serving_config(prompts, NEW_TOKENS,
-                                                fused_gather=fused),
+                                                fused_gather=fused,
+                                                **sv_kw),
             n_replicas=n_replicas, devices=devices)
     build_s = time.perf_counter() - t0
     if one_card and any(placed):
         fail(f"{label}: placing the replicas' params added {placed} B")
+
+    def index(req):
+        return next(j for j, p in enumerate(prompts)
+                    if np.array_equal(p, req.prompt))
+
     samples = []
+    recomputed = {}       # prompt index -> tokens held at its recompute
     for rep in plane.replicas.values():
         def sampled(*a, _step=rep.engine.metrics.on_iteration, **kw):
             _step(*a, **kw)
             samples.append({kind: plane.namespace_conservation(kind)
                             for kind in ("device", "pinned_host")})
+
+        def prefill(req, now, _prefill=rep.engine._do_prefill):
+            if req.out_tokens:
+                recomputed.setdefault(index(req), len(req.out_tokens))
+            _prefill(req, now)
         rep.engine.metrics.on_iteration = sampled
+        rep.engine._do_prefill = prefill
     for p in prompts:
         plane.submit(p, NEW_TOKENS)
+    if prepare is not None:
+        prepare(plane)
     build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1810,19 +1853,31 @@ def sharded_plane(label: str, cfg, params, prompts, mapping: dict,
     launches = dict(build.LAUNCHES)
     shapes = {f"{k}{list(shape)}": n
               for (k, shape), n in build.SHAPE_LAUNCHES.items()}
-    tokens, margins = {}, {}
+    tokens, margins, preempted = {}, {}, {}
     for rep in plane.replicas.values():
         for req in rep.engine.sched.finished:
-            i = next(j for j, p in enumerate(prompts)
-                     if np.array_equal(p, req.prompt))
+            i = index(req)
             tokens[i] = list(req.out_tokens)
             margins[i] = rep.engine.margins[req.rid]
+            preempted[i] = req.preemptions
     if sorted(tokens) != list(range(len(prompts))) or any(
             len(t) != NEW_TOKENS for t in tokens.values()):
         fail(f"{label}: not every session finished with {NEW_TOKENS} "
              "tokens")
-    ties = agree(f"{label} vs single engine", want["tokens"], tokens,
-                 margins)
+    ties = agree(f"{label} vs single engine",
+                 {i: t for i, t in want["tokens"].items()
+                  if i not in recomputed}, tokens, margins)
+    for i, n in sorted(recomputed.items()):
+        ours, theirs = tokens[i], want["tokens"][i]
+        if ours[:n] != theirs[:n]:
+            fail(f"{label}: session {i} parts from the single engine "
+                 f"before its recompute after {n} tokens")
+        step = next((k for k, (x, y) in enumerate(zip(ours, theirs))
+                     if x != y), None)
+        log(f"{label}: session {i} recomputed after {n} tokens; "
+            + ("equal to the single engine" if step is None else
+               f"parts from the single engine at step {step}, top-2 "
+               f"margin {margins[i][step]:.4g}"))
     for sample in samples:
         for kind, cons in sample.items():
             if sum(v for h, v in cons.items() if h != "total") \
@@ -1850,7 +1905,12 @@ def sharded_plane(label: str, cfg, params, prompts, mapping: dict,
         f"launches={launches} by shape {shapes}")
     return {"summary": s, "wall_s": wall, "launches": launches,
             "shape_launches": shapes, "sharded": True, "ties": ties,
-            "tokens": tokens, "placed_bytes": placed,
+            "tokens": tokens, "preempted": preempted,
+            "recomputed": recomputed,
+            "replicas": {h: {"summary": r.summary,
+                             "telemetry": r.telemetry, "slo": r.slo}
+                         for h, r in report.per_replica.items()},
+            "placed_bytes": placed,
             "ledger_samples": len(samples), "split_leaves": split,
             "devices": [str(d) for d in devices], "plane": plane}
 
@@ -1925,6 +1985,123 @@ def sharded_moe_phase(cfg, params, prompts, staged: dict,
     return out
 
 
+def sharded_experts_phase(cfg, params, prompts, fused: dict,
+                          experts: dict, sharded: dict) -> dict:
+    """qwen3-moe-30b-a3b through the plane as ``sharded_moe_phase``'s
+    fused run (one replica over ``SHARDED_DEVICES`` logical devices,
+    experts and vocab split) with expert residency over the split store
+    (``expert_policy="predictive"``, ``EXPERT_FAST_FRACTION`` fast)
+    under every control plane of ``control_planes_phase``, QoS with a
+    p99 decode SLO of ``SLO_FRACTION`` of the sharded fused run's p95
+    decode gap.  Tokens must equal ``sharded``'s exactly for every
+    request QoS never preempted, and up to its recompute for one it did
+    (``sharded_plane``); the routing feed must see every live
+    row of every decode step once per MoE layer; an expert must be
+    promoted; the range form of ``fused_expert_ffn`` must launch once
+    per expert shard per MoE layer and decode step, the whole kernel
+    never.  Where the routing feed equals ``experts``' (one device) call
+    for call, so must the expert counters: residency reads the routed
+    ids and the epochs only."""
+    from repro_torch.serving.expert_pool import moe_layers_from_config
+    label = (f"{cfg.name} sharded x{SHARDED_DEVICES} fused, experts "
+             "+ control planes")
+    n_moe = moe_layers_from_config(cfg)
+    slo = SLO_FRACTION * sharded["replicas"]["host0"]["summary"][
+        "p95_decode_gap_s"]
+    hooks = {}
+
+    def prepare(plane):
+        eng = plane.replicas["host0"].engine
+        hooks["engine"] = eng
+        hooks["count"], hooks["feed"] = count_routing(eng)
+        hooks["fitted0"] = eng.calibrator.calibrated_tiers()[
+            eng.pool.slow_kind].peak_bw_GBps
+
+    run = sharded_plane(
+        label, cfg, params, prompts, SHARDED_MOE_MAPPING, 1, True, sharded,
+        prepare=prepare, adaptive=True, replan_every=REPLAN_EVERY,
+        predictive=True, calibrate=True, topology="h100-node", qos=True,
+        slo_p99_decode_s=slo, expert_policy="predictive",
+        expert_fast_fraction=EXPERT_FAST_FRACTION)
+    plane = run.pop("plane")
+    eng, count = hooks["engine"], hooks["count"]
+    count["feed"] = hooks["feed"].hexdigest()
+    shards = len(plane.replicas["host0"].mesh.devices.flat)
+    for name in path_kernels(cfg, True)[:2]:
+        if run["launches"][name] <= 0:
+            fail(f"{label}: kernel {name} was never launched")
+    ranged = run["launches"]["fused_expert_ffn"]
+    whole = sum(n for k, n in run["shape_launches"].items()
+                if k.startswith("fused_expert_ffn")
+                and k.endswith(f", {cfg.n_experts}]"))
+    if ranged != shards * n_moe * count["decodes"] or whole:
+        fail(f"{label}: {ranged} fused_expert_ffn launches ({whole} of "
+             f"the whole kernel), not {shards} shards x {n_moe} MoE "
+             f"layers x {count['decodes']} decode steps")
+    preempted = run["preempted"]
+    bad = sorted(i for i, t in run["tokens"].items()
+                 if not preempted[i] and t != sharded["tokens"][i])
+    if bad:
+        fail(f"{label}: requests {bad}, never preempted, have other "
+             "tokens than the sharded fused run")
+    if count["calls"] != count["rows"] * n_moe:
+        fail(f"{label}: {count['calls']} record_routing calls, not "
+             f"{count['rows']} live rows x {n_moe} MoE layers")
+    rp = run["replicas"]["host0"]
+    t, s = rp["telemetry"], rp["summary"]
+    if t["expert.promoted"] < 1:
+        fail(f"{label}: no expert was promoted")
+    keys = ("expert.accesses", "expert.fast_hits", "expert.promoted",
+            "expert.demoted", "expert.prefetch_promotes",
+            "expert.prefetch_hits")
+    ours = {k: int(t[k]) for k in keys}
+    one = {k: int(experts["telemetry"][k]) for k in keys}
+    same_feed = count["feed"] == experts["routing"]["feed"]
+    if same_feed and ours != one:
+        fail(f"{label}: the routing feed equals the one-device run's, "
+             f"call for call, but the expert counters {ours} differ from "
+             f"its {one}")
+    log(f"{label}: expert counters {ours}, one device (5b) {one}; "
+        f"5b' fused tokens "
+        f"{'equal' if sharded['tokens'] == fused['tokens'] else 'differ from'}"
+        f" phase 5's, {sum(map(bool, preempted.values()))} request(s) "
+        f"preempted, routing feed {'equal to' if same_feed else 'unlike'}"
+        f" the one-device run's ({count['calls']} calls against "
+        f"{experts['routing']['calls']})")
+    blame = rp["slo"]["blame"]
+    fitted = eng.calibrator.calibrated_tiers()[eng.pool.slow_kind]
+    s0, s1 = sharded["replicas"]["host0"]["summary"], experts["summary"]
+    log(f"serve {label}: wall={run['wall_s']:.2f} s "
+        f"throughput={s['throughput_tok_s']:.1f} tok/s (5b' sharded fused "
+        f"{s0['throughput_tok_s']:.1f}, 5b one device "
+        f"{s1['throughput_tok_s']:.1f}) "
+        f"p95_decode_gap={s['p95_decode_gap_s'] * 1e3:.1f} ms "
+        f"({s0['p95_decode_gap_s'] * 1e3:.1f}; p99 SLO {slo * 1e3:.2f} ms) "
+        f"fast_hit_ratio={t.get('expert.fast_hit_ratio', 0.0):.4f} "
+        f"prefetch_hit_ratio={t.get('expert.prefetch_hit_ratio', 0.0):.4f} "
+        f"replans={int(t['replans_applied'])}/"
+        f"{int(t['replans_considered'])} "
+        f"moved_bytes={int(t['moved_bytes'])} "
+        f"arbiter_rebalances={int(t['arbiter_rebalances'])} "
+        f"movesched_rounds={int(t['movesched.rounds'])} "
+        f"qos_deferrals={int(t['qos_deferrals'])} "
+        f"slo_preemptions={int(t['slo_preemptions'])} "
+        f"preempted={sorted(i for i, n in preempted.items() if n)} "
+        f"violations={rp['slo']['targets'][0]['violations']} "
+        f"excursions={blame['total_excursions']} "
+        f"top_link={blame.get('top_link')} "
+        f"calibrated {eng.pool.slow_kind} {fitted.peak_bw_GBps:.2f} GB/s "
+        f"(start-up {hooks['fitted0']:.2f}) "
+        f"record_routing={count['calls']} calls over {count['rows']} live "
+        f"rows in {count['decodes']} decode steps ({count['record_s']:.3f} "
+        f"s on the host) expert steps {count['step_s']:.3f} s")
+    run.update(telemetry=t, routing=count, counters=ours,
+               one_device_counters=one, same_feed=same_feed,
+               slo_s=slo, blame=blame,
+               calibrated_GBps=(hooks["fitted0"], fitted.peak_bw_GBps))
+    return run
+
+
 def sharded_dense_phase(cfg, params, prompts, staged: dict) -> dict:
     """llama3-8b through the plane: ``SHARDED_DENSE_REPLICAS`` replicas
     of ``SHARDED_DEVICES // SHARDED_DENSE_REPLICAS`` logical devices,
@@ -1939,6 +2116,40 @@ def sharded_dense_phase(cfg, params, prompts, staged: dict) -> dict:
     if not all(run["routed"].values()):
         fail(f"{cfg.name} sharded plane: routed {run['routed']}")
     return run
+
+
+def count_routing(eng) -> tuple:
+    """Wrap the routing feed of ``eng``'s expert pool, its expert epochs
+    and its fused decode: counts ``record_routing`` calls, live rows and
+    decode calls, times the feed and the epochs on the host, and digests
+    the feed in order, each call's (layer, step, routed ids), so that
+    two runs' feeds compare.  Returns (counts, digest)."""
+    pool = eng.expert_pool
+    count = {"calls": 0, "rows": 0, "decodes": 0, "record_s": 0.0,
+             "step_s": 0.0}
+    feed = hashlib.sha256()
+    record, step, decode = (pool.record_routing, pool.step,
+                            eng._fused_decode_batch)
+
+    def counted_record(layer, ids, at):
+        t0 = time.perf_counter()
+        record(layer, ids, at)
+        count["calls"] += 1
+        count["record_s"] += time.perf_counter() - t0
+        feed.update(np.asarray([layer, at, *ids], np.int64).tobytes())
+
+    def timed_step(*a, **kw):
+        t0 = time.perf_counter()
+        step(*a, **kw)
+        count["step_s"] += time.perf_counter() - t0
+
+    def counted_decode(batch):
+        count["rows"] += len(batch)
+        count["decodes"] += 1
+        return decode(batch)
+    pool.record_routing, pool.step = counted_record, timed_step
+    eng._fused_decode_batch = counted_decode
+    return count, feed
 
 
 def experts_phase(label: str, cfg, params, prompts, plain: dict) -> dict:
@@ -1959,27 +2170,9 @@ def experts_phase(label: str, cfg, params, prompts, plain: dict) -> dict:
     log(f"{label}: {pool.fast_expert_budget} of {n_moe * cfg.n_experts} "
         f"experts of {nbytes / 1e6:.2f} MB fast "
         f"({pool.fast_expert_budget * nbytes / 1e9:.2f} GB grant)")
-    count = {"calls": 0, "rows": 0, "record_s": 0.0, "step_s": 0.0}
-    record, step, decode = (pool.record_routing, pool.step,
-                            eng._fused_decode_batch)
-
-    def counted_record(*a, **kw):
-        t0 = time.perf_counter()
-        record(*a, **kw)
-        count["calls"] += 1
-        count["record_s"] += time.perf_counter() - t0
-
-    def timed_step(*a, **kw):
-        t0 = time.perf_counter()
-        step(*a, **kw)
-        count["step_s"] += time.perf_counter() - t0
-
-    def counted_decode(batch):
-        count["rows"] += len(batch)
-        return decode(batch)
-    pool.record_routing, pool.step = counted_record, timed_step
-    eng._fused_decode_batch = counted_decode
+    count, feed = count_routing(eng)
     rep, wall, launches, tokens = run_engine(eng)
+    count["feed"] = feed.hexdigest()
     for name in path_kernels(cfg, True):
         if launches[name] <= 0:
             fail(f"{label}: kernel {name} was never launched")
@@ -3126,6 +3319,12 @@ def serve_model(arch: str, profile: bool) -> dict:
         out.update(sharded_moe_phase(cfg, params, prompts, out["staged"],
                                      out["fused"]))
         log(f"sharded {arch}: {time.perf_counter() - t0:.1f} s, "
+            f"{memory()}")
+        t0 = time.perf_counter()
+        out["sharded experts"] = sharded_experts_phase(
+            cfg, params, prompts, out["fused"], out["experts"],
+            out["sharded fused"])
+        log(f"sharded experts {arch}: {time.perf_counter() - t0:.1f} s, "
             f"{memory()}")
     if profile:
         out["profile"] = profile_phase(cfg, params)

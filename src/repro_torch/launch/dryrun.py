@@ -54,8 +54,8 @@ ABSENT = {
     "memory_analysis": NO_COMPILE + " for its buffer assignment",
     "cost_analysis_raw": NO_COMPILE + " for its cost analysis "
                          "(jaxpr_cost_global holds the walker's count)",
-    "collectives": "no partitioned program: the port places nothing over "
-                   "more than one device (ROADMAP queue 1, item 11), so "
+    "collectives": "no partitioned program: the dry-run traces the "
+                   "global step and partitions nothing, by design, so "
                    "there are no collectives to parse",
     "saved_stacks": NO_COMPILE + " for the scan stacks "
                     "(dynamic-update-slice buffers) it saves",

@@ -9,8 +9,9 @@ device: one process drives every device of the mesh.  A mesh may name
 one physical device several times (*logical* devices, ``["cuda:0"] *
 4``): ``models.shardings.ShardedTensor`` then keeps one shard per
 entry, each at the shard's shape, on that one device.  The serving
-plane places its replicas so; what is still placed on meshes of one
-device only is training (``MULTI_DEVICE_ITEM``).
+plane places its replicas so, and training lays its FSDP x TP meshes
+so; a mesh of more physical cards than the machine has raises
+(``MULTI_DEVICE_ITEM``).
 
 Functions, not module-level constants, so importing this module never
 touches CUDA.

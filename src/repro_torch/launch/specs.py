@@ -118,8 +118,9 @@ def build_cell(arch: str, shape_name: str, mesh,
                cfg_override: Optional[ModelConfig] = None,
                serve_tp_only: bool = True) -> Cell:
     """The cell's step and fake arguments.  Unlike the reference, no
-    logical-axis mapping is activated (``models.psharding``): the port's
-    model modules place no constraints yet (ROADMAP queue 1, item 11)."""
+    logical-axis mapping is activated (``models.psharding``): a
+    sharding constraint changes no value, so ``psharding.constrain`` is
+    the identity by design and the port's model modules place none."""
     cfg = cfg_override or get_config(arch)
     shape = SHAPES[shape_name]
     dp = mesh_dp_axes(mesh)

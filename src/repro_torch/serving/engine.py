@@ -60,8 +60,11 @@ is its options section, which the engine itself does not read.  A
 replica's parameters may be split over its mesh (vocab and experts,
 ``cluster.sharding.shard_lm_params``): the embedding, the head, greedy argmax over the
 vocab blocks and the MoE layers then run block by block, the rest (and
-the KV pool) on the mesh's first device.  Expert residency over a split
-expert store is not ported (``EXPERT_SPLIT_ITEM``).
+the KV pool) on the mesh's first device.  Expert residency runs over a
+split expert store as over a whole one: the router is gathered whole
+before top-k, so the pool is fed global expert ids, and it keeps one
+block per (layer, expert) at the whole expert's bytes, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -98,11 +101,6 @@ from .metrics import ServingMetrics
 from .scheduler import (ContinuousBatchingScheduler, plan_admission, Request,
                         RequestState, SchedulerConfig)
 from .tiering import KVBlockTierer
-
-# what expert residency over a split expert store raises with
-EXPERT_SPLIT_ITEM = ("ROADMAP queue 1, item 11a' (expert residency over "
-                     "an expert store split across a mesh)")
-
 
 def check_paged_support(cfg: ModelConfig) -> None:
     """Raise if the config can't run on the paged decode path."""
@@ -670,12 +668,6 @@ class ServingEngine:
             if n_moe == 0:
                 raise ValueError(f"{cfg.name}: expert_policy set but "
                                  "the model has no MoE layers")
-            if params is not None and any(
-                    SH.is_split(lp["moe"]["w_up"])
-                    for lp in params["units"]["layers"] if "moe" in lp):
-                raise NotImplementedError(
-                    "expert residency over an expert store split across "
-                    f"a mesh: {EXPERT_SPLIT_ITEM}")
             total = n_moe * cfg.n_experts
             budget = max(1, int(round(total * sv.expert_fast_fraction)))
             self.expert_pool = ExpertPool(

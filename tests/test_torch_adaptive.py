@@ -249,15 +249,16 @@ def test_validate_args_matches_reference(kw):
         assert _sections(sv) == _sections(JServingConfig.from_args(args))
 
 
-@pytest.mark.parametrize("option,value,item", [
-    ("cluster", dict(replicas=2, router="round-robin"), "item 11"),
+@pytest.mark.parametrize("option,value", [
+    pytest.param("cluster", dict(replicas=2, router="round-robin"),
+                 id="cluster-value0-item 11"),
 ])
-def test_unported_planes_name_their_roadmap_item(option, value, item):
+def test_unported_planes_name_their_roadmap_item(option, value):
     """The cluster plane is ported: its section is accepted as the
     reference's, and a replica's params split over a mesh of two
-    devices.  What it cannot do yet, expert residency over an expert
-    store split across the mesh, raises naming its ROADMAP item
-    (``item`` 11, part a')."""
+    devices.  The adaptive, predictive and expert-residency planes build
+    over an expert store split across the mesh, the pool one block per
+    (layer, expert), as the reference's."""
     from repro.serving import ClusterOptions as JClusterOptions
     from repro_torch.cluster import (axis_mapping, AxisMapping,
                                      shard_lm_params)
@@ -276,10 +277,13 @@ def test_unported_planes_name_their_roadmap_item(option, value, item):
     with axis_mapping({"experts": "model"}):
         split = shard_lm_params(lm.init_params(cfg, seed=0, device="cpu"),
                                 two)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1, {item}a' "):
-        ServingEngine(cfg, split, ServingConfig(
-            fused_gather=True, expert_policy="lru"), device="cpu")
+    from repro_torch.serving.expert_pool import moe_layers_from_config
+    eng = ServingEngine(cfg, split, ServingConfig(
+        fused_gather=True, expert_policy="predictive", adaptive=True,
+        predictive=True), device="cpu")
+    assert len(eng.expert_pool.kinds) == \
+        moe_layers_from_config(cfg) * cfg.n_experts
+    assert eng.expert_pool.movesched is eng.movesched is not None
     assert ServingConfig(adaptive=True).adaptive
 
 

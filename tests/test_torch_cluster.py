@@ -205,9 +205,11 @@ def test_shard_lm_params_keeps_tensors_on_one_device_and_raises_on_split():
     and a leaf already there is the placed leaf's one shard (replicas
     sharing a device share its weights); a leaf elsewhere is moved onto
     the mesh's device.  On a mesh of two logical devices vocab and
-    experts split into views of the leaves.  What still raises: a mesh
-    naming a device the machine lacks, and expert residency over a
-    split expert store (ROADMAP queue 1, item 11a')."""
+    experts split into views of the leaves, and an engine with expert
+    residency builds over the split store, one pool block per (layer,
+    expert) at the whole expert's bytes, as the reference's pool keeps
+    them.  What still raises: a mesh naming a device the machine
+    lacks."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_mesh, Mesh
     from repro_torch.models import lm
@@ -245,11 +247,16 @@ def test_shard_lm_params_keeps_tensors_on_one_device_and_raises_on_split():
     with pytest.raises(ValueError, match="has 0 CUDA device"):
         Mesh(np.array([CPU, torch.device("cuda", 0)], dtype=object),
              ("model",))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 11a'"):
-        PORT.serving.ServingEngine(
-            cfg, msh.compute_view(split), PORT.serving.ServingConfig(
-                fused_gather=True, expert_policy="lru"), device="cpu")
+    from repro_torch.serving.expert_pool import (expert_nbytes_from_config,
+                                                moe_layers_from_config)
+    assert split["units"]["layers"][0]["moe"]["w_up"].is_split
+    eng = PORT.serving.ServingEngine(
+        cfg, msh.compute_view(split), PORT.serving.ServingConfig(
+            fused_gather=True, expert_policy="lru"), device="cpu")
+    pool = eng.expert_pool
+    assert len(pool.kinds) == moe_layers_from_config(cfg) * cfg.n_experts
+    assert pool.expert_nbytes == expert_nbytes_from_config(cfg)
+    assert pool.tenant == "serving.experts"
 
 
 # ===================================================================== #

@@ -318,9 +318,10 @@ def test_staged_prefill_kv_matches_reference_pool(tiny):
 def test_unported_options_raise(option, value, tiny_moe):
     """The cluster option is ported: the section is accepted, and a
     replica's mesh may hold several devices (``replica_shard_map`` runs
-    its function per device).  What the plane cannot do yet, expert
-    residency over an expert store split across the mesh, raises naming
-    its ROADMAP item."""
+    its function per device).  Expert residency runs over an expert
+    store split across the mesh: the engine gives the tokens and the
+    expert counters of the same engine over the whole store, from a
+    pool of one block per (layer, expert)."""
     from repro_torch.cluster import (axis_mapping, replica_shard_map,
                                      shard_lm_params)
     from repro_torch.launch.mesh import make_mesh
@@ -334,12 +335,19 @@ def test_unported_options_raise(option, value, tiny_moe):
                             PartitionSpec("model"))(x)
     assert out.shard_shapes() == [(2,), (2,)]
     assert torch.equal(out.full(), x * 2)
-    _, _, cfg, params, _ = tiny_moe
+    from repro_torch.serving.expert_pool import moe_layers_from_config
+    _, _, cfg, params, prompts = tiny_moe
     with axis_mapping({"experts": "model"}):
         split = shard_lm_params(params, two)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(cfg, split, ServingConfig(
-            fused_gather=True, expert_policy="lru"), device="cpu")
+    assert split["units"]["layers"][0]["moe"]["w_up"].is_split
+    whole, eng = (_run(ServingEngine, ServingConfig, cfg, p, prompts,
+                       fused_gather=True, expert_policy="lru")
+                  for p in (params, split))
+    assert len(eng.expert_pool.kinds) == \
+        moe_layers_from_config(cfg) * cfg.n_experts
+    assert _tokens(eng) == _tokens(whole)
+    assert eng.expert_pool.summary() == whole.expert_pool.summary()
+    assert eng.expert_pool.summary()["expert.accesses"] > 0
 
 
 # each control-plane option with the options the reference requires

@@ -12,7 +12,11 @@ shared, so placement adds 0 B; (c) the vocab-split embedding and head
 expert FFN over expert ranges sums to the whole one; (e) end to end, the
 port's ``ClusterPlane`` over 4 and 8 logical CPU devices gives the
 reference plane's tokens, routing and ledger bytes per namespace under
-4 and 8 forced host devices.
+4 and 8 forced host devices, also with MoE expert residency over the
+split expert store and the adaptive, predictive and QoS planes, whose
+fast-resident expert blocks after every iteration and whole telemetry
+summaries must equal the reference's too; a routing feed cut to the
+first expert shard (a planted fault) must not.
 
 The reference's side of (e) runs in a subprocess (``XLA_FLAGS`` must be
 set before JAX starts): this file run as a script,
@@ -34,8 +38,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 from repro_torch.models import shardings as msh  # noqa: E402
-from _torch_parity import (PlaneSteps, ref_pod_parts, StepClock,  # noqa: E402
-                           tiny_model)
+from _torch_parity import (assert_same, PlaneSteps, plain,  # noqa: E402
+                           ref_pod_parts, StepClock, TIMED, tiny_model)
 
 MESH_SIZES = (1, 2, 3, 4, 8)
 MAPPINGS = {"none": {}, "vocab": {"vocab": "model"},
@@ -48,12 +52,23 @@ CPU = torch.device("cpu")
 # a top-8 minus top-9 probability of 3.4e-3 or more on one device: the
 # near-tie rule of the MoE engine tests (prompts without near ties), so
 # that tokens compare the function, not rounding at a tie
+# and the serving options beside the fixed ones of ``_serving``: the
+# control planes of ``PLANES`` (``calibrate`` left out: its probes time
+# real copies), with MoE expert residency over the split expert store
+PLANES = dict(adaptive=True, predictive=True, replan_every=2, qos=True,
+              topology="vendor-a", slo_p95_decode_s=0.02)
+_MOE = ("qwen3-moe-30b-a3b", 8, (10, 6, 13), 10, "both")
+_LLAMA = ("llama3-8b", 2, (12, 7, 9, 20, 5), 6, "vocab")
 E2E = {
-    "qwen3-moe staged": ("qwen3-moe-30b-a3b", 8, (10, 6, 13), 10,
-                         "both", False),
-    "qwen3-moe fused": ("qwen3-moe-30b-a3b", 8, (10, 6, 13), 10,
-                        "both", True),
-    "llama3-8b": ("llama3-8b", 2, (12, 7, 9, 20, 5), 6, "vocab", False),
+    "qwen3-moe staged": _MOE + (False, {}),
+    "qwen3-moe fused": _MOE + (True, {}),
+    "llama3-8b": _LLAMA + (False, {}),
+    "qwen3-moe fused lru": _MOE + (True, dict(expert_policy="lru")),
+    "qwen3-moe fused planes": _MOE + (
+        True, dict(expert_policy="predictive", **PLANES)),
+    "qwen3-moe staged planes": _MOE + (
+        False, dict(expert_policy="predictive", **PLANES)),
+    "llama3-8b planes": _LLAMA + (False, PLANES),
 }
 E2E_DEVICES = (4, 8)
 E2E_TIMEOUT_S = 600
@@ -385,32 +400,49 @@ def test_expert_range_kernel_on_the_card():
 # ===================================================================== #
 # (e) the cluster plane end to end, against the reference's              #
 # ===================================================================== #
-def _serving(ns, fused):
+def _serving(ns, fused, options):
     return ns.serving.ServingConfig(block_tokens=8, max_batch=2,
                                     max_context=32, policy="tiering08",
-                                    fused_gather=fused)
+                                    fused_gather=fused, **options)
+
+
+def _fast_experts(pool):
+    """The (layer, expert) blocks an expert pool keeps fast-resident."""
+    return sorted([list(k) for k, kind in pool.kinds.items()
+                   if kind == "device"])
 
 
 def _plane_run(ns, cfg, params, prompts, new_tokens, mapping, fused,
-               **kw):
+               options, feed=None, **kw):
     """Serve ``prompts`` through a two-replica plane under ``mapping``
-    on one step clock; returns tokens by session, routing, the ledger
-    bytes by namespace on both kinds after every iteration, and each
-    replica's mesh size; and the plane."""
+    with the serving ``options`` on one step clock (``feed(record)``
+    may wrap each expert pool's routing feed); returns tokens by
+    session, routing, the ledger bytes by namespace on both kinds after
+    every iteration, each replica's fast-resident expert blocks after
+    each of its iterations, each replica's telemetry summary (the
+    wall-clock keys of ``TIMED`` left out) and mesh size; and the
+    plane."""
     clock = StepClock()
     with ns.cluster.axis_mapping(mapping):
         plane = ns.cluster.ClusterPlane(
-            cfg, params, serving=_serving(ns, fused), n_replicas=2,
-            router_policy="headroom-distance", clock=clock, seed=1, **kw)
+            cfg, params, serving=_serving(ns, fused, options),
+            n_replicas=2, router_policy="headroom-distance", clock=clock,
+            seed=1, **kw)
     clock.engine = PlaneSteps(plane)
-    samples = []
-    for r in plane.replicas.values():
+    samples, experts = [], []
+    for host, r in plane.replicas.items():
         # the bytes by namespace after every iteration of either replica
-        def sampled(*a, _step=r.engine.metrics.on_iteration, **k):
+        def sampled(*a, _step=r.engine.metrics.on_iteration,
+                    _pool=r.engine.expert_pool, _host=host, **k):
             _step(*a, **k)
             samples.append({kind: plane.namespace_conservation(kind)
                             for kind in ("device", "pinned_host")})
+            if _pool is not None:
+                experts.append([_host, _fast_experts(_pool)])
         r.engine.metrics.on_iteration = sampled
+        if feed is not None:
+            r.engine.expert_pool.record_routing = feed(
+                r.engine.expert_pool.record_routing)
     sids = [plane.submit(p, new_tokens, arrival_s=0.005 * i)
             for i, p in enumerate(prompts)]
     rep = plane.run()
@@ -420,8 +452,14 @@ def _plane_run(ns, cfg, params, prompts, new_tokens, mapping, fused,
         req = next(r for r in plane.replicas[host].engine.sched.finished
                    if r.rid == int(rid))
         tokens[sid] = [int(t) for t in req.out_tokens]
+    telemetry = {
+        host: plain({k: v for k, v in
+                     r.engine.telemetry_summary().items()
+                     if k not in TIMED})
+        for host, r in plane.replicas.items()}
     return {"tokens": tokens, "routed": dict(rep.routed),
-            "conservation": samples,
+            "conservation": samples, "fast_experts": experts,
+            "telemetry": telemetry,
             "mesh_devices": [int(r.mesh.devices.size)
                              for r in plane.replicas.values()]}, plane
 
@@ -438,10 +476,11 @@ def _reference_cases() -> dict:
     ns = _NS()
     ns.cluster, ns.serving = cluster, serving
     out = {"devices": len(jax.devices())}
-    for name, (arch, seed, lens, new, mapping, fused) in E2E.items():
+    for name, (arch, seed, lens, new, mapping, fused, options) in \
+            E2E.items():
         jcfg, jparams, _, _, prompts = tiny_model(arch, seed, lens)
         res, plane = _plane_run(ns, jcfg, jparams, prompts, new,
-                                MAPPINGS[mapping], fused)
+                                MAPPINGS[mapping], fused, options)
         params = plane.replicas["host0"].params
         res["shards"] = {
             "/".join(path): [list(s.data.shape)
@@ -476,10 +515,10 @@ def reference_runs():
     return out
 
 
-@pytest.mark.parametrize("name", list(E2E))
-@pytest.mark.parametrize("n", E2E_DEVICES)
-def test_plane_over_logical_devices_matches_reference(reference_runs, n,
-                                                      name):
+def _port_run(name, n, feed=None):
+    """Case ``name`` through the port's plane over ``n`` logical CPU
+    devices (``feed`` as ``_plane_run`` takes it).  Returns (result,
+    plane, config)."""
     from repro_torch import cluster, serving
     from repro_torch.topology import multi_host_pod
 
@@ -487,17 +526,32 @@ def test_plane_over_logical_devices_matches_reference(reference_runs, n,
         pass
     ns = _NS()
     ns.cluster, ns.serving = cluster, serving
-    arch, seed, lens, new, mapping, fused = E2E[name]
+    arch, seed, lens, new, mapping, fused, options = E2E[name]
     _, _, cfg, params, prompts = tiny_model(arch, seed, lens)
     got, plane = _plane_run(
-        ns, cfg, params, prompts, new, MAPPINGS[mapping], fused,
-        devices=["cpu"] * n,
+        ns, cfg, params, prompts, new, MAPPINGS[mapping], fused, options,
+        feed=feed, devices=["cpu"] * n,
         testbed=multi_host_pod(2, tiers=ref_pod_parts()))
-    want = reference_runs[n][name]
-    assert got["mesh_devices"] == [n // 2] * 2
+    return got, plane, cfg
+
+
+def _assert_plane_matches(got, want):
     assert got["tokens"] == want["tokens"]
     assert got["routed"] == want["routed"]
     assert got["conservation"] == want["conservation"]
+    assert got["fast_experts"] == want["fast_experts"]
+    assert_same(got["telemetry"], want["telemetry"], path="telemetry")
+
+
+@pytest.mark.parametrize("name", list(E2E))
+@pytest.mark.parametrize("n", E2E_DEVICES)
+def test_plane_over_logical_devices_matches_reference(reference_runs, n,
+                                                      name):
+    got, plane, cfg = _port_run(name, n)
+    arch, options = E2E[name][0], E2E[name][-1]
+    want = reference_runs[n][name]
+    assert got["mesh_devices"] == [n // 2] * 2
+    _assert_plane_matches(got, want)
     placed = plane.replicas["host0"].params
     shards = {"/".join(path): [list(s) for s in leaf.shard_shapes()]
               for path, leaf in _flat(placed)}
@@ -513,6 +567,46 @@ def test_plane_over_logical_devices_matches_reference(reference_runs, n,
         for cons in sample.values():
             assert sum(v for h, v in cons.items() if h != "total") == \
                 cons["total"]
+    pools = {h: r.engine.expert_pool for h, r in plane.replicas.items()}
+    if "expert_policy" not in options:
+        assert got["fast_experts"] == [] and "expert.accesses" not in \
+            got["telemetry"]["host0"]
+        return
+    n_moe = sum(1 for s in cfg.pattern if s.moe) * cfg.n_units
+    for host, pool in pools.items():
+        # one block per (layer, expert) at the whole expert's bytes,
+        # under the expert tenant of the replica's namespace
+        assert pool.tenant == f"{host}/serving.experts"
+        assert len(pool.kinds) == n_moe * cfg.n_experts
+        assert pool.ledger is not plane.ledger
+        tel = got["telemetry"][host]
+        if E2E[name][5]:
+            assert tel["expert.accesses"] > 0
+            assert tel["expert.promoted"] > 0
+        else:                        # the staged path records no routing
+            assert tel["expert.accesses"] == 0
+
+
+@pytest.mark.parametrize("n", E2E_DEVICES)
+def test_routing_feed_fault_is_seen(reference_runs, n):
+    """Planted fault: a pool fed only the routed ids that fall in the
+    first expert shard reads other counters than the reference's."""
+    from repro_torch.configs import get_smoke_config
+    name = "qwen3-moe fused lru"
+    first = get_smoke_config(E2E[name][0]).n_experts // (n // 2)
+
+    def first_shard(record):
+        def fed(layer, ids, step):
+            record(layer, [e for e in ids if e < first], step)
+        return fed
+    got, _, _ = _port_run(name, n, feed=first_shard)
+    want = reference_runs[n][name]
+    assert got["tokens"] == want["tokens"]
+    for host, tel in got["telemetry"].items():
+        assert tel["expert.accesses"] < \
+            want["telemetry"][host]["expert.accesses"]
+    with pytest.raises(AssertionError):
+        _assert_plane_matches(got, want)
 
 
 if __name__ == "__main__":
