@@ -38,10 +38,13 @@ Phases, in order; any failure exits non-zero:
    whole kernel and the plain version, with the first range's boundary
    expert dropped as a planted fault that must fail
    (``expert_range_kernel``; its row in the ``kernels`` line is the 4
-   ranges', each range also timed alone).  The tolerance is ``ATOL``
-   absolute plus ``RTOL`` relative (at least two bf16 units in the last
-   place), so a kernel
-   that drops a tile of keys, a slot or a column tile fails.  Each
+   ranges', each range also timed alone); then its edges
+   (``expert_range_edges``): ranges that no slot routes into give exact
+   zeros, an id outside [0, E) NaN on its token only in every range, 3
+   unequal ranges, and a batch of 32 whole and over 4 ranges.  The
+   tolerance is ``ATOL`` absolute plus ``RTOL`` relative (at least two
+   bf16 units in the last place), so a kernel that drops a tile of keys,
+   a slot or a column tile fails.  Each
    kernel, its plain version and, where one exists, one PyTorch library
    call of the same function are timed with CUDA events, each call
    after a write that evicts the L2 (the regime of the bytes bound):
@@ -484,6 +487,10 @@ SHARDED_DEVICES = 4
 SHARDED_MOE_MAPPING = {"experts": "model", "vocab": "model"}
 SHARDED_DENSE_MAPPING, SHARDED_DENSE_REPLICAS = {"vocab": "model"}, 2
 EXPERT_RANGES = (2, SHARDED_DEVICES)
+# the range form's edge cases in the kernel phase: 3 unequal ranges
+# (42 / 43 / 43 of 128 experts) and a decode batch of 32 rows (max_batch
+# 32, top-8: 256 slots), whole and over SHARDED_DEVICES ranges
+EXPERT_UNEQUAL_RANGES, EXPERT_WIDE_BATCH = 3, 32
 # the control-plane phase's p99 decode SLO, as a fraction of the p95
 # decode gap its path's non-adaptive phase measured in the same call:
 # below the gaps, so violations fire and the blame plane runs
@@ -912,13 +919,14 @@ def split_plans(KV: int) -> dict:
     return out
 
 
-def expert_inputs(gen) -> tuple:
+def expert_inputs(gen, batch: int = B) -> tuple:
     """x, w_gate, w_up, w_down, ids, wts at qwen3-moe-30b-a3b's decode
-    shapes: router-like ids over x of std 1, weights at their init
-    scales, a padded row (row 3 = row 0) and a duplicated expert id."""
+    shapes (``batch`` rows): router-like ids over x of std 1, weights at
+    their init scales, a padded row (row 3 = row 0) and a duplicated
+    expert id."""
     rnd = functools.partial(randn_bf16, gen)
     D, F, E, K = D_MOE, F_MOE, E_MOE, K_MOE
-    x = rnd(B, D)
+    x = rnd(batch, D)
     x[3] = x[0]           # a padded row: token 0 again, routed the same
     wg, wu = rnd(E, D, F, std=D ** -0.5), rnd(E, D, F, std=D ** -0.5)
     wd = rnd(E, F, D, std=F ** -0.5)
@@ -963,9 +971,9 @@ def expert_kernel(dev, gen) -> dict:
 
 
 def expert_ranges(E: int, n: int, drop_boundary: bool = False) -> list:
-    """The [lo, hi) of ``n`` equal expert shards of ``E``; with
-    ``drop_boundary`` (a planted fault) the first shard loses its last
-    expert."""
+    """The [lo, hi) of ``n`` expert shards of ``E`` (``i * E // n``: equal
+    where n divides E); with ``drop_boundary`` (a planted fault) the
+    first shard loses its last expert."""
     out = [(i * E // n, (i + 1) * E // n) for i in range(n)]
     if drop_boundary:
         out[0] = (out[0][0], out[0][1] - 1)
@@ -992,8 +1000,9 @@ def expert_range_kernel(dev, gen) -> dict:
     kernel and against the plain version; the first range's boundary
     expert dropped (a planted fault) must fail.  The row's numbers are
     the path's (``SHARDED_DEVICES`` ranges): ``ms`` the whole sharded
-    call, ``range_ms`` each range alone; bound: each range's distinct
-    routed experts' bytes (together the whole kernel's)."""
+    call, ``ranges`` each range alone (with its routed slots); bound:
+    each range's distinct routed experts' bytes (together the whole
+    kernel's).  Then the edge cases of ``expert_range_edges``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.tiered_gather import (fused_expert_ffn,
                                                    fused_expert_ffn_partial)
@@ -1026,9 +1035,10 @@ def expert_range_kernel(dev, gen) -> dict:
             one = functools.partial(fused_expert_ffn_partial, x, wg[lo:hi],
                                     wu[lo:hi], wd[lo:hi], ids, wts, lo, hi,
                                     E)
-            d = int(torch.unique(ids[(ids >= lo) & (ids < hi)]).numel())
-            per.append(dict(lo=lo, hi=hi, distinct_experts=d,
-                            ms=time_ms(one),
+            mine = ids[(ids >= lo) & (ids < hi)]
+            d = int(torch.unique(mine).numel())
+            per.append(dict(lo=lo, hi=hi, slots=int(mine.numel()),
+                            distinct_experts=d, ms=time_ms(one),
                             device_ms=time_ms(one, lead=True)))
         t_b, by, distinct = expert_bound(ids, D_MOE, F_MOE)
         if sum(r["distinct_experts"] for r in per) != distinct:
@@ -1042,12 +1052,75 @@ def expert_range_kernel(dev, gen) -> dict:
             ranges=per, fault_abs_err=fault)
         log(f"  {name}: ms={out[n]['ms']:.4f} "
             f"device_ms={out[n]['device_ms']:.4f}; per range "
-            + " ".join(f"[{r['lo']},{r['hi']}) {r['distinct_experts']} "
-                       f"experts {r['ms']:.4f} ({r['device_ms']:.4f})"
-                       for r in per))
+            + " ".join(f"[{r['lo']},{r['hi']}) {r['slots']} slots, "
+                       f"{r['distinct_experts']} experts {r['ms']:.4f} "
+                       f"({r['device_ms']:.4f})" for r in per))
     row = dict(out[SHARDED_DEVICES])
     row["by_ranges"] = {str(n): out[n] for n in EXPERT_RANGES}
+    expert_range_edges(gen, x, wg, wu, wd, ids, wts, whole, plain)
     return row
+
+
+def expert_range_edges(gen, x, wg, wu, wd, ids, wts, whole, plain) -> None:
+    """The range form's edge cases at the main path's shapes, each held
+    to the plain version at ``compare``'s tolerance: a range that no
+    slot routes into (the ids folded into the first half of the
+    experts) and a range of no experts give exact zeros, with their
+    stacks NaN, so that any weight read would show; an id outside
+    [0, E) makes its token's row NaN in the whole kernel and in every
+    range, the other rows held; ``EXPERT_UNEQUAL_RANGES`` unequal
+    ranges; and a batch of ``EXPERT_WIDE_BATCH`` rows, whole and over
+    ``SHARDED_DEVICES`` ranges."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tiered_gather import (fused_expert_ffn,
+                                                   fused_expert_ffn_partial)
+    E = wg.shape[0]
+    lo, hi = E // 2, E // 2 + E // SHARDED_DEVICES
+    nan = [torch.full_like(w[lo:hi], math.nan) for w in (wg, wu, wd)]
+    for name, top, routed in (("no slot routed", hi, ids % lo),
+                              ("no experts", lo, ids)):
+        got = fused_expert_ffn_partial(x, *(w[:top - lo] for w in nan),
+                                       routed, wts, lo, top, E)
+        torch.cuda.synchronize()
+        if not torch.equal(got, torch.zeros_like(got)):
+            fail(f"fused_expert_ffn range [{lo}, {top}), {name}: not exact "
+                 "zeros")
+        log(f"  fused_expert_ffn range [{lo}, {top}), {name}: exact zeros")
+    bad = ids.clone()
+    bad[2, 3] = E
+    for n in (1, SHARDED_DEVICES):
+        ranges = expert_ranges(E, n)
+        got = (fused_expert_ffn(x, wg, wu, wd, bad, wts) if n == 1 else
+               ranged_experts(fused_expert_ffn_partial, x, wg, wu, wd, bad,
+                              wts, ranges))
+        parts = ([got] if n == 1 else
+                 [fused_expert_ffn_partial(x, wg[a:b], wu[a:b], wd[a:b],
+                                           bad, wts, a, b, E)
+                  for a, b in ranges])
+        torch.cuda.synchronize()
+        if not all(torch.isnan(p[2]).all() for p in parts):
+            fail(f"fused_expert_ffn over {n} ranges: an id outside "
+                 f"[0, {E}) did not make its token's row NaN in every "
+                 "range")
+        keep = [0, 1, 3]
+        form = "whole" if n == 1 else f"over {n} ranges"
+        compare(f"fused_expert_ffn {form}, id {E} on row 2: the other rows",
+                got[keep], plain[keep])
+    n = EXPERT_UNEQUAL_RANGES
+    got = ranged_experts(fused_expert_ffn_partial, x, wg, wu, wd, ids, wts,
+                         expert_ranges(E, n))
+    label = "/".join(str(b - a) for a, b in expert_ranges(E, n))
+    compare(f"fused_expert_ffn over {n} ranges ({label}) vs the whole "
+            "kernel", got, whole)
+    compare(f"fused_expert_ffn over {n} ranges ({label}) vs plain", got,
+            plain)
+    wide = expert_inputs(gen, EXPERT_WIDE_BATCH)
+    want = ref.expert_ffn(*wide)
+    tag = f"fused_expert_ffn B={EXPERT_WIDE_BATCH}"
+    compare(f"{tag} whole vs plain", fused_expert_ffn(*wide), want)
+    compare(f"{tag} over {SHARDED_DEVICES} ranges vs plain",
+            ranged_experts(fused_expert_ffn_partial, *wide,
+                           expert_ranges(E, SHARDED_DEVICES)), want)
 
 
 def adam_inputs(gen, n: int, gdtype, offset: int = 0) -> tuple:

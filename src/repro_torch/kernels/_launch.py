@@ -1,4 +1,5 @@
-"""Argument checks and the split-KV plan shared by the kernel wrappers."""
+"""Argument checks and the launch plans shared by the kernel wrappers:
+the split-KV decodes' and the expert FFN's."""
 from __future__ import annotations
 
 import functools
@@ -9,6 +10,10 @@ import torch
 
 SPLIT_TOKENS = 64     # tokens a pass-1 block takes, when the grid is full
 H100_SMS = 132
+EXPERT_UP_COLS = 128  # F columns of an expert pass-1 block (csrc kUpCols)
+EXPERT_MIN_ROWS = 128  # fewest D rows of an expert pass-1 split
+EXPERT_MAX_SPLITS = 8  # its D splits run as one cluster: the portable size
+EXPERT_BLOCKS_PER_SM = 2   # expected pass-1 blocks the plan aims at
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -81,3 +86,37 @@ def split_plan(nb: int, block_tokens: int, B: int, KV: int,
     while per > 1 and B * KV * math.ceil(nb / per) < sms:
         per -= 1
     return per * block_tokens, math.ceil(nb / per)
+
+
+def expert_plan(B: int, K: int, D: int, F: int, E: int, e_lo: int,
+                e_hi: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(S, rows) of ``fused_expert_ffn``'s pass 1 over the experts
+    [e_lo, e_hi) of ``E`` at batch ``B``, top-``K``, from the shapes
+    alone (no host sync on the routed ids): ``S`` splits of D of
+    ``rows`` rows each, a multiple of 8 (the last may be shorter, none
+    empty), the fewest that give ``m * ceil(F / EXPERT_UP_COLS) * S``
+    blocks for ``EXPERT_BLOCKS_PER_SM`` per SM, with ``m = ceil(B * K *
+    (e_hi - e_lo) / E)`` the slots the range expects; at most
+    ``EXPERT_MAX_SPLITS`` and, where D has them, ``EXPERT_MIN_ROWS``
+    rows a split.  The kernel takes S from the size of the scratch
+    (``expert_scratch``) and sizes its slot groups from m."""
+    m = -(-B * K * (e_hi - e_lo) // E)
+    tiles = -(-F // EXPERT_UP_COLS)
+    want = -(-EXPERT_BLOCKS_PER_SM * sms // (m * tiles)) if m else 1
+    S = max(1, min(want, EXPERT_MAX_SPLITS, D // EXPERT_MIN_ROWS))
+    rows = -(-(-(-D // S)) // 8) * 8
+    return -(-D // rows), rows
+
+
+def expert_scratch(B: int, K: int, F: int, S: int,
+                   like: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
+    """fp32 scratch of the expert kernel on ``like``'s device: one
+    allocation holding h (B*K, F), then the pass-1 partials (B*K, S - 1,
+    2, F) of the D splits past the first, B*K * (2S - 1) * F floats.
+    Returns the tensor, which the caller holds until the launch is
+    enqueued, and its start and end pointers (the kernel reads S from
+    their distance)."""
+    scratch = torch.empty(B * K * (2 * S - 1) * F, dtype=torch.float32,
+                          device=like.device)
+    start = scratch.data_ptr()
+    return scratch, start, start + 4 * scratch.numel()

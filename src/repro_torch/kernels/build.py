@@ -67,9 +67,9 @@ _ARGTYPES = {
     # q, k, v, out, B, Sq, Sk, H, KV, HD, causal, scale, stream
     "flash_attention_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
-    # x, w_gate, w_up, w_down, ids, wts, h scratch, out, B, K, D, F, E,
-    # e_lo, e_hi, out_f32, stream
-    "fused_expert_ffn_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    # x, w_gate, w_up, w_down, ids, wts, h scratch, its end, out, B, K,
+    # D, F, E, e_lo, e_hi, out_f32, stream
+    "fused_expert_ffn_bf16": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
     # master, m, v, g, out_master, out_m, out_v, n, g_dtype,
     # lr, b1, b2, eps, wd, b1c, b2c, 1 - b1, 1 - b2, stream

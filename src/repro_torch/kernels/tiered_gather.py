@@ -26,17 +26,27 @@ stacked expert store (``csrc/fused_expert_ffn.cu``).  Replaces
 H100: device-memory bytes, ``3 * D * F * 2`` per distinct routed expert
 (9.4 MB at qwen3-moe-30b-a3b) against about ``6 * D * F`` FLOP per
 (token, slot).  Design: where Pallas carried the sum over the K slots in
-VMEM along a sequential grid axis, two passes behind one C call: pass 1
-(blocks over F tiles and (token, slot)) forms ``silu(x Wg) * (x Wu)``
-into an fp32 scratch, pass 2 (blocks over narrow D tiles and tokens)
-sums ``wts * h Wd`` over the slots in order and stores bf16; threads own
-8 columns each and read weight rows with 16-byte loads.  Known weakness,
-left for a later version: each (token, slot) reads its expert on its
-own, so an expert two tokens route to is read twice.  Over an expert
-shard (``fused_expert_ffn_partial``) the same call takes the shard's
-stacks and its range [e_lo, e_hi): slots routed elsewhere are skipped
-in both passes, and pass 2 stores an fp32 partial, so that the shards'
-partials meet before the one rounding to bf16.
+VMEM along a sequential grid axis, two passes behind one C call over an
+expert range [e_lo, e_hi) (the whole kernel is [0, E)).  Pass 1 finds
+the range's in-range (token, slot) pairs on the device (each block ranks
+the B*K ids itself; nothing is read on the host) and walks them as a
+compact list: its grid is sized by the slots the range expects,
+``ceil(B*K * (e_hi - e_lo) / E)`` (with a margin for their spread),
+times the F tiles times S splits of D (``_launch.expert_plan``), so that
+a quarter of the experts still fills the SMs; the S splits of a tile run
+as one cluster, and after a barrier over it the first adds the others'
+fp32 partials of ``x Wg`` and ``x Wu`` to its own and stores
+``h = silu(g) * u`` (silu after the sum).  Pass 2 (blocks over narrow D
+tiles and tokens) stages ``wts * h`` for its token's in-range slots
+alone and sums ``h Wd`` over them in slot order; threads own 8 columns
+each and read weight rows with 16-byte loads.  One ``torch.empty`` holds
+h and the partials (``_launch.expert_scratch``); its size tells the
+kernel S.  Known weakness, left for a later version: each (token, slot)
+reads its expert on its own, so an expert two tokens route to is read
+twice (grouping the tokens by expert).  Over an expert shard
+(``fused_expert_ffn_partial``) the call takes the shard's stacks and its
+range; pass 2 stores an fp32 partial, so that the shards' partials meet
+before the one rounding to bf16.
 """
 from __future__ import annotations
 
@@ -45,8 +55,8 @@ import math
 import torch
 
 from . import build
-from ._launch import (lengths, require, sm_count, split_plan,
-                      split_scratch, stream_of)
+from ._launch import (expert_plan, expert_scratch, lengths, require,
+                      sm_count, split_plan, split_scratch, stream_of)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -146,13 +156,15 @@ def _expert_launch(x, w_gate, w_up, w_down, expert_ids, expert_wts,
     wts = expert_wts.to(torch.float32).contiguous()
     require(ids, "expert_ids", torch.int32, (B, K))
     require(wts, "expert_wts", torch.float32, (B, K))
-    h = torch.empty((B, K, F), dtype=torch.float32, device=x.device)
+    S, _ = expert_plan(B, K, D, F, E, e_lo, e_hi, sm_count(x.device.index))
+    # scratch stays referenced until the launch is enqueued
+    scratch, h, h_end = expert_scratch(B, K, F, S, x)
     out = torch.empty((B, D), dtype=torch.float32 if partial
                       else torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         rc = build.load("fused_expert_ffn").fused_expert_ffn_bf16(
             x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr(), ids.data_ptr(), wts.data_ptr(), h.data_ptr(),
+            w_down.data_ptr(), ids.data_ptr(), wts.data_ptr(), h, h_end,
             out.data_ptr(), B, K, D, F, E, e_lo, e_hi, int(partial),
             stream_of(x))
     build.check(rc, "fused_expert_ffn")

@@ -17,7 +17,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fused_adam import fused_adam  # noqa: E402
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
-    fused_expert_ffn, paged_decode_attention, split_plan)
+    fused_expert_ffn, fused_expert_ffn_partial, paged_decode_attention,
+    split_plan)
 
 pytestmark = pytest.mark.cuda
 # q and k of std 1.5 peak the softmax, so outputs are O(1); the
@@ -224,11 +225,11 @@ def test_flash_attention_kernel_noncausal(gen, Sq, hd):
                                **TOL)
 
 
-def test_fused_expert_ffn_kernel(gen):
-    """qwen3-moe-30b-a3b's decode shapes: top-8 of a router softmax, one
-    row with a duplicated expert, one padded row that repeats row 0; x
-    of std 1 and weights at their init scales."""
-    B, D, F, E, K = 4, 2048, 768, 128, 8
+def _expert_case(gen, B):
+    """qwen3-moe-30b-a3b's decode shapes at batch B: top-8 of a router
+    softmax, one row with a duplicated expert, one padded row that
+    repeats row 0; x of std 1 and weights at their init scales."""
+    D, F, E, K = 2048, 768, 128, 8
     x = _rnd(gen, B, D)
     x[3] = x[0]
     wg, wu = _rnd(gen, E, D, F, std=D ** -0.5), _rnd(gen, E, D, F,
@@ -239,12 +240,76 @@ def test_fused_expert_ffn_kernel(gen):
     wts = wts / wts.sum(-1, keepdim=True)
     ids = ids.to(torch.int32)
     ids[1, K - 1] = ids[1, 0]
+    return x, wg, wu, wd, ids, wts
+
+
+def _ranged(x, wg, wu, wd, ids, wts, ranges):
+    """The range kernel once per range, the fp32 partials summed in range
+    order and rounded to bf16 once (the sharded path's sum)."""
+    E = wg.shape[0]
+    return sum(fused_expert_ffn_partial(x, wg[a:b], wu[a:b], wd[a:b], ids,
+                                        wts, a, b, E)
+               for a, b in ranges).bfloat16()
+
+
+def _ranges(E, n):
+    return [(i * E // n, (i + 1) * E // n) for i in range(n)]
+
+
+def test_fused_expert_ffn_kernel(gen):
+    """The whole kernel at qwen3-moe-30b-a3b's decode shapes, batch 4
+    (``_expert_case``): one launch, the plain version's output, and the
+    padded row equal to row 0."""
+    x, wg, wu, wd, ids, wts = _expert_case(gen, 4)
     n = build.LAUNCHES["fused_expert_ffn"]
     got = fused_expert_ffn(x, wg, wu, wd, ids, wts)
     assert build.LAUNCHES["fused_expert_ffn"] == n + 1
     torch.testing.assert_close(got, ref.expert_ffn(x, wg, wu, wd, ids, wts),
                                **TOL)
     assert torch.equal(got[3], got[0])
+
+
+@pytest.mark.parametrize("B,n", [(4, 3), (32, 1), (32, 4)])
+def test_fused_expert_ffn_ranges(gen, B, n):
+    """The range form over n ranges (3: 42 / 43 / 43 of 128 experts) and
+    the whole kernel at batch 32 (max_batch 32, top-8), against the
+    plain version; the ranges' sum also against the whole kernel."""
+    args = _expert_case(gen, B)
+    want = ref.expert_ffn(*args)
+    got = (fused_expert_ffn(*args) if n == 1
+           else _ranged(*args, _ranges(args[1].shape[0], n)))
+    torch.testing.assert_close(got, want, **TOL)
+    if n > 1:
+        torch.testing.assert_close(got, fused_expert_ffn(*args), **TOL)
+
+
+def test_fused_expert_ffn_range_edges(gen):
+    """A range no slot routes into, and a range of no experts, give exact
+    zeros with NaN stacks (no weight read); an id outside [0, E) makes
+    its token's row NaN in the whole kernel and in each of 4 ranges, and
+    leaves the other rows to the plain version."""
+    x, wg, wu, wd, ids, wts = _expert_case(gen, 4)
+    E = wg.shape[0]
+    lo, hi = E // 2, E // 2 + E // 4
+    nan = [torch.full_like(w[lo:hi], float("nan")) for w in (wg, wu, wd)]
+    for top, routed in ((hi, ids % lo), (lo, ids)):
+        got = fused_expert_ffn_partial(x, *(w[:top - lo] for w in nan),
+                                       routed, wts, lo, top, E)
+        assert torch.equal(got, torch.zeros_like(got))
+    want = ref.expert_ffn(x, wg, wu, wd, ids, wts)   # ids all in range
+    ids[2, 3] = E
+    keep = [0, 1, 3]
+    whole = fused_expert_ffn(x, wg, wu, wd, ids, wts)
+    assert torch.isnan(whole[2]).all()
+    torch.testing.assert_close(whole[keep], want[keep], **TOL)
+    for a, b in _ranges(E, 4):
+        part = fused_expert_ffn_partial(x, wg[a:b], wu[a:b], wd[a:b], ids,
+                                        wts, a, b, E)
+        assert torch.isnan(part[2]).all()
+        torch.testing.assert_close(
+            part[keep], ref.expert_ffn_partial(
+                x, wg[a:b], wu[a:b], wd[a:b], ids, wts, a, b, E)[keep],
+            **TOL)
 
 
 # fused_adam against its plain version, as chip_smoke.py holds it: the

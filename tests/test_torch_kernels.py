@@ -2,6 +2,7 @@
 place) against the JAX kernels, run through ``repro.kernels.ops`` in
 interpret mode, on the reference tests' shapes and edge cases."""
 import math
+from collections import Counter
 
 import pytest
 
@@ -22,6 +23,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_split_plan)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention as flash_kernel)
+from repro_torch.kernels._launch import expert_plan  # noqa: E402
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
     fused_expert_ffn as expert_kernel)
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
@@ -392,6 +394,157 @@ def test_expert_ffn_identical_experts_closed_form():
     want = (h @ wd[0]) * wts.sum(-1, keepdims=True)
     assert_close(got, want, FP32)
     assert_close(got, kern, FP32)
+
+
+@pytest.mark.parametrize("B,K,E,n", [
+    (4, 8, 128, 4), (4, 8, 128, 1), (4, 8, 128, 2), (4, 8, 128, 3),
+    (32, 8, 128, 1), (32, 8, 128, 4), (1, 8, 128, 4), (1, 1, 128, 8),
+    (64, 8, 128, 4), (4, 2, 16, 16),
+])
+@pytest.mark.parametrize("D,F", [(2048, 768), (4096, 1536), (64, 32)])
+def test_expert_plan(B, K, E, n, D, F):
+    """The expert kernel's pass-1 plan over each range of ``n``: S splits
+    of D into ``rows``, a multiple of 8, that cover D with none empty, at
+    most 8 (one cluster) and of 128 rows or more; each (in-range slot, F
+    tile, split) taken by one block once, for every routed count from 0
+    to B*K; two expected working blocks per SM (132) unless S is at its
+    cap, and 288 (8 expected slots x 6 tiles x 6 splits, in 14 slot
+    groups) at the main path's quarter range (B 4, top-8, a quarter of
+    128 experts)."""
+    tiles = -(-F // 128)
+    for lo, hi in [(i * E // n, (i + 1) * E // n) for i in range(n)]:
+        S, rows = expert_plan(B, K, D, F, E, lo, hi)
+        assert rows % 8 == 0 and S >= 1
+        assert (S - 1) * rows < D <= S * rows
+        m = math.ceil(B * K * (hi - lo) / E)       # expected slots
+        # the kernel's slot groups: m and two standard deviations
+        groups = min(B * K, m + math.ceil(2 * math.sqrt(m))) if m else 0
+        blocks = m * tiles * S              # expected working blocks
+        assert S <= 8 and (S == 1 or rows >= 128)
+        assert blocks >= 2 * 132 or S == max(1, min(8, D // 128))
+        if (B, K, E, n, D, F) == (4, 8, 128, 4, 2048, 768):
+            assert (S, rows, m, groups, blocks) == (6, 344, 8, 14, 288)
+        # grid (tiles * S, groups): block (x, g) takes split x % S of F
+        # tile x // S for the in-range slots of rank g, g + groups, ...
+        assert sorted(divmod(bx, S) for bx in range(tiles * S)) == [
+            (t, s) for t in range(tiles) for s in range(S)]
+        for count in range(B * K + 1):
+            taken = Counter(r for g in range(groups)
+                            for r in range(g, count, groups))
+            assert taken == Counter(range(count))
+
+
+def _split_expert(x, wg, wu, wd, ids, wts, e_lo, e_hi, n_experts, S,
+                  silu_per_split=False):
+    """The expert kernel's two passes over the range [e_lo, e_hi), in
+    PyTorch: the compact list of in-range (token, slot)s in slot order;
+    pass 1's fp32 partials of ``x Wg`` and ``x Wu`` over S splits of D
+    into rows of ``expert_plan``'s size; pass 2 over the compact slots
+    only, ``wts * silu(sum g) * sum u`` (or, with ``silu_per_split``,
+    silu applied to each split's partial before the sum: the wrong
+    order) times ``Wd`` summed in slot order; a token with an id outside
+    [0, n_experts) NaN.  Returns the fp32 (B, D) partial."""
+    B, D = x.shape
+    K, F = ids.shape[1], wg.shape[2]
+    rows = -(-(-(-D // S)) // 8) * 8
+    flat = ids.reshape(-1).long()
+    compact = [i for i in range(B * K) if e_lo <= int(flat[i]) < e_hi]
+    part = {}
+    for i in compact:
+        b, e = i // K, int(flat[i]) - e_lo
+        part[i] = [(x[b, d:d + rows].float() @ wg[e, d:d + rows].float(),
+                    x[b, d:d + rows].float() @ wu[e, d:d + rows].float())
+                   for d in range(0, D, rows)]
+        assert len(part[i]) == S
+    silu = torch.nn.functional.silu
+    out = torch.zeros(B, D)
+    for i in compact:
+        b, e = i // K, int(flat[i]) - e_lo
+        g = sum(p[0] for p in part[i])
+        u = sum(p[1] for p in part[i])
+        h = (sum(silu(p[0]) for p in part[i]) * u if silu_per_split
+             else silu(g) * u)
+        out[b] += (wts[b, i % K].float() * h) @ wd[e].float()
+    bad = ((flat < 0) | (flat >= n_experts)).reshape(B, K).any(-1)
+    out[bad] = math.nan
+    return out
+
+
+def _unequal_ranges(E, n):
+    return [(i * E // n, (i + 1) * E // n) for i in range(n)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", ["router", "duplicate"])
+def test_split_expert_matches_reference(n, case):
+    """The kernel's partition (compact in-range slots, S D-split partials
+    of g and u, silu after their sum, pass 2 over the compact slots),
+    emulated in PyTorch with each range's plan, against the plain range
+    version per range and, summed over the ranges, against the JAX
+    kernel in interpret mode: the whole form (n 1) and 2, 3 (10/11/11 of
+    32 experts, as 42/43/43 of 128) and 4 ranges, on distinct routed
+    ids and with a token routed twice to one expert."""
+    E, D, F, B, K = 32, 512, 64, 4, 4
+    args = _expert_inputs(7, E, D, F, B, K)
+    if case == "duplicate":
+        args[4][1, K - 1] = args[4][1, 0]
+        args[4][2, :] = args[4][2, 0]
+    x, wg, wu, wd, ids, wts = map(to_torch, args)
+    total = torch.zeros(B, D)
+    for lo, hi in _unequal_ranges(E, n):
+        S, _ = expert_plan(B, K, D, F, E, lo, hi)
+        assert S > 1
+        got = _split_expert(x, wg[lo:hi], wu[lo:hi], wd[lo:hi], ids, wts,
+                            lo, hi, E, S)
+        assert_close(got, ref.expert_ffn_partial(
+            x, wg[lo:hi], wu[lo:hi], wd[lo:hi], ids, wts, lo, hi, E), FP32)
+        total += got
+    assert_close(total, jops.fused_expert_ffn(*map(jnp.asarray, args)),
+                 FP32)
+
+
+def test_split_expert_edges():
+    """A range no slot routes into gives exact zeros (and reads no
+    weight: its stacks are NaN); an id outside [0, E) makes its token's
+    row NaN in every range and leaves the other rows to the reference."""
+    E, D, F, B, K = 32, 512, 64, 4, 4
+    args = _expert_inputs(8, E, D, F, B, K)
+    x, wg, wu, wd, ids, wts = map(to_torch, args)
+    nan = torch.full_like(wg[16:24], math.nan)
+    empty = _split_expert(x, nan, nan, nan.transpose(1, 2), ids % 16, wts,
+                          16, 24, E, 2)
+    assert torch.equal(empty, torch.zeros(B, D))
+    ids[2, 1] = E
+    want = jops.fused_expert_ffn(*map(jnp.asarray, args))
+    for n in (1, 4):
+        total = torch.zeros(B, D)
+        for lo, hi in _unequal_ranges(E, n):
+            S, _ = expert_plan(B, K, D, F, E, lo, hi)
+            got = _split_expert(x, wg[lo:hi], wu[lo:hi], wd[lo:hi], ids, wts,
+                                lo, hi, E, S)
+            assert torch.isnan(got[2]).all()
+            assert_close(got, ref.expert_ffn_partial(
+                x, wg[lo:hi], wu[lo:hi], wd[lo:hi], ids, wts, lo, hi, E),
+                FP32)
+            total += got
+        keep = [0, 1, 3]
+        assert_close(total[keep], np.asarray(want)[keep], FP32)
+
+
+def test_split_expert_silu_per_split_fails():
+    """silu is not linear: applied to each D split's partial before the
+    sum, the same partition reads past the tolerance."""
+    E, D, F, B, K = 32, 512, 64, 4, 4
+    args = _expert_inputs(7, E, D, F, B, K)
+    x, wg, wu, wd, ids, wts = map(to_torch, args)
+    S, _ = expert_plan(B, K, D, F, E, 0, E // 4)
+    assert S > 1
+    part = [wg[:8], wu[:8], wd[:8], ids, wts, 0, E // 4, E, S]
+    want = ref.expert_ffn_partial(x, *part[:-1])
+    assert_close(_split_expert(x, *part), want, FP32)
+    with pytest.raises(AssertionError):
+        assert_close(_split_expert(x, *part, silu_per_split=True), want,
+                     FP32)
 
 
 # ---------------------------- dispatch --------------------------------- #

@@ -9,14 +9,20 @@ commit, ``git archive``d into ``build/``).  Each runs in a child process
 of its own, in the order given, that imports ``repro_torch`` from that
 tree's ``src/`` (and builds that tree's kernels into its
 ``build/kernels``), warms the card for a second, and then runs this
-tree's ``chip_smoke.attention_kernels`` at KV 8 and KV 4 and
-``chip_smoke.expert_kernel``: every kernel held against its plain
-version and timed cold beside its library call, both as ``ms`` (host
-time of a wrapper that the L2-evicting write does not hide included)
-and as ``device_ms`` (the card's time alone).  Those functions call the
+tree's ``chip_smoke.attention_kernels`` at KV 8 and KV 4,
+``chip_smoke.expert_kernel`` and ``chip_smoke.expert_range_kernel``
+(row ``fused_expert_ffn@4 expert ranges``, each range's ``device_ms``
+printed under it): every kernel held against its plain version and
+timed cold beside its library call, both as ``ms`` (host time of a
+wrapper that the L2-evicting write does not hide included) and as
+``device_ms`` (the card's time alone).  Those functions call the
 wrappers only, whose signatures are those of every tree since the
-port's first slice, so the trees are measured by one yardstick.  Prints
-the card, one JSON line per run and a table.
+port's first slice (the range form's since its 13th), so the trees are
+measured by one yardstick.  Then the expert kernel's two passes
+(``expert_up_kernel``, ``expert_down_kernel``, the names of both
+designs) are timed apart under ``torch.profiler``, whole and over the
+first quarter of the experts, each against the weight bytes it reads.
+Prints the card, one JSON line per run and a table.
 """
 from __future__ import annotations
 
@@ -28,6 +34,51 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 FIELDS = ("ms", "device_ms", "library_ms", "library_device_ms")
+RANGE_ROW = "fused_expert_ffn@4 expert ranges"
+PASSES = ("expert_up_kernel", "expert_down_kernel")
+PASS_CALLS = 20
+
+
+def expert_passes(cs, gen) -> dict:
+    """Device ms per launch of each pass of the expert kernel, read by
+    ``torch.profiler`` over ``PASS_CALLS`` calls that each follow an
+    L2-evicting write, whole and over the experts [0, E / 4) on
+    ``chip_smoke.expert_inputs``; beside each, the weight bytes the pass
+    reads (its in-range slots' matrices: two of D x F up, one down) and
+    the rate they give."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.tiered_gather import (fused_expert_ffn,
+                                                   fused_expert_ffn_partial)
+    x, wg, wu, wd, ids, wts = cs.expert_inputs(gen)
+    E, D, F = wg.shape[0], wg.shape[1], wg.shape[2]
+    q = E // 4
+    flush = torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8,
+                        device=x.device)
+    out = {}
+    for label, hi, call in (
+            ("whole", E, lambda: fused_expert_ffn(x, wg, wu, wd, ids, wts)),
+            (f"range [0, {q})", q, lambda: fused_expert_ffn_partial(
+                x, wg[:q], wu[:q], wd[:q], ids, wts, 0, q, E))):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PASS_CALLS):
+                flush.zero_()
+                call()
+            torch.cuda.synchronize()
+        slots = int((ids < hi).sum())
+        row = {"slots": slots}
+        for name, mats in zip(PASSES, (2, 1)):
+            evs = [e for e in prof.key_averages() if name in e.key]
+            ms = (sum(e.self_device_time_total for e in evs)
+                  / max(1, sum(e.count for e in evs)) / 1e3)
+            nbytes = slots * mats * D * F * 2
+            row[name] = {"device_ms": ms, "weight_bytes": nbytes,
+                         "tb_s": nbytes / ms / 1e9 if ms else None}
+        out[label] = row
+    return out
 
 
 def child(tree: Path) -> dict:
@@ -55,9 +106,14 @@ def child(tree: Path) -> dict:
             if "L2048" in row:
                 rows[f"{name}@KV{KV} L2048"] = row["L2048"]
     rows["fused_expert_ffn"] = cs.expert_kernel(dev, gen)
+    rows[RANGE_ROW] = cs.expert_range_kernel(dev, gen)
     return {"tree": str(tree), "rows": {
         name: {k: row[k] for k in FIELDS + ("max_abs_err",)}
-        for name, row in rows.items()}}
+        for name, row in rows.items()},
+        "ranges": [{k: r[k] for k in ("lo", "hi", "slots", "distinct_experts",
+                                      "ms", "device_ms")}
+                   for r in rows[RANGE_ROW]["ranges"]],
+        "passes": expert_passes(cs, gen)}
 
 
 def main() -> int:
@@ -91,6 +147,23 @@ def main() -> int:
                                              else f"{r[f]:.5f}")
                              for f in FIELDS)
                   + f" {r['max_abs_err']:8.2g}")
+            if name == RANGE_ROW:
+                print(f"{'':34s} {'':24s} per range device_ms "
+                      + " ".join(f"[{p['lo']},{p['hi']}) "
+                                 f"{p['device_ms']:.5f}"
+                                 for p in run["ranges"]))
+    print(f"{'pass':34s} {'tree':24s} {'slots':>5s} {'device_ms':>10s} "
+          f"{'weight MB':>10s} {'TB/s':>6s}")
+    for label in runs[0]["passes"]:
+        for name in PASSES:
+            for run in runs:
+                p = run["passes"][label]
+                r = p[name]
+                print(f"{label + ' ' + name:34s} {run['tree'][-24:]:24s} "
+                      f"{p['slots']:5d} {r['device_ms']:10.5f} "
+                      f"{r['weight_bytes'] / 1e6:10.2f} "
+                      + ("  none" if r["tb_s"] is None
+                         else f"{r['tb_s']:6.3f}"))
     return 0
 
 
