@@ -3248,9 +3248,8 @@ PROFILE_GROUPS = (("port kernels", ("decode_split_kernel",
 
 def profiled(label: str, run) -> dict:
     """``run()`` under torch.profiler: device time by category
-    (``PROFILE_GROUPS``), the top kernels, and the device's idle share
-    of the run's wall time.  Returns {} where the profiler saw no device
-    time."""
+    (``PROFILE_GROUPS``) and the top kernels.  Returns {} where the
+    profiler saw no device time."""
     from torch.profiler import profile, ProfilerActivity
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3281,14 +3280,13 @@ def profiled(label: str, run) -> dict:
             port.append((key, sec, n))
     rows.sort(key=lambda r: -r[1])
     log(f"profile {label}: wall={wall:.3f} s device_busy={busy:.3f} s "
-        f"idle_share={1.0 - busy / wall:.3f} iterations={iterations} "
+        f"iterations={iterations} "
         + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in cats.items()))
     for key, sec, n in rows[:8]:
         log(f"  {sec * 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
     for key, sec, n in port:
         log(f"  port kernel {sec * 1e3:8.3f} ms  {n:6d}x  {key[:70]}")
     return {"wall_s": wall, "device_busy_s": busy,
-            "device_idle_share": 1.0 - busy / wall,
             "iterations": iterations, "categories_s": cats,
             "top": rows[:15], "port_kernels": port}
 

@@ -204,14 +204,15 @@ class ClusterPlane:
         timestamp: :func:`repro_torch.obs.qos_chains` pairs a violation
         with the blame event that *follows it in sequence*, so
         per-replica ordering must survive the merge for chains to
-        reconstruct.
+        reconstruct.  The replicas' hot-path spans (``trace_spans``)
+        follow every control-plane event, in the same host order.
         """
         out = list(self.tracer.events)
-        for host in self.testbed.hosts:
-            rep = self.replicas[host]
-            for ev in rep.engine.tracer.events:
-                out.append(dataclasses.replace(
-                    ev, tid=f"{host}/{ev.tid}"))
+        for ring in ("events", "spans"):
+            for host in self.testbed.hosts:
+                for ev in getattr(self.replicas[host].engine.tracer, ring):
+                    out.append(dataclasses.replace(
+                        ev, tid=f"{host}/{ev.tid}"))
         return out
 
     # -- namespace invariant ------------------------------------------ #

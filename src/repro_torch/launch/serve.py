@@ -249,12 +249,24 @@ def run_cluster(args, cfg, params):
                 fh.write(json.dumps(ev, sort_keys=True) + "\n")
         print(f"trace: wrote {len(events)} merged events -> "
               f"{args.trace_out}")
+        _report_trace_drops([plane.tracer] + [
+            plane.replicas[h].engine.tracer for h in plane.testbed.hosts])
     if args.metrics_out:
         with open(args.metrics_out, "w") as fh:
             fh.write(plane.registry.to_prometheus_text())
         print(f"metrics: wrote {len(plane.registry.names())} series "
               f"(prometheus text) -> {args.metrics_out}")
     return plane
+
+
+def _report_trace_drops(tracers) -> None:
+    """Say so where a trace's rings were full and evicted their oldest
+    events: the written trace then starts later than the run."""
+    events = sum(t.dropped for t in tracers)
+    spans = sum(t.spans_dropped for t in tracers)
+    if events or spans:
+        print(f"trace: WARNING the rings were full and evicted the "
+              f"oldest {events} control-plane events and {spans} spans")
 
 
 def _write_obs_artifacts(args, eng) -> None:
@@ -267,6 +279,7 @@ def _write_obs_artifacts(args, eng) -> None:
             n = eng.tracer.to_chrome(args.trace_out)
             kind = "chrome trace_event"
         print(f"trace: wrote {n} events ({kind}) -> {args.trace_out}")
+        _report_trace_drops([eng.tracer])
     if args.metrics_out:
         with open(args.metrics_out, "w") as fh:
             fh.write(eng.registry.to_prometheus_text())
@@ -358,9 +371,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="telemetry sampling rate (fraction of cache "
                          "lines; 1.0 = full instrumentation)")
     ap.add_argument("--trace-out", default=None,
-                    help="write the control-plane trace here after the "
-                         "run: .jsonl = one event per line, anything "
-                         "else = Chrome trace_event JSON")
+                    help="write the control-plane trace and the "
+                         "engine's hot-path spans here after the run: "
+                         ".jsonl = one event per line, anything else = "
+                         "Chrome trace_event JSON")
     ap.add_argument("--metrics-out", default=None,
                     help="write the metrics registry as Prometheus text "
                          "exposition here")

@@ -17,16 +17,55 @@ Event phases follow the trace_event vocabulary we need:
                         rounds; the MoveScheduler's fluid schedule gives
                         exact start/finish times)
 - ``"C"``  counter   -- a sampled numeric series
+
+A recorder made with ``hot_spans=True`` also holds a hot path's spans
+(``TraceRecorder.span``): each gets an integer ``id`` and the
+``parent`` id of the innermost span still open on it, and goes into a
+ring of its own (``spans``, evictions counted in ``spans_dropped``), so
+that however many spans a long run records, they never evict a
+control-plane event.  While a ``torch.profiler`` profile records, such
+a span also opens the profiler's range ``"repro_torch." + name``, so it
+appears among the profiler's host events, on the clock its device
+events are aligned to.  A plain recorder's spans are events like any
+other, and open no range.
 """
 from __future__ import annotations
 
 import json
+import sys
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+from itertools import chain
 from dataclasses import dataclass, field
 from typing import Any, Callable, Deque, Dict, Iterable, Iterator, List, Optional
 
-__all__ = ["TraceEvent", "TraceRecorder", "qos_chains", "replan_chains"]
+__all__ = ["TraceEvent", "TraceRecorder", "hot_span", "qos_chains",
+           "replan_chains"]
+
+# the profiler range a span opens is named PROFILER_PREFIX + its name
+PROFILER_PREFIX = "repro_torch."
+_NO_SPAN = nullcontext()
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` profile is recording (without
+    importing torch: a process that never loaded it records none)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and bool(prof._is_profiler_enabled)
+
+
+def _profiler_range(name: str):
+    from torch.profiler import record_function
+    return record_function(PROFILER_PREFIX + name)
+
+
+def hot_span(tracer: Optional["TraceRecorder"], name: str, **args: Any):
+    """A span at a hot-path site: into ``tracer`` with ``cat="span"``
+    where spans are on; nothing (a shared no-op context) where they are
+    off (``tracer`` None)."""
+    if tracer is None:
+        return _NO_SPAN
+    return tracer.span(name, cat="span", **args)
 
 
 def _json_safe(value: Any) -> Any:
@@ -58,6 +97,8 @@ class TraceEvent:
     dur_s: float = 0.0         # only meaningful for ph == "X"
     tid: str = "main"          # logical track (tenant, component, ...)
     args: Dict[str, Any] = field(default_factory=dict)
+    id: Optional[int] = None       # a span's id (recorders with hot_spans)
+    parent: Optional[int] = None   # the id of the span it opened inside
 
     def to_dict(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {
@@ -70,6 +111,10 @@ class TraceEvent:
         }
         if self.ph == "X":
             d["dur_s"] = self.dur_s
+        if self.id is not None:
+            d["id"] = self.id
+        if self.parent is not None:
+            d["parent"] = self.parent
         return d
 
     @staticmethod
@@ -82,6 +127,8 @@ class TraceEvent:
             dur_s=float(d.get("dur_s", 0.0)),
             tid=d.get("tid", "main"),
             args=dict(d.get("args", {})),
+            id=d.get("id"),
+            parent=d.get("parent"),
         )
 
 
@@ -92,11 +139,13 @@ class TraceRecorder:
     timebase and tests can use fake clocks; it defaults to a monotonic
     zero-origin clock. When the ring is full the oldest events are
     evicted and ``dropped`` counts them, so a misbehaving hot path can
-    never grow memory unboundedly.
+    never grow memory unboundedly.  ``hot_spans``: spans nest by id and
+    go into a ring of their own, ``max_events`` long (see the module's
+    docstring).
     """
 
     def __init__(self, clock: Optional[Callable[[], float]] = None,
-                 max_events: int = 65536) -> None:
+                 max_events: int = 65536, hot_spans: bool = False) -> None:
         if max_events <= 0:
             raise ValueError("max_events must be positive")
         if clock is None:
@@ -108,9 +157,18 @@ class TraceRecorder:
         self.max_events = int(max_events)
         self.events: Deque[TraceEvent] = deque(maxlen=self.max_events)
         self.dropped = 0
+        self.hot_spans = hot_spans
+        self.spans: Deque[TraceEvent] = deque(maxlen=self.max_events)
+        self.spans_dropped = 0
+        self._open: List[int] = []     # ids of the open spans, innermost last
+        self._next_id = 1
 
     def __len__(self) -> int:
-        return len(self.events)
+        return len(self.events) + len(self.spans)
+
+    def _all(self) -> Iterable[TraceEvent]:
+        """The control-plane events, then the hot path's spans."""
+        return chain(self.events, self.spans)
 
     # ---------------------------------------------------------- record
     def _push(self, ev: TraceEvent) -> TraceEvent:
@@ -156,22 +214,46 @@ class TraceRecorder:
         span closes.
         """
         safe = {k: _json_safe(v) for k, v in args.items()}
+        if not self.hot_spans:
+            start = float(self.clock())
+            try:
+                yield safe
+            finally:
+                end = float(self.clock())
+                self._push(TraceEvent(
+                    name=name, cat=cat, ph="X", ts_s=start,
+                    dur_s=max(0.0, end - start), tid=tid,
+                    args={k: _json_safe(v) for k, v in safe.items()},
+                ))
+            return
+        sid, self._next_id = self._next_id, self._next_id + 1
+        parent = self._open[-1] if self._open else None
+        self._open.append(sid)
+        rng = _profiler_range(name) if _profiling() else None
+        if rng is not None:
+            rng.__enter__()
         start = float(self.clock())
         try:
             yield safe
         finally:
             end = float(self.clock())
-            self._push(TraceEvent(
+            if rng is not None:
+                rng.__exit__(None, None, None)
+            self._open.pop()
+            if len(self.spans) == self.max_events:
+                self.spans_dropped += 1
+            self.spans.append(TraceEvent(
                 name=name, cat=cat, ph="X", ts_s=start,
                 dur_s=max(0.0, end - start), tid=tid,
                 args={k: _json_safe(v) for k, v in safe.items()},
+                id=sid, parent=parent,
             ))
 
     # ----------------------------------------------------------- query
     def filter(self, name: Optional[str] = None, cat: Optional[str] = None,
                tid: Optional[str] = None) -> List[TraceEvent]:
         out = []
-        for ev in self.events:
+        for ev in self._all():
             if name is not None and ev.name != name:
                 continue
             if cat is not None and ev.cat != cat:
@@ -186,7 +268,7 @@ class TraceRecorder:
         """Write one JSON object per line; returns the event count."""
         n = 0
         with open(path, "w") as fh:
-            for ev in self.events:
+            for ev in self._all():
                 fh.write(json.dumps(ev.to_dict(), sort_keys=True) + "\n")
                 n += 1
         return n
@@ -204,7 +286,7 @@ class TraceRecorder:
     def to_chrome(self, path: str) -> int:
         """Write Chrome ``trace_event`` JSON (ts/dur in microseconds)."""
         events = []
-        for ev in self.events:
+        for ev in self._all():
             entry: Dict[str, Any] = {
                 "name": ev.name,
                 "cat": ev.cat,
@@ -219,10 +301,13 @@ class TraceRecorder:
             if ev.ph == "i":
                 entry["s"] = "t"  # instant scope: thread
             events.append(entry)
+        meta: Dict[str, Any] = {"dropped_events": self.dropped}
+        if self.hot_spans:
+            meta["dropped_spans"] = self.spans_dropped
         with open(path, "w") as fh:
             json.dump({"traceEvents": events,
                        "displayTimeUnit": "ms",
-                       "metadata": {"dropped_events": self.dropped}}, fh)
+                       "metadata": meta}, fh)
         return len(events)
 
 

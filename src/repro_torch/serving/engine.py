@@ -24,6 +24,27 @@ Then greedy argmax, ``append_token``, one ``KVBlockTierer`` epoch and
 one telemetry epoch.  Padded batch rows carry ``lens = 0`` and a zero
 block table, exactly as in the reference.
 
+With ``trace_spans=True`` the engine's tracer also records spans
+(``cat="span"``, on the engine's clock, each with its id and its
+parent's) at the boundaries between the host enqueuing work, the host
+waiting on the device and the host's bookkeeping:
+
+  * ``engine.prefill`` (``rid``, ``tokens``) over ``.forward`` (the
+    prefill step), ``.write`` (``pool.write_prefill``) and ``.read``
+    (the margins and the first token, where the host waits);
+  * ``engine.decode`` (``step``, ``rows``) over ``.inputs`` (block
+    tables or the staged gather, the batch's host-to-device copies),
+    ``.forward`` (the decode step), ``.read`` (the routing feed, the
+    tokens and margins, where the host waits) and ``.commit`` (each
+    row's ``append_token``, ``touch_seq``, token and finish);
+  * ``engine.tier_epoch`` and ``engine.replan_epoch`` (``epoch``).
+
+The spans keep a ring of their own in the tracer (``tracer.spans``),
+so they never evict a control-plane event.  While a ``torch.profiler``
+profile records, each span also opens the profiler's range
+``repro_torch.<name>``; with spans off a site opens nothing
+(``obs.trace.hot_span``).
+
 Every engine builds the observability plane (a control-plane trace, a
 metrics registry, a prediction-audit ledger and SLO monitors) and the
 telemetry plane (the pool's access events through a sampler, phase
@@ -89,6 +110,7 @@ from ..obs import (BlameLedger, CostModelCalibrator, LagRatioMonitor,
                    measure_transfer_probes, MetricsRegistry, PredictionLedger,
                    probed_kind_bases, SLOMonitor, SLOTarget, TraceRecorder,
                    ViolationPredictor)
+from ..obs.trace import hot_span
 from ..pool import MoveScheduler, TierBudgetArbiter
 from ..telemetry import (AccessSampler, AccessTrace, AdaptiveReplanner,
                          PhaseDetector, ReplanConfig, SamplerConfig)
@@ -343,6 +365,10 @@ class ServingConfig:
     # and optional SLO thresholds (seconds) on TTFT and the inter-token
     # decode latency, checked live by the rolling-window SLOMonitor
     trace_max_events: int = 65536
+    # hot-path spans in the trace (engine.prefill, engine.decode and
+    # their parts, the tier and replan epochs); off, the trace holds
+    # the control plane alone
+    trace_spans: bool = False
     slo_p95_ttft_s: Optional[float] = None
     slo_p95_decode_s: Optional[float] = None
     slo_p99_decode_s: Optional[float] = None
@@ -418,6 +444,7 @@ class ServingConfig:
             fused_gather=bool(get("fused_gather")),
             expert_policy=get("expert_policy"),
             expert_fast_fraction=get("expert_fast_frac", 0.25),
+            trace_spans=bool(get("trace_out")),
             cluster=cluster)
 
 
@@ -533,7 +560,10 @@ class ServingEngine:
         self._virtual_skew = 0.0
         self._step = 0
         self.tracer = TraceRecorder(clock=self._now,
-                                    max_events=sv.trace_max_events)
+                                    max_events=sv.trace_max_events,
+                                    hot_spans=sv.trace_spans)
+        # the recorder hot-path spans go into, None while they are off
+        self._spans = self.tracer if sv.trace_spans else None
         self.registry = MetricsRegistry()
         self.audit = PredictionLedger(registry=self.registry,
                                       tracer=self.tracer)
@@ -580,6 +610,7 @@ class ServingEngine:
                 max_prefill_per_iter=sv.max_prefill_per_iter,
                 flow_class=sv.qos_class),
             topology=topo, tracer=self.tracer, predictor=self.predictor)
+        self.tierer.spans = self._spans
         self.metrics = ServingMetrics(registry=self.registry,
                                       slo=self.slo)
         # telemetry: the pool emits access events through a sampling
@@ -764,22 +795,28 @@ class ServingEngine:
                 self.metrics.on_preempt(v.rid, now)
         if req.state is not RequestState.RUNNING:
             return                     # pool too tight: preempted itself
-        tokens = torch.as_tensor(toks, dtype=torch.int64,
-                                 device=self.device)
-        logits, cache = self._prefill(self.params, {"tokens": tokens},
-                                      units=self._units)
-        self.pool.write_prefill(req.rid, cache["kv_k"][:, :, 0],
-                                cache["kv_v"][:, :, 0], L,
-                                kind=self._alloc_kind)
-        self.metrics.on_admit(req.rid, now)
-        self._record_margins([req.rid], logits)
-        if self._track_routes:
-            self._route_log.append(([req.rid], None))
-        req.out_tokens.append(int(SH.argmax(logits)[0]))
-        self.metrics.on_token(req.rid, self._now())
-        if req.done:
-            self.sched.finish(req)
-            self.metrics.on_finish(req.rid, self._now(), req.preemptions)
+        sp = self._spans
+        with hot_span(sp, "engine.prefill", rid=req.rid, tokens=L):
+            with hot_span(sp, "engine.prefill.forward"):
+                tokens = torch.as_tensor(toks, dtype=torch.int64,
+                                         device=self.device)
+                logits, cache = self._prefill(
+                    self.params, {"tokens": tokens}, units=self._units)
+            with hot_span(sp, "engine.prefill.write"):
+                self.pool.write_prefill(req.rid, cache["kv_k"][:, :, 0],
+                                        cache["kv_v"][:, :, 0], L,
+                                        kind=self._alloc_kind)
+            self.metrics.on_admit(req.rid, now)
+            with hot_span(sp, "engine.prefill.read"):
+                self._record_margins([req.rid], logits)
+                if self._track_routes:
+                    self._route_log.append(([req.rid], None))
+                req.out_tokens.append(int(SH.argmax(logits)[0]))
+            self.metrics.on_token(req.rid, self._now())
+            if req.done:
+                self.sched.finish(req)
+                self.metrics.on_finish(req.rid, self._now(),
+                                       req.preemptions)
 
     def _ensure_tail_blocks(self) -> None:
         """Every running request needs a block for its next KV write."""
@@ -811,72 +848,92 @@ class ServingEngine:
                                 device=self.device))
 
     def _staged_decode_batch(self, batch):
-        kv_ks, kv_vs = [], []
-        for req in batch:
-            k, v = self.pool.gather_seq(req.rid, self.max_seq_blocks)
-            kv_ks.append(k)
-            kv_vs.append(v)
-        n_pad = self.max_batch - len(batch)
-        if n_pad:
-            z = torch.zeros_like(kv_ks[0])
-            kv_ks.extend([z] * n_pad)
-            kv_vs.extend([z] * n_pad)
-        kv_k = torch.stack(kv_ks, dim=2)   # (U, n_attn, B, S_pad, ...)
-        kv_v = torch.stack(kv_vs, dim=2)
-        tokens, lengths = self._batch_inputs(batch)
-        return _paged_decode(self.cfg, self._units, self.params, tokens,
-                             kv_k, kv_v, lengths)
+        """Returns (logits, new_k, new_v, None)."""
+        with hot_span(self._spans, "engine.decode.inputs"):
+            kv_ks, kv_vs = [], []
+            for req in batch:
+                k, v = self.pool.gather_seq(req.rid, self.max_seq_blocks)
+                kv_ks.append(k)
+                kv_vs.append(v)
+            n_pad = self.max_batch - len(batch)
+            if n_pad:
+                z = torch.zeros_like(kv_ks[0])
+                kv_ks.extend([z] * n_pad)
+                kv_vs.extend([z] * n_pad)
+            kv_k = torch.stack(kv_ks, dim=2)   # (U, n_attn, B, S_pad, ...)
+            kv_v = torch.stack(kv_vs, dim=2)
+            tokens, lengths = self._batch_inputs(batch)
+        with hot_span(self._spans, "engine.decode.forward"):
+            return _paged_decode(self.cfg, self._units, self.params,
+                                 tokens, kv_k, kv_v, lengths) + (None,)
 
     def _fused_decode_batch(self, batch):
         """Fused decode: no staging copy — the kernel reads the pooled
         stores through each sequence's block table.  Returns (logits,
-        new_k, new_v); router margins are logged, and the routed expert
-        ids of the live rows feed per-expert heat."""
-        tbl, _ = self.pool.gather_tables([r.rid for r in batch],
-                                         self.max_seq_blocks)
-        n_pad = self.max_batch - len(batch)
-        if n_pad:
-            tbl = np.concatenate(
-                [tbl, np.zeros((n_pad, tbl.shape[1]), np.int32)])
-        tokens, lengths = self._batch_inputs(batch)
-        nears = [] if self._track_routes else None
-        logits, new_k, new_v, routed = _fused_paged_decode(
-            self.cfg, self.sv.block_tokens, self._units, self.params,
-            tokens, self.pool.k_store, self.pool.v_store,
-            torch.as_tensor(tbl, device=self.device), lengths,
-            route_margins=nears)
-        if nears:
-            self._route_log.append(([r.rid for r in batch],
-                                    torch.stack(nears)))
-        if self.expert_pool is not None and routed.shape[1]:
-            ids = routed.cpu().numpy()     # (U, n_moe, B, K), one copy
-            for u in range(ids.shape[0]):
-                for m in range(ids.shape[1]):
-                    gl = u * self._moe_per_unit + m
-                    for i in range(len(batch)):
-                        self.expert_pool.record_routing(
-                            gl, ids[u, m, i], self._step)
-        return logits, new_k, new_v
+        new_k, new_v, routed expert ids (U, n_moe, B, K)); router
+        margins are logged."""
+        with hot_span(self._spans, "engine.decode.inputs"):
+            tbl, _ = self.pool.gather_tables([r.rid for r in batch],
+                                             self.max_seq_blocks)
+            n_pad = self.max_batch - len(batch)
+            if n_pad:
+                tbl = np.concatenate(
+                    [tbl, np.zeros((n_pad, tbl.shape[1]), np.int32)])
+            tokens, lengths = self._batch_inputs(batch)
+            tbl = torch.as_tensor(tbl, device=self.device)
+        with hot_span(self._spans, "engine.decode.forward"):
+            nears = [] if self._track_routes else None
+            logits, new_k, new_v, routed = _fused_paged_decode(
+                self.cfg, self.sv.block_tokens, self._units, self.params,
+                tokens, self.pool.k_store, self.pool.v_store, tbl, lengths,
+                route_margins=nears)
+            if nears:
+                self._route_log.append(([r.rid for r in batch],
+                                        torch.stack(nears)))
+        return logits, new_k, new_v, routed
+
+    def _feed_routing(self, batch, routed) -> None:
+        """The routed expert ids of the live rows feed per-expert heat
+        (one device-to-host copy)."""
+        if self.expert_pool is None or routed is None or \
+                not routed.shape[1]:
+            return
+        ids = routed.cpu().numpy()     # (U, n_moe, B, K), one copy
+        for u in range(ids.shape[0]):
+            for m in range(ids.shape[1]):
+                gl = u * self._moe_per_unit + m
+                for i in range(len(batch)):
+                    self.expert_pool.record_routing(
+                        gl, ids[u, m, i], self._step)
 
     def _decode_iteration(self, now: float) -> None:
         batch = list(self.sched.running)
         if not batch:
             return
-        if self.sv.fused_gather:
-            logits, new_k, new_v = self._fused_decode_batch(batch)
-        else:
-            logits, new_k, new_v = self._staged_decode_batch(batch)
-        next_toks = SH.argmax(logits).tolist()
-        self._record_margins([r.rid for r in batch], logits)
-        now_tok = self._now()
-        for i, req in enumerate(batch):
-            self.pool.append_token(req.rid, new_k[:, :, i], new_v[:, :, i])
-            self.pool.touch_seq(req.rid, self._step)
-            req.out_tokens.append(int(next_toks[i]))
-            self.metrics.on_token(req.rid, now_tok)
-            if req.done:
-                self.sched.finish(req)
-                self.metrics.on_finish(req.rid, now_tok, req.preemptions)
+        sp = self._spans
+        with hot_span(sp, "engine.decode", step=self._step, rows=len(batch)):
+            if self.sv.fused_gather:
+                logits, new_k, new_v, routed = self._fused_decode_batch(
+                    batch)
+            else:
+                logits, new_k, new_v, routed = self._staged_decode_batch(
+                    batch)
+            with hot_span(sp, "engine.decode.read"):
+                self._feed_routing(batch, routed)
+                next_toks = SH.argmax(logits).tolist()
+                self._record_margins([r.rid for r in batch], logits)
+            with hot_span(sp, "engine.decode.commit"):
+                now_tok = self._now()
+                for i, req in enumerate(batch):
+                    self.pool.append_token(req.rid, new_k[:, :, i],
+                                           new_v[:, :, i])
+                    self.pool.touch_seq(req.rid, self._step)
+                    req.out_tokens.append(int(next_toks[i]))
+                    self.metrics.on_token(req.rid, now_tok)
+                    if req.done:
+                        self.sched.finish(req)
+                        self.metrics.on_finish(req.rid, now_tok,
+                                               req.preemptions)
 
     # ------------------------------------------------------------------ #
     def _move_seq_blocks(self, obj: str, src: str, dst: str,
@@ -904,6 +961,12 @@ class ServingEngine:
         return moved * bn
 
     def _replan_step(self) -> None:
+        """One telemetry epoch (``_replan_epoch``), in the span
+        ``engine.replan_epoch``."""
+        with hot_span(self._spans, "engine.replan_epoch", epoch=self._step):
+            self._replan_epoch()
+
+    def _replan_epoch(self) -> None:
         """One telemetry epoch: close the bucket, track phases, and (in
         adaptive mode) attempt an object-level replan over live
         sequences.  Predictive mode keys the plan cache by recurrence
@@ -1033,6 +1096,8 @@ class ServingEngine:
             out["live_burst_entry_ratio"] = float(lag)
         out["trace_recorded_events"] = float(len(self.tracer))
         out["trace_dropped_events"] = float(self.tracer.dropped)
+        if self._spans is not None:
+            out["trace_dropped_spans"] = float(self.tracer.spans_dropped)
         if self.blame is not None:
             out.update(self.blame.summary())
         out.update(self.audit.summary())

@@ -23,6 +23,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 from ..core import migration as mig
+from ..obs.trace import hot_span, TraceRecorder
 from .kv_pool import FAST_KIND, KVBlock, PagedKVPool
 
 POLICIES = ("static", "autonuma", "tiering08", "tpp")
@@ -63,6 +64,9 @@ class KVBlockTierer:
     on that dataclass), the policy nominates promotions among touched
     slow-tier blocks, and capacity pressure demotes the coldest
     fast-tier blocks of *non-running* sequences first.
+
+    ``spans``: the recorder each epoch's span ``engine.tier_epoch``
+    goes into (the engine's tracer while its hot-path spans are on).
     """
 
     def __init__(self, pool: PagedKVPool, policy: str = "tiering08",
@@ -75,6 +79,7 @@ class KVBlockTierer:
         self._mig_stats = mig.MigrationStats()
         # shadow core.migration blocks, keyed by pool block id
         self._shadow: Dict[int, mig.Block] = {}
+        self.spans: Optional[TraceRecorder] = None
 
     # ------------------------------------------------------------------ #
     def _shadow_of(self, b: KVBlock) -> mig.Block:
@@ -122,6 +127,10 @@ class KVBlockTierer:
         iteration (the pool's heat counters were already bumped by
         ``touch_seq``).
         """
+        with hot_span(self.spans, "engine.tier_epoch", epoch=epoch):
+            return self._epoch(touched_seq_ids, epoch)
+
+    def _epoch(self, touched_seq_ids: Sequence[int], epoch: int) -> int:
         pool = self.pool
         self.stats.epochs += 1
         if isinstance(self.policy, mig.NoBalance):
