@@ -417,6 +417,10 @@ RECURRENT_FAULT_LEAVES = {"rwkv": (("u",), ("mix_w", "wA", "wB")),
 B, H, HD, BT = 4, 32, 128, 16
 MODELS = {"llama3-8b": 8, "qwen3-moe-30b-a3b": 4}   # served, and KV heads
 D_MOE, F_MOE, E_MOE, K_MOE = 2048, 768, 128, 8   # qwen3-moe-30b-a3b
+# the prefill MoE's bucket kernels at the serving cell's routing (capacity
+# 1.25, up to 32 groups) over a median prompt, 1020 tokens (30 groups of
+# 34, C 4), and a long prime one, 5003 (one group, C 390)
+BUCKET_TOKENS, BUCKET_CF, BUCKET_GROUPS = (1020, 5003), 1.25, 32
 PROMPTS, NEW_TOKENS, N_REQ = (512, 256), 32, 8
 ADAPTIVE_ARCH, REPLAN_EVERY = "llama3-8b", 8
 # the one-shot FlexGen phase: weight and KV share lists per placement
@@ -510,6 +514,10 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:87",
     "fused_expert_ffn": "src/repro/kernels/tiered_gather.py:219",
     "fused_adam": "src/repro/kernels/fused_adam.py:68",
+    # the reference's moe_fwd dispatches and combines in plain JAX
+    "moe_bucket_positions": "none",
+    "moe_bucket_scatter": "none",
+    "moe_bucket_combine": "none",
 }
 SOURCES = {
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
@@ -518,6 +526,9 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "fused_expert_ffn": "src/repro_torch/csrc/fused_expert_ffn.cu",
     "fused_adam": "src/repro_torch/csrc/fused_adam.cu",
+    "moe_bucket_positions": "src/repro_torch/csrc/moe_bucket.cu",
+    "moe_bucket_scatter": "src/repro_torch/csrc/moe_bucket.cu",
+    "moe_bucket_combine": "src/repro_torch/csrc/moe_bucket.cu",
 }
 
 
@@ -1257,13 +1268,92 @@ def sharded_adam_row(dev, gen) -> dict:
                  sharded=True)}
 
 
+def same_bits(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """``got`` must equal ``want`` bit for bit (so -0 is not +0);
+    returns the largest difference, 0."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+             f"{tuple(want.shape)}")
+    if got.is_floating_point():
+        view = torch.int16 if got.element_size() == 2 else torch.int32
+        same = torch.equal(got.contiguous().view(view),
+                           want.contiguous().view(view))
+    else:
+        same = torch.equal(got, want)
+    if not same:
+        fail(f"{name}: differs from its plain version, largest difference "
+             f"{(got.double() - want.double()).abs().max().item():.4g}")
+    log(f"  {name}: equal bit for bit")
+    return 0.0
+
+
+def bucket_kernels(gen) -> dict:
+    """The prefill MoE's three ``moe_bucket_*`` kernels at
+    qwen3-moe-30b-a3b's widths and the serving cell's routing, at each of
+    ``BUCKET_TOKENS``, each against its plain version
+    (``ref.moe_bucket_*``) on the same inputs, bit for bit; ``plain_ms``
+    times that plain version alone.  Bound: device-memory bytes, what
+    each kernel must read and write once (the scatter's buffer written
+    whole, its memset included in ``ms``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_bucket import (moe_bucket_combine,
+                                                moe_bucket_positions,
+                                                moe_bucket_scatter)
+    D, E, K = D_MOE, E_MOE, K_MOE
+    router = torch.randn(D, E, generator=gen, device=gen.device) * D ** -0.5
+    rows = {}
+    for N in BUCKET_TOKENS:
+        G = max(g for g in range(1, BUCKET_GROUPS + 1) if N % g == 0)
+        T = N // G
+        C = max(int(T * K * BUCKET_CF / E), 4)         # moe_fwd's capacity
+        xt = randn_bf16(gen, G, T, D)
+        topw, topi = torch.topk(torch.softmax(xt.float() @ router, -1), K)
+        topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+        eo = randn_bf16(gen, E, G, C, D)
+        tag = f"N={N} (G {G}, C {C})"
+        pos = moe_bucket_positions(topi, E)
+        plain_pos = ref.moe_bucket_positions(topi, E)
+        slots, es = N * K, xt.element_size()
+        cases = {
+            "moe_bucket_positions": (
+                same_bits(f"moe_bucket_positions {tag}", pos.long(),
+                          plain_pos),
+                lambda: moe_bucket_positions(topi, E),
+                lambda: ref.moe_bucket_positions(topi, E),
+                slots * (8 + 4)),
+            "moe_bucket_scatter": (
+                same_bits(f"moe_bucket_scatter {tag}",
+                          moe_bucket_scatter(xt, topi, pos, E, C),
+                          ref.moe_bucket_scatter(xt, topi, plain_pos, E, C)),
+                lambda: moe_bucket_scatter(xt, topi, pos, E, C),
+                lambda: ref.moe_bucket_scatter(xt, topi, plain_pos, E, C),
+                E * G * C * D * es + N * D * es + slots * (8 + 4)),
+            "moe_bucket_combine": (
+                same_bits(f"moe_bucket_combine {tag}",
+                          moe_bucket_combine(eo, topi, topw, pos),
+                          ref.moe_bucket_combine(eo, topi, topw, plain_pos)),
+                lambda: moe_bucket_combine(eo, topi, topw, pos),
+                lambda: ref.moe_bucket_combine(eo, topi, topw, plain_pos),
+                slots * D * es + N * D * es + slots * (8 + 4 + 4))}
+        for kernel, (err, fn, plain, nbytes) in cases.items():
+            t_b, by = bound(nbytes, 0)
+            rows[f"{kernel}@N{N}"] = dict(
+                max_abs_err=err, **cold_times(fn, None),
+                plain_ms=time_ms(plain), bound_ms=t_b, bound_by=by,
+                kernel=kernel, model="qwen3-moe-30b-a3b")
+    return rows
+
+
 def kernel_phase(dev, gen) -> dict:
     """Rows of the ``kernels`` line, one per kernel build and shape the
     main paths launch: each attention kernel at both models' KV geometry
     and the continuous paths' shapes (``decode_attention@KV8``,
     ``...@KV4``), the two the one-shot path runs at its own shapes
     (``decode_attention@KV8/oneshot``, ``flash_attention@KV8/oneshot``),
-    the expert kernel and the Adam kernel.  Each row names its
+    the expert kernel, the prefill MoE's bucket kernels at two prompt
+    lengths (``moe_bucket_scatter@N1020``: each row counts its kernel's
+    launches at every length) and the Adam kernel.  Each row names its
     ``kernel`` and the ``model`` whose serve or train phases run it;
     ``oneshot`` rows count the one-shot phases' launches, the others
     the rest of the model's phases."""
@@ -1284,6 +1374,7 @@ def kernel_phase(dev, gen) -> dict:
     rows[f"fused_expert_ffn@{SHARDED_DEVICES} expert ranges"] = dict(
         expert_range_kernel(dev, gen), kernel="fused_expert_ffn",
         model="qwen3-moe-30b-a3b", sharded=True)
+    rows.update(bucket_kernels(gen))
     # a leaf of each train model's Adam launches, at the shape its phase
     # runs: gpt2-xl-offload's mlp.w_up (its largest), and rwkv6-7b's
     # tmix.wr at the ZeRO-Offload phase's RECURRENT_TRAIN_LAYERS
@@ -1427,12 +1518,16 @@ def agree(name: str, a: dict, b: dict, margins: dict,
 
 
 def path_kernels(cfg, fused: bool) -> tuple:
-    """The kernels a serve run of ``cfg`` launches on one decode path."""
+    """The kernels a serve run of ``cfg`` launches on one decode path;
+    an MoE model's prefill (``moe_fwd``) also runs the bucket kernels."""
+    moe = any(spec.moe for spec in cfg.pattern)
+    bucket = ("moe_bucket_positions", "moe_bucket_scatter",
+              "moe_bucket_combine") if moe else ()
     if not fused:
-        return ("decode_attention", "flash_attention")
-    if any(spec.moe for spec in cfg.pattern):
+        return ("decode_attention", "flash_attention") + bucket
+    if moe:
         return ("paged_decode_attention", "flash_attention",
-                "fused_expert_ffn")
+                "fused_expert_ffn") + bucket
     return ("paged_decode_attention", "flash_attention")
 
 

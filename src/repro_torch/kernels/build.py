@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (plain C interface + ctypes).
 
-Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` for ``sm_90a``
-into ``<build dir>/<name>-<hash>.so``, all sources at once in parallel,
-at the first launch of any kernel (or by an explicit ``build_all()``).
+Each ``csrc/<name>.cu`` (``LIBRARIES``) is compiled by its own ``nvcc``
+for ``sm_90a`` into ``<build dir>/<name>-<hash>.so``, all sources at
+once in parallel, at the first launch of any kernel (or by an explicit
+``build_all()``).
 The hash covers the source, the shared headers and the flags, so an
 edited source rebuilds and an unchanged one is reused.  The build
 directory is ``build/kernels`` at the repository root, or
@@ -13,8 +14,9 @@ the CUDA toolkit (``$NVCC``, else ``/usr/local/cuda/bin/nvcc``, else
 Launch counters live here too: each kernel wrapper calls ``count``
 where it launches its kernel, and only there, which adds one to
 ``SHAPE_LAUNCHES[(name, shape)]``; ``LAUNCHES[name]`` sums a kernel's
-counts over its shapes.  So a run can show which kernels its path went
-through, and at which shapes.
+counts over its shapes (``KERNELS``: one name per wrapper, so a library
+of several kernels counts each).  So a run can show which kernels its
+path went through, and at which shapes.
 """
 from __future__ import annotations
 
@@ -30,8 +32,12 @@ from collections.abc import Mapping
 from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+LIBRARIES = ("decode_attention", "paged_decode_attention",
+             "flash_attention", "fused_expert_ffn", "fused_adam",
+             "moe_bucket")
 KERNELS = ("decode_attention", "paged_decode_attention", "flash_attention",
-           "fused_expert_ffn", "fused_adam")
+           "fused_expert_ffn", "fused_adam", "moe_bucket_positions",
+           "moe_bucket_scatter", "moe_bucket_combine")
 SHAPE_LAUNCHES: Dict[Tuple[str, tuple], int] = Counter()
 
 
@@ -75,6 +81,15 @@ _ARGTYPES = {
     # lr, b1, b2, eps, wd, b1c, b2c, 1 - b1, 1 - b2, stream
     "fused_adam_f32": [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int]
     + [ctypes.c_float] * 9 + [ctypes.c_void_p],
+    # ids, pos, G, T*k, E, stream
+    "moe_bucket_positions_i64": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+    # x, ids, pos, buf, N, T, k, D, G, C, E, dtype, stream
+    "moe_bucket_scatter": [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    # expert_out, ids, topw, pos, out, N, T, k, D, G, C, E, dtype, stream
+    "moe_bucket_combine": [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -119,7 +134,7 @@ def _target(name: str) -> Path:
 def build_all() -> Dict[str, Path]:
     """Compile every kernel library that is not built yet, one ``nvcc``
     per source, all started together.  Returns name -> library path."""
-    out = {name: _target(name) for name in KERNELS}
+    out = {name: _target(name) for name in LIBRARIES}
     todo = {n: p for n, p in out.items() if not p.is_file()}
     if not todo:
         return out

@@ -12,6 +12,7 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -144,3 +145,61 @@ def expert_ffn_partial(x: torch.Tensor, w_gate: torch.Tensor,
         out = torch.einsum("bk,bkd->bd", expert_wts.float(), per)
     bad = ((idx < 0) | (idx >= n_experts)).any(-1)
     return torch.where(bad[:, None], torch.full_like(out, math.nan), out)
+
+
+def moe_bucket_positions(topi: torch.Tensor, n_experts: int
+                         ) -> torch.Tensor:
+    """topi (G, T, k) routed experts (int64) -> (G, T, k) int64: the
+    position of each (token, slot) within its expert's bucket of its
+    group, counted in token-major order with the slot fastest."""
+    G, T, top_k = topi.shape
+    ids = topi.reshape(G, T * top_k)
+    pos_all = torch.cumsum(F.one_hot(ids, n_experts), dim=1) - 1  # (G,T*k,E)
+    return pos_all.gather(-1, ids[..., None])[..., 0].reshape(G, T, top_k)
+
+
+def moe_bucket_scatter(xt: torch.Tensor, topi: torch.Tensor,
+                       pos: torch.Tensor, n_experts: int,
+                       capacity: int) -> torch.Tensor:
+    """xt (G, T, D); topi, pos (G, T, k).  Returns the expert-major
+    buffer (E, G, C, D) in ``xt.dtype`` (a permuted view): each slot's
+    token at row (expert, group, position) when the position is below
+    the capacity C, zeros elsewhere.  Positions past C go to a dump slot
+    C, which is cut off."""
+    G = xt.shape[0]
+    E, C = n_experts, capacity
+    keep = pos < C
+    safe_pos = torch.where(keep, pos, torch.full_like(pos, C))
+
+    g = torch.arange(G, device=xt.device)[:, None]
+    buf = torch.zeros(G, E, C + 1, xt.shape[-1], dtype=xt.dtype,
+                      device=xt.device)
+    for j in range(topi.shape[-1]):
+        buf.index_put_((g, topi[..., j], safe_pos[..., j]), xt,
+                       accumulate=True)
+    return buf[:, :, :C].permute(1, 0, 2, 3)
+
+
+def moe_bucket_combine(expert_out: torch.Tensor, topi: torch.Tensor,
+                       topw: torch.Tensor, pos: torch.Tensor
+                       ) -> torch.Tensor:
+    """expert_out (E, G, C, D), the experts' outputs on the scatter's
+    rows; topi, pos (G, T, k); topw (G, T, k) fp32.  Returns (G, T, D) in
+    ``expert_out.dtype``: the slots' rows weighted by ``topw`` (0 for a
+    slot past C, which reads row C - 1) and added slot by slot in
+    order."""
+    E, G, C, D = expert_out.shape
+    T = topi.shape[1]
+    out_buf = expert_out.permute(1, 0, 2, 3)                   # (G,E,C,D)
+    keep = pos < C
+    safe_pos = torch.where(keep, pos, torch.full_like(pos, C))
+
+    g = torch.arange(G, device=expert_out.device)[:, None]
+    w_comb = (topw * keep).to(expert_out.dtype)
+    last = torch.clamp(safe_pos, max=C - 1)
+    acc = torch.zeros(G, T, D, dtype=expert_out.dtype,
+                      device=expert_out.device)
+    for j in range(topi.shape[-1]):
+        gat = out_buf[g, topi[..., j], last[..., j]]          # (G,T,D)
+        acc = acc + gat * w_comb[..., j, None]
+    return acc

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from . import shardings as SH
 
 Params = Dict[str, Any]
@@ -230,8 +231,13 @@ def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
     token-major order, and positions past the capacity C go to a dump
     slot and are dropped (weight 0: the residual alone carries them).
     Dispatch and combine run in ``x.dtype``, the combine adding slot by
-    slot in order.  The expert products are batched matmuls over E, as
-    the reference leaves them to XLA's einsum.
+    slot in order, through ``kernels.ops``' ``moe_bucket_*``: on CUDA
+    three kernels, the plain values bit for bit, except where autograd
+    records the tokens (training: dispatch and combine) or the expert
+    outputs and weights (combine), which take the plain versions in
+    ``kernels.ref``, as on the CPU.  The expert products are
+    batched matmuls over E, as the reference leaves them to XLA's
+    einsum.
 
     Expert stacks split over ``experts`` (``shardings``): the
     router is gathered whole first (so routing is the one-device
@@ -279,20 +285,9 @@ def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
         aux = moe_aux(probs.mean(dim=(0, 1)), ce)
 
     C = max(int(T * top_k * capacity_factor / E), 4)
-    # position of each (token, slot) within its expert bucket, per group
-    ids = topi.reshape(G, T * top_k)
-    pos_all = torch.cumsum(F.one_hot(ids, E), dim=1) - 1      # (G,T*k,E)
-    pos = pos_all.gather(-1, ids[..., None])[..., 0].reshape(G, T, top_k)
-    keep = pos < C
-    safe_pos = torch.where(keep, pos, torch.full_like(pos, C))
-
-    g = torch.arange(G, device=x.device)[:, None]
-    buf = torch.zeros(G, E, C + 1, D, dtype=x.dtype, device=x.device)
-    for j in range(top_k):
-        buf.index_put_((g, topi[..., j], safe_pos[..., j]), xt,
-                       accumulate=True)
+    pos = ops.moe_bucket_positions(topi, E, xt)               # (G,T,k)
     # (E, G*C, D): one batched product over the experts
-    be = buf[:, :, :C].permute(1, 0, 2, 3).reshape(E, G * C, D)
+    be = ops.moe_bucket_scatter(xt, topi, pos, E, C).reshape(E, G * C, D)
     names = ("w_gate", "w_up", "w_down") if act == "silu" \
         else ("w_up", "w_down")
     outs = []
@@ -304,14 +299,8 @@ def moe_fwd(p: Params, x: torch.Tensor, *, top_k: int,
             h = F.gelu(torch.bmm(b, ws[0]), approximate="tanh")
         outs.append(torch.bmm(h, ws[-1]).to(x.device))
     out_buf = (outs[0] if len(outs) == 1 else torch.cat(outs)).reshape(
-        E, G, C, D).permute(1, 0, 2, 3)                       # (G,E,C,D)
-
-    w_comb = (topw * keep).to(x.dtype)
-    last = torch.clamp(safe_pos, max=C - 1)
-    acc = torch.zeros(G, T, D, dtype=x.dtype, device=x.device)
-    for j in range(top_k):
-        gat = out_buf[g, topi[..., j], last[..., j]]          # (G,T,D)
-        acc = acc + gat * w_comb[..., j, None]
+        E, G, C, D)
+    acc = ops.moe_bucket_combine(out_buf, topi, topw, pos)
     return acc.reshape(B, S, D), aux
 
 

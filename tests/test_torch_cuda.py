@@ -16,6 +16,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_split_plan)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fused_adam import fused_adam  # noqa: E402
+from repro_torch.kernels.moe_bucket import (  # noqa: E402
+    moe_bucket_combine, moe_bucket_positions, moe_bucket_scatter)
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
     fused_expert_ffn, fused_expert_ffn_partial, paged_decode_attention,
     split_plan)
@@ -381,3 +383,180 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(RuntimeError, match="CUDA error"):
         fused_expert_ffn(_rnd(gen, 2, 20), w, w, w.transpose(1, 2)
                          .contiguous(), ids, ids.float())
+
+
+# the prefill MoE's dispatch and combine at qwen3-moe-30b-a3b's widths
+# and the cell's routing: D 2048, 128 experts of F 768, top-8, capacity
+# 1.25, 32 groups; N tokens with 1 token a group, 2, 34 (C 4), 1021 (a
+# prime: one group, C 99), 128 and 5003 (a prime: C 390)
+MOE_N = (16, 64, 1020, 1021, 4096, 5003)
+MOE = dict(D=2048, E=128, F=768, k=8, cf=1.25, groups=32)
+BUCKETS = ("moe_bucket_positions", "moe_bucket_scatter",
+           "moe_bucket_combine")
+
+
+def _bits(t):
+    """A float tensor's bit patterns, so that -0 and +0 differ."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.fixture(scope="module")
+def moe_layer():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode; their plain versions are tested on the CPU)")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    D, E, F = MOE["D"], MOE["E"], MOE["F"]
+    return {"router": torch.randn(D, E, generator=g, device="cuda")
+            * D ** -0.5,
+            "w_gate": _rnd(g, E, D, F, std=D ** -0.5),
+            "w_up": _rnd(g, E, D, F, std=D ** -0.5),
+            "w_down": _rnd(g, E, F, D, std=F ** -0.5)}
+
+
+def _moe_inputs(layer, N, skew, seed=2):
+    """x (1, N, D) and the layer; with ``skew`` x is shifted by 0.5 and
+    the router's column 0 by 0.01, so that every token routes a slot to
+    expert 0 and its bucket overflows wherever a group has more than C
+    tokens.  A few elements of x are -0."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn(1, N, MOE["D"], generator=g, device="cuda")
+    p = dict(layer)
+    if skew:
+        x = x + 0.5
+        p["router"] = p["router"].clone()
+        p["router"][:, 0] += 0.01
+    x = x.to(torch.bfloat16)
+    x[0, :, :3] = -0.0
+    return p, x
+
+
+def _routing(p, x):
+    """moe_fwd's grouping, capacity and routing of x."""
+    N, E, k = x.shape[1], MOE["E"], MOE["k"]
+    G = max(g for g in range(1, MOE["groups"] + 1) if N % g == 0)
+    T = N // G
+    C = max(int(T * k * MOE["cf"] / E), 4)
+    xt = x.reshape(G, T, -1)
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    topw, topi = torch.topk(probs, k, dim=-1)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    return xt, topi, topw, C
+
+
+@pytest.mark.parametrize("skew", [False, True], ids=["plain", "skewed"])
+@pytest.mark.parametrize("N", MOE_N)
+def test_moe_bucket_kernels_match_plain_versions(moe_layer, N, skew):
+    """Each kernel against its plain version (``ref.moe_bucket_*``) on the
+    same inputs, bit for bit, one launch each; the combine on expert
+    outputs of std 1 with -0 and the scatter's dropped slots."""
+    p, x = _moe_inputs(moe_layer, N, skew)
+    xt, topi, topw, C = _routing(p, x)
+    E = MOE["E"]
+    before = {name: build.LAUNCHES[name] for name in BUCKETS}
+    pos = moe_bucket_positions(topi, E)
+    want_pos = ref.moe_bucket_positions(topi, E)
+    assert pos.dtype == torch.int32
+    assert torch.equal(pos.long(), want_pos)
+    if skew and xt.shape[1] > C:
+        assert not bool((pos < C).all())
+    buf = moe_bucket_scatter(xt, topi, pos, E, C)
+    assert torch.equal(_bits(buf), _bits(ref.moe_bucket_scatter(
+        xt, topi, want_pos, E, C).contiguous()))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    eo = _rnd(g, *buf.shape)
+    eo[..., :5] = -0.0
+    got = moe_bucket_combine(eo, topi, topw, pos)
+    assert torch.equal(_bits(got), _bits(ref.moe_bucket_combine(
+        eo, topi, topw, want_pos)))
+    assert {name: build.LAUNCHES[name] - before[name]
+            for name in BUCKETS} == dict.fromkeys(BUCKETS, 1)
+
+
+@pytest.mark.parametrize("skew", [False, True], ids=["plain", "skewed"])
+@pytest.mark.parametrize("N", MOE_N)
+def test_moe_fwd_kernel_path_matches_plain_path(moe_layer, N, skew):
+    """``moe_fwd`` with autograd off (the three kernels), with x
+    requiring a gradient (training: the plain versions, recorded for the
+    backward) and with only the weights requiring one (the positions'
+    and scatter's kernels, the combine's plain version on their int32
+    positions) give the same output and aux loss bit for bit, and the
+    last two a backward."""
+    from repro_torch.models import modules as M
+    p, x = _moe_inputs(moe_layer, N, skew)
+    kw = dict(top_k=MOE["k"], capacity_factor=MOE["cf"],
+              n_groups=MOE["groups"], act="silu")
+    with torch.no_grad():
+        before = {n: build.LAUNCHES[n] for n in BUCKETS}
+        got, aux = M.moe_fwd(p, x, **kw)
+    assert {n: build.LAUNCHES[n] - before[n]
+            for n in BUCKETS} == dict.fromkeys(BUCKETS, 1)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    xr = x.detach().requires_grad_()
+    trained = {k: v.detach().requires_grad_() for k, v in p.items()}
+    for name, args, leaves, launched in (
+            ("x", (p, xr), [xr], (0, 0, 0)),
+            ("weights", (trained, x), list(trained.values()), (1, 1, 0))):
+        before = {n: build.LAUNCHES[n] for n in BUCKETS}
+        want, want_aux = M.moe_fwd(*args, **kw)
+        assert {n: build.LAUNCHES[n] - before[n]
+                for n in BUCKETS} == dict(zip(BUCKETS, launched)), name
+        assert torch.equal(_bits(got), _bits(want.detach())), name
+        assert torch.equal(aux, want_aux.detach()), name
+        (want.float().sum() + want_aux).backward()
+        for leaf in leaves:
+            assert torch.isfinite(leaf.grad).all() and bool(
+                leaf.grad.any()), name
+
+
+def test_moe_bucket_kernels_in_fp32(gen):
+    """fp32 rows (a model held in fp32): the scatter and the combine
+    against their plain versions, bit for bit."""
+    G, T, D, E, k, C = 3, 50, 64, 8, 2, 12
+    xt = torch.randn(G, T, D, generator=gen, device="cuda")
+    topw, topi = torch.topk(torch.softmax(torch.randn(
+        G, T, E, generator=gen, device="cuda"), -1), k, dim=-1)
+    pos = moe_bucket_positions(topi, E)
+    want_pos = ref.moe_bucket_positions(topi, E)
+    assert torch.equal(pos.long(), want_pos)
+    buf = moe_bucket_scatter(xt, topi, pos, E, C)
+    assert torch.equal(_bits(buf), _bits(ref.moe_bucket_scatter(
+        xt, topi, want_pos, E, C).contiguous()))
+    eo = torch.randn(E, G, C, D, generator=gen, device="cuda")
+    assert torch.equal(_bits(moe_bucket_combine(eo, topi, topw, pos)),
+                       _bits(ref.moe_bucket_combine(eo, topi, topw,
+                                                    want_pos)))
+
+
+def test_moe_bucket_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    G, T, k, D, E, C = 2, 8, 2, 64, 8, 4
+    xt = _rnd(gen, G, T, D)
+    topi = torch.randint(0, E, (G, T, k), generator=gen, device="cuda")
+    topw = torch.rand(G, T, k, generator=gen, device="cuda")
+    pos = moe_bucket_positions(topi, E)
+    eo = _rnd(gen, E, G, C, D)
+    with pytest.raises(ValueError, match="dtype"):
+        moe_bucket_positions(topi.int(), E)
+    with pytest.raises(ValueError, match="dtype"):
+        moe_bucket_scatter(xt, topi, pos.long(), E, C)
+    with pytest.raises(ValueError, match="dtype"):
+        moe_bucket_scatter(xt.half(), topi, pos, E, C)
+    with pytest.raises(ValueError, match="dtype"):
+        moe_bucket_combine(eo, topi, topw.bfloat16(), pos)
+    with pytest.raises(ValueError, match="16 bytes"):
+        moe_bucket_scatter(xt[..., :20].contiguous(), topi, pos, E, C)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = _rnd(gen, G * T * D + 1)
+        moe_bucket_scatter(flat[1:].view(G, T, D), topi, pos, E, C)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_bucket_combine(eo.transpose(0, 1).contiguous().transpose(0, 1),
+                           topi, topw, pos)
+    with pytest.raises(ValueError, match="shape"):
+        moe_bucket_combine(eo, topi, topw, pos[:, :-1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        moe_bucket_combine(eo, topi, topw.cpu(), pos)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        moe_bucket_positions(topi, 10000)   # its counters exceed 48 KiB

@@ -268,3 +268,206 @@ def test_moe_fwd_matches_reference(moe_smoke, capacity_factor, n_groups):
         full, _ = M.moe_fwd(tp, to_torch(x), **dict(kw, capacity_factor=8.0))
         dropped = (full.float() - got.float()).abs().amax(-1) > 1e-3
         assert 0 < int(dropped.sum()) < 48   # some tokens lost a slot
+
+
+def _bucket_positions(topi, E):
+    """Each (token, slot)'s position in its expert's bucket of its group,
+    counted one slot at a time in token-major order (the definition)."""
+    topi = np.asarray(topi)
+    G, T, k = topi.shape
+    pos = np.zeros_like(topi)
+    for g in range(G):
+        seen = [0] * E
+        for t in range(T):
+            for j in range(k):
+                pos[g, t, j] = seen[topi[g, t, j]]
+                seen[topi[g, t, j]] += 1
+    return pos
+
+
+def _skewed(jp, x, skew):
+    """With ``skew``, x shifted by 0.5 and the router's column 0 by 0.2:
+    nearly every token routes a slot to expert 0, whose bucket
+    overflows at capacity 1.25."""
+    if not skew:
+        return jp, x
+    router = np.asarray(jp["router"]).copy()
+    router[:, 0] += 0.2
+    return dict(jp, router=jnp.asarray(router)), (x.astype(np.float32)
+                                                  + 0.5).astype(x.dtype)
+
+
+# a prime token count (one group of 37) and 640 tokens in 32 groups of
+# 20; routing plain or skewed to one expert; capacity 1.25 and 8.0
+@pytest.mark.parametrize("capacity_factor", [1.25, 8.0])
+@pytest.mark.parametrize("skew", [False, True], ids=["plain", "skewed"])
+@pytest.mark.parametrize("B,S,n_groups", [(1, 37, 4), (2, 320, 32)],
+                         ids=["prime", "by-32"])
+def test_moe_bucket_plain_versions_match_reference(moe_smoke, B, S,
+                                                   n_groups, skew,
+                                                   capacity_factor):
+    """The dispatch and combine's plain versions (``ref.moe_bucket_*``,
+    which the CPU runs in the kernels' place) and ``moe_fwd`` composed
+    from them, with autograd off (through ``kernels.ops``) and on,
+    against the reference's ``moe_fwd``; the positions against their
+    definition, and drops where the skewed expert overflows."""
+    from repro_torch.kernels import ops
+    _, jparams, cfg, params = moe_smoke
+    jp, _ = _moe_layer(jparams, params)
+    rs = np.random.RandomState(11)
+    x = normal(rs, (B, S, cfg.d_model)).astype(jnp.bfloat16)
+    jp, x = _skewed(jp, x, skew)
+    tp = {k: to_torch(np.asarray(v)) for k, v in jp.items()}
+    kw = dict(top_k=cfg.top_k, capacity_factor=capacity_factor,
+              n_groups=n_groups, act=cfg.act)
+    want, want_aux = JM.moe_fwd(jp, jnp.asarray(x), **kw)
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad):
+            got, aux = M.moe_fwd(tp, to_torch(x), **kw)
+        assert got.dtype == torch.bfloat16
+        assert_close(got, want, BF16)
+        assert_close(aux, want_aux, FP32)
+
+    # the parts, at moe_fwd's grouping and capacity
+    N, E, k = B * S, cfg.n_experts, cfg.top_k
+    G = max(g for g in range(1, n_groups + 1) if N % g == 0)
+    T = N // G
+    C = max(int(T * k * capacity_factor / E), 4)
+    xt = to_torch(x).reshape(G, T, -1)
+    probs = torch.softmax(xt.float() @ tp["router"], dim=-1)
+    topw, topi = torch.topk(probs, k, dim=-1)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    pos = ops.moe_bucket_positions(topi, E, xt)
+    np.testing.assert_array_equal(pos.numpy(), _bucket_positions(topi, E))
+    kept = pos < C
+    if capacity_factor == 8.0:    # C >= 2T: no bucket overflows
+        assert bool(kept.all())
+    elif skew:
+        assert int((~kept).sum()) >= T // 2
+    buf = ops.moe_bucket_scatter(xt, topi, pos, E, C)
+    assert buf.shape == (E, G, C, xt.shape[-1])
+    rows = {(int(topi[g, t, j]), g, int(pos[g, t, j])): t
+            for g in range(G) for t in range(T) for j in range(k)
+            if pos[g, t, j] < C}
+    for e in range(E):
+        for g in range(G):
+            for c in range(C):
+                t = rows.get((e, g, c))
+                torch.testing.assert_close(
+                    buf[e, g, c], xt[g, t] if t is not None
+                    else torch.zeros_like(xt[g, 0]), rtol=0, atol=0)
+    out = ops.moe_bucket_combine(buf * 2, topi, topw, pos)
+    w = (topw * kept).to(torch.bfloat16)
+    acc = torch.zeros_like(xt)
+    for j in range(k):
+        for g in range(G):
+            for t in range(T):
+                e, c = int(topi[g, t, j]), min(int(pos[g, t, j]), C - 1)
+                acc[g, t] = acc[g, t] + buf[e, g, c] * 2 * w[g, t, j]
+    torch.testing.assert_close(out, acc, rtol=0, atol=0)
+
+
+BUCKETS = ("moe_bucket_positions", "moe_bucket_scatter",
+           "moe_bucket_combine")
+
+
+def _cuda_stand_ins(monkeypatch, calls=None, refuse=()):
+    """Route ``kernels.ops``' MoE bucket entry points as for CUDA
+    tensors, each kernel stood in by its plain version (positions as
+    int32, as the kernel returns them) that appends its name to
+    ``calls``; a kernel named in ``refuse`` raises."""
+    from repro_torch.kernels import ops, ref
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+
+    def stand_in(name, fn):
+        def call(*a):
+            if name in refuse:
+                raise AssertionError(f"{name} ran under autograd")
+            if calls is not None:
+                calls.append(name)
+            return fn(*a)
+        return call
+
+    for attr, name, fn in (
+            ("_positions_kernel", BUCKETS[0],
+             lambda topi, E: ref.moe_bucket_positions(topi, E).int()),
+            ("_scatter_kernel", BUCKETS[1],
+             lambda *a: ref.moe_bucket_scatter(*a).contiguous()),
+            ("_combine_kernel", BUCKETS[2], ref.moe_bucket_combine)):
+        monkeypatch.setattr(ops, attr, stand_in(name, fn))
+
+
+@pytest.mark.parametrize("capacity_factor,n_groups,skew",
+                         [(8.0, 4, False), (1.25, 1, True)],
+                         ids=["no-drop", "drop"])
+def test_moe_fwd_under_autograd_takes_the_plain_path(
+        moe_smoke, monkeypatch, capacity_factor, n_groups, skew):
+    """With autograd recording the layer, ``moe_fwd`` routed as for CUDA
+    tensors never reaches the bucket kernels (patched to raise): the
+    plain dispatch and combine carry the gradients, which equal
+    ``jax.grad`` of the reference's ``moe_fwd`` (fp32 weights and
+    activations, so that bf16 rounding does not part the two)."""
+    _, jparams, cfg, params = moe_smoke
+    jp, _ = _moe_layer(jparams, params)
+    rs = np.random.RandomState(13)
+    x = normal(rs, (2, 24, cfg.d_model)).astype(jnp.bfloat16)
+    jp, x = _skewed(jp, x, skew)
+    jp = {k: jnp.asarray(v, jnp.float32) for k, v in jp.items()}
+    x = np.asarray(x, np.float32)
+    r = normal(rs, x.shape)
+    kw = dict(top_k=cfg.top_k, capacity_factor=capacity_factor,
+              n_groups=n_groups, act=cfg.act)
+
+    def jloss(p, xj):
+        out, aux = JM.moe_fwd(p, xj, **kw)
+        return jnp.sum(out * r) + aux
+
+    want_p, want_x = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    _cuda_stand_ins(monkeypatch, refuse=BUCKETS)
+    tp = {k: to_torch(np.asarray(v)).requires_grad_() for k, v in jp.items()}
+    xt = to_torch(x).requires_grad_()
+    out, aux = M.moe_fwd(tp, xt, **kw)
+    (torch.sum(out * to_torch(r)) + aux).backward()
+    assert_close(xt.grad, want_x, FP32)
+    for name, leaf in tp.items():
+        assert float(leaf.grad.abs().max()) > 0, name
+        assert_close(leaf.grad, want_p[name], FP32)
+
+
+def test_moe_fwd_dispatches_through_ops_only_without_autograd(
+        moe_smoke, monkeypatch):
+    """``moe_fwd`` routed as for CUDA tensors (``_cuda_stand_ins``): the
+    three kernels run wherever autograd records nothing (autograd off;
+    grad mode on with nothing requiring a gradient, as an inference
+    caller without ``no_grad``; the data shards' path); with x requiring
+    a gradient none runs, with only the weights requiring one the
+    positions' and the scatter's.  Every path's output is the plain
+    versions' bit for bit."""
+    _, _, cfg, params = moe_smoke
+    tp = lm.tree_map(lambda t: t[0], params["units"]["layers"][0]["moe"])
+    x = to_torch(normal(np.random.RandomState(3),
+                        (2, 8, cfg.d_model)).astype(jnp.bfloat16))
+    kw = dict(top_k=cfg.top_k, capacity_factor=1.25, n_groups=4,
+              act=cfg.act)
+    with torch.no_grad():             # the CPU's plain versions
+        want = M.moe_fwd(tp, x, **kw)[0]
+        want_shard = M.moe_fwd(tp, x, shards=2, **kw)[0]
+    calls = []
+    _cuda_stand_ins(monkeypatch, calls)
+    trained = {k: v.detach().requires_grad_() for k, v in tp.items()}
+    for name, grad, run, kernels, out in (
+            ("autograd off", False, lambda: M.moe_fwd(tp, x, **kw),
+             BUCKETS, want),
+            ("inference with grad mode on", True,
+             lambda: M.moe_fwd(tp, x, **kw), BUCKETS, want),
+            ("data shards", False,
+             lambda: M.moe_fwd(tp, x, shards=2, **kw), BUCKETS, want_shard),
+            ("x requires a gradient", True, lambda: M.moe_fwd(
+                tp, x.detach().requires_grad_(), **kw), (), want),
+            ("weights require gradients", True,
+             lambda: M.moe_fwd(trained, x, **kw), BUCKETS[:2], want)):
+        calls.clear()
+        with torch.set_grad_enabled(grad):
+            got, _ = run()
+        assert calls == list(kernels), name
+        assert torch.equal(got.detach(), out), name

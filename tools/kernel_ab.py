@@ -23,9 +23,29 @@ measured by one yardstick.  Then the expert kernel's two passes
 designs) are timed apart under ``torch.profiler``, whole and over the
 first quarter of the experts, each against the weight bytes it reads.
 Prints the card, one JSON line per run and a table.
+
+    python3 tools/kernel_ab.py --moe-layer
+
+times one prefill MoE layer (``models/modules.py::moe_fwd``) of this
+tree at qwen3-moe-30b-a3b's widths and the serving cell's routing (D
+2048, 128 experts of F 768, top-8, capacity 1.25, 32 groups) at N 1020
+and 5003 tokens, with autograd off as serving runs it, its plain path
+(``kernels.ops.moe_bucket_*`` swapped for their plain versions in
+``kernels/ref.py``) against its kernel path (the ``moe_bucket_*``
+kernels) in turns: per call the wall ms (the host's enqueue and the
+card's tail, median and range over ``MOE_ROUNDS`` turns), and from one
+call under ``torch.profiler`` the operations the card ran and their
+summed device ms, and the device ms of the kernel path's memset and
+three kernels; the two paths' outputs must agree bit for bit.  Then,
+under ``torch.profiler``, ``FLASH_ROUNDS`` times the layer on each
+path followed by ``flash_attention`` over as many tokens (32 heads, 4
+KV heads of 128, causal), and as many flash calls back to back: the
+median device us of flash's kernel after each path and alone, which
+says whether a path's buffers slow the attention that follows.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -37,6 +57,12 @@ FIELDS = ("ms", "device_ms", "library_ms", "library_device_ms")
 RANGE_ROW = "fused_expert_ffn@4 expert ranges"
 PASSES = ("expert_up_kernel", "expert_down_kernel")
 PASS_CALLS = 20
+MOE_TOKENS = (1020, 5003)
+MOE_ROUNDS = 6
+# the kernel path's own device operations (the scatter's memset first)
+MOE_BUCKET_OPS = ("Memset", "moe_bucket_positions_kernel",
+                  "moe_bucket_scatter_kernel", "moe_bucket_combine_kernel")
+FLASH_ROUNDS = 10
 
 
 def expert_passes(cs, gen) -> dict:
@@ -81,6 +107,132 @@ def expert_passes(cs, gen) -> dict:
     return out
 
 
+def moe_layer() -> dict:
+    """The ``--moe-layer`` rows: {N: {path: {wall_ms, device_ms, ops,
+    flash_after_us}}, with ``flash_alone_us`` beside the paths}."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import modules as M
+
+    @contextlib.contextmanager
+    def plain_bucket():
+        """``moe_fwd``'s dispatch and combine as their plain versions."""
+        plain = {"moe_bucket_positions":
+                 lambda topi, E, xt: ref.moe_bucket_positions(topi, E),
+                 "moe_bucket_scatter": ref.moe_bucket_scatter,
+                 "moe_bucket_combine": ref.moe_bucket_combine}
+        saved = {name: getattr(ops, name) for name in plain}
+        try:
+            for name, fn in plain.items():
+                setattr(ops, name, fn)
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(ops, name, fn)
+
+    def device_events(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def flash_us(events):
+        return statistics.median(e.time_range.elapsed_us() for e in events
+                                 if "flash_attention_kernel" in e.name)
+
+    D, E, F = 2048, 128, 768
+    kw = dict(top_k=8, capacity_factor=1.25, n_groups=32, act="silu")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def rnd(*shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * std).to(torch.bfloat16)
+
+    p = {"router": torch.randn(D, E, generator=gen, device="cuda")
+         * D ** -0.5, "w_gate": rnd(E, D, F, std=D ** -0.5),
+         "w_up": rnd(E, D, F, std=D ** -0.5),
+         "w_down": rnd(E, F, D, std=F ** -0.5)}
+    paths = {"plain": plain_bucket, "kernel": contextlib.nullcontext}
+    rows = {}
+    for N in MOE_TOKENS:
+        x = rnd(1, N, D, std=1.0)
+        q = rnd(1, N, 32, 128, std=1.0)
+        k, v = rnd(1, N, 4, 128, std=1.0), rnd(1, N, 4, 128, std=1.0)
+
+        def call(path):
+            with paths[path](), torch.no_grad():
+                return M.moe_fwd(p, x, **kw)[0]
+
+        def layer_then_flash(path):
+            for _ in range(FLASH_ROUNDS):
+                call(path)
+                ops.flash_attention(q, k, v, causal=True)
+
+        outs = {path: call(path) for path in paths}   # builds, warms
+        if not torch.equal(outs["plain"].view(torch.int16),
+                           outs["kernel"].view(torch.int16)):
+            raise SystemExit(f"moe layer N {N}: the paths' outputs differ")
+        walls = {path: [] for path in paths}
+        for r in range(MOE_ROUNDS):
+            for path in (("plain", "kernel") if r % 2 == 0
+                         else ("kernel", "plain")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call(path)
+                torch.cuda.synchronize()
+                walls[path].append((time.perf_counter() - t0) * 1e3)
+        row = {}
+        for path in paths:
+            ran = device_events(lambda: call(path))
+            row[path] = {
+                "wall_ms": statistics.median(walls[path]),
+                "wall_ms_range": [min(walls[path]), max(walls[path])],
+                "device_ms": sum(e.time_range.elapsed_us()
+                                 for e in ran) / 1e3,
+                "ops": len(ran),
+                "bucket_device_ms": {
+                    name: sum(e.time_range.elapsed_us() for e in ran
+                              if name in e.name) / 1e3
+                    for name in MOE_BUCKET_OPS},
+                "flash_after_us": flash_us(device_events(
+                    lambda: layer_then_flash(path)))}
+        row["flash_alone_us"] = flash_us(device_events(lambda: [
+            ops.flash_attention(q, k, v, causal=True)
+            for _ in range(FLASH_ROUNDS)]))
+        rows[N] = row
+    return rows
+
+
+def moe_layer_main() -> int:
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    rows = moe_layer()
+    print(json.dumps(rows), flush=True)
+    print(f"{'N':>5s} {'path':7s} {'wall ms':>9s} {'range':>19s} "
+          f"{'device ms':>10s} {'ops':>5s}")
+    for N, row in rows.items():
+        for path in ("plain", "kernel"):
+            r = row[path]
+            lo, hi = r["wall_ms_range"]
+            print(f"{N:5d} {path:7s} {r['wall_ms']:9.3f} "
+                  f"{lo:9.3f}-{hi:9.3f} {r['device_ms']:10.3f} "
+                  f"{r['ops']:5d} flash after {r['flash_after_us']:.1f} us "
+                  + " ".join(f"{k} {v:.4f}" for k, v in
+                             r["bucket_device_ms"].items() if v))
+        print(f"{N:5d} flash alone {row['flash_alone_us']:.1f} us")
+    return 0
+
+
 def child(tree: Path) -> dict:
     sys.path.insert(0, str(tree / "src"))
     import repro_torch
@@ -117,6 +269,8 @@ def child(tree: Path) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--moe-layer"]:
+        return moe_layer_main()
     if sys.argv[1:2] == ["--child"]:
         print(json.dumps(child(Path(sys.argv[2]).resolve())), flush=True)
         return 0
