@@ -54,7 +54,13 @@ Phases, in order; any failure exits non-zero:
 3. small references: a small dense model and a small MoE model with
    head_dim 128, each served on the card (kernels) and on the CPU (plain
    versions) from the same weights — the greedy tokens must agree, up
-   to near ties;
+   to near ties; and granite-4.0-h-small's smoke variant at one unit
+   (``HYBRID_WIDEN``: head_dim 128, Mamba heads of P 64 and N 128, an
+   untied head and unscaled logits, so that the tokens vary) on
+   the fused path alone, the only one that serves its Mamba-2 layers
+   over state slots: the card run must launch ``ssm_state_update`` a
+   whole number of times per Mamba layer, and its launches are the
+   ``ssm_state_update`` rows' in the ``kernels`` line;
 4. serve llama3-8b, staged then fused (``fused_gather``): full width
    and depth, random weights from a seeded generator on the card; 8
    requests (prompts of 512 and 256 tokens, 32 new tokens each),
@@ -297,6 +303,12 @@ from the same weights and batches: finite losses, ``fused_adam`` once
 per leaf per step on the card, step-1 losses within
 ``TRAIN_LOSS_ATOL``.
 
+The kernel phase also holds the Mamba-2 decode state update
+(``ssm_state_update@B64`` and ``@B32``, ``ssm_kernels``) at
+granite-4.0-h-small's heads over 65 slots, rows in permuted slots: y
+and the whole state store against the plain version within
+``SSM_RTOL``, the slots no row names unchanged bit for bit.
+
 The families phase follows the serve phases: llama-3.2-vision-11b (8
 prompts of 512 over 1600 stubbed image embeddings, its tanh gates drawn
 away from 0), rwkv6-7b (8 prompts of 512) and whisper-large-v3 (8
@@ -421,6 +433,25 @@ D_MOE, F_MOE, E_MOE, K_MOE = 2048, 768, 128, 8   # qwen3-moe-30b-a3b
 # 1.25, up to 32 groups) over a median prompt, 1020 tokens (30 groups of
 # 34, C 4), and a long prime one, 5003 (one group, C 390)
 BUCKET_TOKENS, BUCKET_CF, BUCKET_GROUPS = (1020, 5003), 1.25, 32
+# the Mamba-2 decode state update at granite-4.0-h-small's heads (128 of
+# P 64, N 128, one group) over the serving cell's max_batch slots and the
+# padded rows' one, at 64 and 32 rows in permuted slots; y and the state
+# to SSM_RTOL relative (fp32 throughout: the kernel and its plain
+# version part by summation order and exp's rounding alone)
+HYBRID_ARCH = "granite-4.0-h-small"
+SSM_HEADS, SSM_N, SSM_P, SSM_GROUPS, SSM_SLOTS = 128, 128, 64, 1, 65
+SSM_ROWS, SSM_RTOL = (64, 32), 1e-4
+# the small hybrid reference: granite's smoke variant at one unit (its
+# 10-layer pattern, one attention layer) widened to its head geometry,
+# with an untied head and unscaled logits: at random init the tied head
+# serves each input token back (its 12x embedding wins), which no state
+# fault could move, and at logits / 16 the logits spread by ~0.03, so
+# every margin would pass as a near tie; so changed, the tokens vary and
+# the logits spread by ~0.45 (std), the bf16 rounding of the CPU run
+# moving them by under 0.07 (fp32 weights against bf16)
+HYBRID_WIDEN = dict(n_layers=10, d_model=512, n_kv=2, head_dim=128,
+                    mamba_head_dim=SSM_P, mamba_d_state=SSM_N,
+                    tie_embeddings=False, logits_scaling=1.0)
 PROMPTS, NEW_TOKENS, N_REQ = (512, 256), 32, 8
 ADAPTIVE_ARCH, REPLAN_EVERY = "llama3-8b", 8
 # the one-shot FlexGen phase: weight and KV share lists per placement
@@ -518,6 +549,7 @@ REPLACES = {
     "moe_bucket_positions": "none",
     "moe_bucket_scatter": "none",
     "moe_bucket_combine": "none",
+    "ssm_state_update": "none",
 }
 SOURCES = {
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
@@ -529,6 +561,7 @@ SOURCES = {
     "moe_bucket_positions": "src/repro_torch/csrc/moe_bucket.cu",
     "moe_bucket_scatter": "src/repro_torch/csrc/moe_bucket.cu",
     "moe_bucket_combine": "src/repro_torch/csrc/moe_bucket.cu",
+    "ssm_state_update": "src/repro_torch/csrc/ssm_state_update.cu",
 }
 
 
@@ -1345,6 +1378,75 @@ def bucket_kernels(gen) -> dict:
     return rows
 
 
+def ssm_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """fp32 ``got`` against ``want``: finite, and each element within
+    ``SSM_RTOL`` of ``|want|`` plus the mean ``|want|`` (so an element
+    near 0 is held to the tensor's scale)."""
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    lim = SSM_RTOL * (want.abs() + want.abs().mean())
+    if not torch.isfinite(got).all() or (err > lim).any():
+        fail(f"{name}: {int((err > lim).sum())} elements off by up to "
+             f"{err.max().item():.4g} (tolerance {SSM_RTOL} x (|plain| + "
+             "mean |plain|))")
+    log(f"  {name}: max_abs_err={err.max().item():.3g} "
+        f"mean|plain|={want.abs().mean().item():.3g}")
+    return err.max().item()
+
+
+def ssm_kernels(gen, rows=SSM_ROWS) -> dict:
+    """``ssm_state_update`` at granite-4.0-h-small's decode shapes
+    (``SSM_HEADS`` heads of P ``SSM_P``, N ``SSM_N``, ``SSM_GROUPS``
+    group) over ``SSM_SLOTS`` slots, at each of ``rows`` rows in
+    permuted slots, with x, B and C column slices of one conv output as
+    the engine passes them, dt, A and D in the published init's ranges.
+    y and the whole state store are held to the plain version
+    (``ref.ssm_state_update``) on the same inputs (``ssm_close``); the
+    slots no row names must keep their bits.  ``plain_ms`` times the
+    plain version alone.  Bound: device-memory bytes, each row's fp32
+    state read and written once and its inputs and y
+    (``perfbench/costs/hybrid.py``)."""
+    from perfbench.costs import hybrid
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_state_update import ssm_state_update
+    H, N, P, G = SSM_HEADS, SSM_N, SSM_P, SSM_GROUPS
+    dev = gen.device
+    out = {}
+    for B in rows:
+        state = torch.randn(SSM_SLOTS, H, N, P, generator=gen, device=dev)
+        xbc = randn_bf16(gen, B, H * P + 2 * G * N)
+        args = (xbc[:, :H * P], xbc[:, H * P:H * P + G * N],
+                xbc[:, H * P + G * N:],
+                torch.exp(torch.empty(B, H, device=dev).uniform_(
+                    -6.9, -2.3, generator=gen)),
+                -torch.empty(H, device=dev).uniform_(1, 16, generator=gen),
+                torch.ones(H, device=dev))
+        slots = torch.randperm(SSM_SLOTS, generator=gen, device=dev)[
+            :B].to(torch.int32)
+        want_state, before = state.clone(), state.clone()
+        want = ref.ssm_state_update(want_state, slots, *args)
+        got = ssm_state_update(state, slots, *args)
+        tag = f"B={B} (H {H}, N {N}, P {P}, {SSM_SLOTS} slots)"
+        err = max(ssm_close(f"ssm_state_update y {tag}", got, want),
+                  ssm_close(f"ssm_state_update state {tag}", state,
+                            want_state))
+        idle = torch.ones(SSM_SLOTS, dtype=torch.bool, device=dev)
+        idle[slots.long()] = False
+        if not torch.equal(state[idle], before[idle]):
+            fail(f"ssm_state_update {tag}: a slot no row names changed")
+        flops, nbytes = hybrid.ssm_state_update(B, H, N, P, G)
+        t_b, by = bound(nbytes, flops, FP32_FLOP_PER_S)
+        out[f"ssm_state_update@B{B}"] = dict(
+            max_abs_err=err,
+            **cold_times(lambda: ssm_state_update(state, slots, *args),
+                         None),
+            plain_ms=time_ms(lambda: ref.ssm_state_update(
+                want_state, slots, *args)),
+            bound_ms=t_b, bound_by=by, kernel="ssm_state_update",
+            model=HYBRID_ARCH)
+    return out
+
+
 def kernel_phase(dev, gen) -> dict:
     """Rows of the ``kernels`` line, one per kernel build and shape the
     main paths launch: each attention kernel at both models' KV geometry
@@ -1353,7 +1455,9 @@ def kernel_phase(dev, gen) -> dict:
     (``decode_attention@KV8/oneshot``, ``flash_attention@KV8/oneshot``),
     the expert kernel, the prefill MoE's bucket kernels at two prompt
     lengths (``moe_bucket_scatter@N1020``: each row counts its kernel's
-    launches at every length) and the Adam kernel.  Each row names its
+    launches at every length), the hybrid's decode state update at two
+    row counts (``ssm_state_update@B64``; launches from the small hybrid
+    reference) and the Adam kernel.  Each row names its
     ``kernel`` and the ``model`` whose serve or train phases run it;
     ``oneshot`` rows count the one-shot phases' launches, the others
     the rest of the model's phases."""
@@ -1375,6 +1479,7 @@ def kernel_phase(dev, gen) -> dict:
         expert_range_kernel(dev, gen), kernel="fused_expert_ffn",
         model="qwen3-moe-30b-a3b", sharded=True)
     rows.update(bucket_kernels(gen))
+    rows.update(ssm_kernels(gen))
     # a leaf of each train model's Adam launches, at the shape its phase
     # runs: gpt2-xl-offload's mlp.w_up (its largest), and rwkv6-7b's
     # tmix.wr at the ZeRO-Offload phase's RECURRENT_TRAIN_LAYERS
@@ -1519,31 +1624,39 @@ def agree(name: str, a: dict, b: dict, margins: dict,
 
 def path_kernels(cfg, fused: bool) -> tuple:
     """The kernels a serve run of ``cfg`` launches on one decode path;
-    an MoE model's prefill (``moe_fwd``) also runs the bucket kernels."""
+    an MoE model's prefill (``moe_fwd``) also runs the bucket kernels,
+    and a hybrid's fused decode (published Mamba-2 layers, which serve
+    on that path only) the state update."""
     moe = any(spec.moe for spec in cfg.pattern)
     bucket = ("moe_bucket_positions", "moe_bucket_scatter",
               "moe_bucket_combine") if moe else ()
     if not fused:
         return ("decode_attention", "flash_attention") + bucket
+    mamba2 = ("ssm_state_update",) if (
+        cfg.mamba_groups and cfg.unit_mamba_layers) else ()
     if moe:
         return ("paged_decode_attention", "flash_attention",
-                "fused_expert_ffn") + bucket
-    return ("paged_decode_attention", "flash_attention")
+                "fused_expert_ffn") + bucket + mamba2
+    return ("paged_decode_attention", "flash_attention") + mamba2
 
 
-def small_reference_phase(arch: str, **widen) -> dict:
+def small_reference_phase(arch: str, paths=(False, True), **widen) -> dict:
     """Kernels (card) against plain versions (CPU) end to end, on
     ``arch``'s smoke config widened (``widen``) to the full model's head
-    geometry."""
+    geometry, on each decode path of ``paths`` (``fused_gather``).  The
+    launch counters are reset just before each run; the card's fused
+    run's launches are returned.  A hybrid's card run must launch the
+    state update a whole number of times per Mamba layer."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import lm
     cfg = dataclasses.replace(get_smoke_config(arch), **widen)
     cpu = lm.init_params(cfg, seed=SEED, device="cpu")
     gpu = lm.tree_map(lambda t: t.cuda(), cpu)
     prompts = prompts_for(cfg, 3, (40, 23))
-    toks = {}
+    n_mamba = cfg.n_units * len(cfg.unit_mamba_layers)
+    toks, card = {}, {}
     for name, params, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
-        for fused in (False, True):
+        for fused in paths:
             eng = serve(cfg, params, prompts, 8, dev, fused_gather=fused)
             _, _, launches, t = run_engine(eng)
             if dev == "cuda":
@@ -1552,14 +1665,21 @@ def small_reference_phase(arch: str, **widen) -> dict:
                 if missing:
                     fail(f"small reference {arch}: {missing} never "
                          "launched")
+                if launches["ssm_state_update"] % max(n_mamba, 1):
+                    fail(f"small reference {arch}: "
+                         f"{launches['ssm_state_update']} ssm_state_update "
+                         f"launches is not a multiple of {n_mamba} Mamba "
+                         "layers")
+                card[fused] = launches
             toks[(name, fused)] = (t, eng.margins, eng.route_margins)
     ties = []
-    for fused in (False, True):
+    for fused in paths:
         ties += agree(f"small reference {arch} (fused={fused})",
                       toks[("cpu", fused)][0], *toks[("cuda", fused)])
-    log(f"small reference {arch}: card and CPU tokens agree on both paths "
-        f"({len(ties)} near tie(s))")
-    return {"ties": ties}
+    log(f"small reference {arch}: card and CPU tokens agree on "
+        f"{len(paths)} path(s) ({len(ties)} near tie(s)), card launches "
+        f"{ {k: v for k, v in card[paths[-1]].items() if v} }")
+    return {"ties": ties, "launches": card[paths[-1]]}
 
 
 def serve_phase(label: str, cfg, params, prompts, fused: bool) -> dict:
@@ -4718,6 +4838,8 @@ def main() -> int:
         d_ff=1024)
     record["small_moe_reference"] = small_reference_phase(
         "qwen3-moe-30b-a3b", d_model=512, n_kv=2, head_dim=128)
+    record["small_hybrid_reference"] = small_reference_phase(
+        HYBRID_ARCH, paths=(True,), **HYBRID_WIDEN)
     record["small_train_reference"] = {
         arch: small_train_reference(arch) for arch in SMALL_TRAIN_ARCHS}
     record["probes_GBps"] = probe_phase()
@@ -4756,6 +4878,7 @@ def main() -> int:
             shape_launches[(kernel, tuple(shape))] += n
     rows = kernels_line(kernels, {
         **record["serve"], **record["train"],
+        HYBRID_ARCH: {"small reference": record["small_hybrid_reference"]},
         f"{SHARDED_TRAIN_ARCH} sharded": record["sharded train"]},
         shape_launches)
     out_dir = ROOT / "chiprun_out"

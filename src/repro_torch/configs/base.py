@@ -58,6 +58,17 @@ class ModelConfig:
     rwkv_head_dim: int = 64
     rwkv_chunk: int = 64
 
+    # --- the port's opt-in knobs: plain class attributes here, not
+    # fields, so that a reference architecture's config keeps the
+    # reference's fields; ``PortModelConfig`` makes them fields ---
+    mamba_groups = 0            # >0: the published Mamba-2 block
+    shared_expert_ff = 0        # >0: a SwiGLU expert every token takes
+    embedding_multiplier = 1.0  # token embeddings scaled by it
+    residual_multiplier = 1.0   # each sublayer's output scaled by it
+    logits_scaling = 1.0        # logits divided by it
+    attention_multiplier = 0.0  # >0: softmax scale in place of 1/sqrt(hd)
+    norm_eps = 0.0              # >0: the RMS norms' epsilon
+
     # --- encoder (whisper) / frontend stubs ---
     encoder_layers: int = 0     # >0: enc-dec; encoder is bidirectional
     n_frontend_tokens: int = 0  # stubbed modality tokens (audio frames /
@@ -118,14 +129,18 @@ class ModelConfig:
             elif spec.kind == "mamba":
                 di = self.d_inner
                 nh = di // self.mamba_head_dim
-                per_unit += D * (2 * di + 2 * nh * self.mamba_d_state + nh)
-                per_unit += di * D + self.mamba_d_conv * di
+                bc = self.mamba_groups or nh        # B, C per group or head
+                conv = di + 2 * bc * self.mamba_d_state \
+                    if self.mamba_groups else di
+                per_unit += D * (2 * di + 2 * bc * self.mamba_d_state + nh)
+                per_unit += di * D + self.mamba_d_conv * conv
             elif spec.kind == "rwkv":
                 per_unit += 5 * D * D + D * max(32, D // 64) * 2
                 per_unit += D * F + F * D   # channel mix
             if spec.cross_attn:
                 per_unit += D * H * hd + 2 * D * KV * hd + H * hd * D
             if spec.kind != "rwkv":
+                per_unit += 3 * D * self.shared_expert_ff
                 if spec.moe:
                     mats = 3 if self.act == "silu" else 2
                     per_unit += D * self.n_experts + \
@@ -150,6 +165,25 @@ class ModelConfig:
         dense_equiv = self.param_count() - \
             moe_layers * (self.n_experts * mats * D * F)
         return dense_equiv + moe_layers * (self.top_k * mats * D * F)
+
+
+@dataclasses.dataclass(frozen=True)
+class PortModelConfig(ModelConfig):
+    """A ``ModelConfig`` with the port's opt-in fields (the Granite 4.0-H
+    family's), each defaulting to what a plain ``ModelConfig`` reads."""
+
+    # >0: Mamba-2 as published (Dao & Gu 2024) with this many groups: B
+    # and C per group, the depthwise conv over [x, B, C], and the gate
+    # applied before an RMS norm over groups of d_inner / mamba_groups;
+    # 0: the reference's simplified SSD block (B, C per head, conv over
+    # x, norm before the gate)
+    mamba_groups: int = 0
+    shared_expert_ff: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: float = 0.0
+    norm_eps: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,6 +217,7 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         head_dim=16,
         vocab=512,
         n_experts=8 if cfg.n_experts else 0,
+        **({"shared_expert_ff": 128} if cfg.shared_expert_ff else {}),
         top_k=min(cfg.top_k, 2) if cfg.n_experts else 0,
         capacity_factor=8.0,   # drop-free at smoke scale (determinism)
         moe_groups=4,

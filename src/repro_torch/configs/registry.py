@@ -1,7 +1,8 @@
 """Architecture registry of the port: --arch <id> resolves here.
 
 The reference registry's architectures (``repro.configs.registry``), in
-its order; ``ASSIGNED_ARCHS`` are its first ten.
+its order; ``ASSIGNED_ARCHS`` are its first ten.  ``PORT_ARCH_IDS``
+are the port's own, which the reference does not hold.
 """
 from __future__ import annotations
 
@@ -28,13 +29,17 @@ ARCH_IDS: List[str] = [
     "opt-66b-serve",
 ]
 
+# hybrid Mamba-2 / MoE serving on the continuous-batching engine
+PORT_ARCH_IDS: List[str] = ["granite-4.0-h-small"]
+
 _MODULES = {i: __package__ + "." + i.replace("-", "_").replace(".", "_")
-            for i in ARCH_IDS}
+            for i in ARCH_IDS + PORT_ARCH_IDS}
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{ARCH_IDS + PORT_ARCH_IDS}")
     return importlib.import_module(_MODULES[arch]).CONFIG
 
 

@@ -34,10 +34,10 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 LIBRARIES = ("decode_attention", "paged_decode_attention",
              "flash_attention", "fused_expert_ffn", "fused_adam",
-             "moe_bucket")
+             "moe_bucket", "ssm_state_update")
 KERNELS = ("decode_attention", "paged_decode_attention", "flash_attention",
            "fused_expert_ffn", "fused_adam", "moe_bucket_positions",
-           "moe_bucket_scatter", "moe_bucket_combine")
+           "moe_bucket_scatter", "moe_bucket_combine", "ssm_state_update")
 SHAPE_LAUNCHES: Dict[Tuple[str, tuple], int] = Counter()
 
 
@@ -90,6 +90,11 @@ _ARGTYPES = {
     # expert_out, ids, topw, pos, out, N, T, k, D, G, C, E, dtype, stream
     "moe_bucket_combine": [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
     + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    # state, slots, x, x_ld, Bm, Cm, bc_ld, dt, A, D, y, B, n_slots, H,
+    # G, N, P, stream
+    "ssm_state_update_f32": [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

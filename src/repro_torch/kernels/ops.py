@@ -22,6 +22,7 @@ from .fused_adam import fused_adam as _adam_kernel
 from .moe_bucket import moe_bucket_combine as _combine_kernel
 from .moe_bucket import moe_bucket_positions as _positions_kernel
 from .moe_bucket import moe_bucket_scatter as _scatter_kernel
+from .ssm_state_update import ssm_state_update as _ssm_kernel
 from .tiered_gather import check_expert_range
 from .tiered_gather import fused_expert_ffn as _expert_kernel
 from .tiered_gather import fused_expert_ffn_partial as _expert_range_kernel
@@ -115,3 +116,13 @@ def moe_bucket_combine(expert_out, topi, topw, pos) -> torch.Tensor:
     if _on_cuda(expert_out) and not _recorded(expert_out, topw):
         return _combine_kernel(expert_out, topi, topw, pos)
     return ref.moe_bucket_combine(expert_out, topi, topw, pos)
+
+
+def ssm_state_update(state, slots, x, Bm, Cm, dt, A, D) -> torch.Tensor:
+    """One Mamba-2 decode token per row over the state slots: each row's
+    state ``state[slots[row]]`` (H, N, P) fp32 decayed by exp(dt A) and
+    added dt B x^T, in place; returns y = C^T state + D x, (B, H, P)
+    fp32."""
+    if _on_cuda(state):
+        return _ssm_kernel(state, slots, x, Bm, Cm, dt, A, D)
+    return ref.ssm_state_update(state, slots, x, Bm, Cm, dt, A, D)

@@ -203,3 +203,28 @@ def moe_bucket_combine(expert_out: torch.Tensor, topi: torch.Tensor,
         gat = out_buf[g, topi[..., j], last[..., j]]          # (G,T,D)
         acc = acc + gat * w_comb[..., j, None]
     return acc
+
+
+def ssm_state_update(state: torch.Tensor, slots: torch.Tensor,
+                     x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                     dt: torch.Tensor, A: torch.Tensor,
+                     D: torch.Tensor) -> torch.Tensor:
+    """One step of the Mamba-2 recurrence per row, over the state slots:
+    s = state[slots[b]] (H, N, P) becomes exp(dt A) s + dt B x^T (B and
+    C the row's group's, shared by its H / G heads), written back in
+    place; returns y = C^T s + D x, (B, H, P) fp32.  x (B, H*P), Bm and
+    Cm (B, G*N), dt (B, H), A and D (H,)."""
+    n_slots, H, N, P = state.shape
+    B, G = x.shape[0], Bm.shape[1] // N
+    xs = x.float().reshape(B, H, P)
+
+    def per_head(t):
+        return t.float().reshape(B, G, 1, N).expand(
+            B, G, H // G, N).reshape(B, H, N)
+    idx = slots.long()
+    dtf = dt.float()
+    s = (torch.exp(dtf * A)[..., None, None] * state[idx]
+         + (dtf[..., None] * per_head(Bm))[..., None] * xs[:, :, None, :])
+    state[idx] = s
+    return torch.einsum("bhn,bhnp->bhp", per_head(Cm), s) \
+        + D[None, :, None] * xs

@@ -38,6 +38,13 @@ probes of this machine's memory kinds), interference-class QoS
         --fused-gather --adaptive --predictive --expert-policy predictive \
         --device cpu
 
+A hybrid of Mamba-2 and attention layers, on the fused path, its
+recurrent states in per-request slots beside the paged KV pool:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-4.0-h-small --smoke --scheduler continuous \
+        --fused-gather --device cpu
+
 The multi-host cluster plane: ``--replicas`` engines, each its own
 paged pool, over one shared namespaced ledger, sessions placed by the
 ``--router`` policy; the replicas' meshes split every CUDA device (on
@@ -58,6 +65,7 @@ import time
 import numpy as np
 
 from ..configs import ARCH_IDS, get_config, get_smoke_config
+from ..configs.registry import PORT_ARCH_IDS
 from ..models import lm
 
 
@@ -296,7 +304,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     """The serve CLI's arguments, every cross-field rule checked
     (``serving.config.validate_args``; a violation exits with usage)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="llama3-8b",
+                    choices=ARCH_IDS + PORT_ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default; raises without a GPU) or cpu")

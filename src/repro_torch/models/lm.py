@@ -109,7 +109,54 @@ CACHE_KEYS = ("kv_k", "kv_v", "kv_k_scale", "kv_v_scale", "conv", "ssm",
 
 def _mdims(cfg: ModelConfig) -> M.MambaDims:
     return M.mamba_dims(cfg.d_model, cfg.mamba_expand, cfg.mamba_head_dim,
-                        cfg.mamba_d_state, cfg.mamba_d_conv, cfg.ssd_chunk)
+                        cfg.mamba_d_state, cfg.mamba_d_conv, cfg.ssd_chunk,
+                        cfg.mamba_groups)
+
+
+def norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The config's norm, at its ``norm_eps`` where one is set."""
+    return M.apply_norm(cfg.norm, p, x, cfg.norm_eps or None)
+
+
+def residual(cfg: ModelConfig, x: torch.Tensor,
+             out: torch.Tensor) -> torch.Tensor:
+    """x plus a sublayer's output, scaled by ``residual_multiplier``."""
+    if cfg.residual_multiplier == 1.0:
+        return x + out
+    return x + out * cfg.residual_multiplier
+
+
+def head_logits(cfg: ModelConfig, x: torch.Tensor, W):
+    """fp32 logits of the head ``W`` (``shardings.vocab_logits``),
+    divided by ``logits_scaling``."""
+    logits = SH.vocab_logits(x, W)
+    if cfg.logits_scaling == 1.0:
+        return logits
+    if SH.is_split(logits):
+        raise ValueError(f"{cfg.name}: logits_scaling over a vocab-split "
+                         "head is not supported")
+    return logits / cfg.logits_scaling
+
+
+def mamba_mixer(cfg: ModelConfig, mp: Params, h: torch.Tensor,
+                conv_state=None, ssm_state=None):
+    """The config's Mamba block over a whole sequence: the published
+    Mamba-2 (``mamba2_fwd``) where ``mamba_groups`` is set, else the
+    reference's SSD block.  Returns (out, (conv_state, ssm_state))."""
+    if cfg.mamba_groups:
+        return M.mamba2_fwd(mp, h, _mdims(cfg), conv_state, ssm_state,
+                            eps=cfg.norm_eps or 1e-6)
+    return M.mamba_fwd(mp, h, _mdims(cfg), conv_state=conv_state,
+                       ssm_state=ssm_state)
+
+
+def mamba_step(cfg: ModelConfig, mp: Params, h: torch.Tensor,
+               conv_store: torch.Tensor, ssm_store: torch.Tensor,
+               slots: torch.Tensor) -> torch.Tensor:
+    """One decode token of the published Mamba-2 block per row, on the
+    rows' state slots in place (``modules.mamba2_step``)."""
+    return M.mamba2_step(mp, h, _mdims(cfg), conv_store, ssm_store, slots,
+                         eps=cfg.norm_eps or 1e-6)
 
 
 def _rdims(cfg: ModelConfig) -> M.RwkvDims:
@@ -192,13 +239,20 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, g: torch.Generator,
         p["gate_attn"] = torch.zeros(U, device=device)
         p["gate_mlp"] = torch.zeros(U, device=device)
     elif spec.kind == "mamba":
-        p["mamba"] = M.init_mamba(_mdims(cfg), g, device, U)
+        p["mamba"] = (M.init_mamba2 if cfg.mamba_groups else M.init_mamba)(
+            _mdims(cfg), g, device, U)
     else:
         raise ValueError(spec.kind)
     if spec.cross_attn:          # Whisper-style extra cross sublayer
         p["cross_norm"] = _init_norm(cfg.norm, D, device, U)
         p["cross"] = _init_attention(cfg, g, device, U, False)
     p["norm2"] = _init_norm(cfg.norm, D, device, U)
+    if cfg.shared_expert_ff:
+        Fs = cfg.shared_expert_ff
+        p["shared"] = {"w_gate": M.randn((D, Fs), s, g, device, U),
+                       "w_up": M.randn((D, Fs), s, g, device, U),
+                       "w_down": M.randn((Fs, D), 1.0 / math.sqrt(Fs), g,
+                                         device, U)}
     if spec.moe:
         p["moe"] = _init_moe(cfg, g, device, U)
         return p
@@ -273,6 +327,8 @@ def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     start clamped so that the S rows fit, as the reference's
     ``lax.dynamic_slice`` clamps it) or the sinusoidal table."""
     x = SH.embed_rows(p["embed"], tokens).to(torch.bfloat16)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     S = tokens.shape[1]
     if cfg.pos_emb == "learned":
         i = 0 if index is None else min(max(int(index), 0),
@@ -289,9 +345,14 @@ def _lm_head(p: Params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def project_qkv(cfg: ModelConfig, ap: Params, h: torch.Tensor):
-    """q (B, S, H, hd), k/v (B, S, KV, hd) before rotary embedding."""
+    """q (B, S, H, hd), k/v (B, S, KV, hd) before rotary embedding.
+    Under ``attention_multiplier`` q is scaled by it times sqrt(hd), so
+    that attention's 1/sqrt(hd) gives the published softmax scale (the
+    kernels take no scale; q takes one more bf16 rounding)."""
     B, S = h.shape[0], h.shape[1]
     q, k, v = h @ ap["wq"], h @ ap["wk"], h @ ap["wv"]
+    if cfg.attention_multiplier:
+        q = q * (cfg.attention_multiplier * math.sqrt(cfg.head_dim))
     if "bq" in ap:
         q = q + ap["bq"]
     if "bk" in ap:
@@ -305,15 +366,20 @@ def project_qkv(cfg: ModelConfig, ap: Params, h: torch.Tensor):
 def ffn(cfg: ModelConfig, spec, lp: Params, h: torch.Tensor,
         shards: Optional[int] = None):
     """The layer's MLP, or its MoE (``moe_fwd``, capacity and drop as
-    the config sets them) where the layer spec says so.  Returns (out,
-    MoE aux loss, or None for an MLP); with ``shards`` (``h`` one of that
-    many data shards) the MoE's (2, E) aux terms in place of its loss."""
+    the config sets them) where the layer spec says so, plus the shared
+    expert where the layer has one.  Returns (out, MoE aux loss, or None
+    for an MLP); with ``shards`` (``h`` one of that many data shards) the
+    MoE's (2, E) aux terms in place of its loss."""
     if spec.moe:
-        return M.moe_fwd(lp["moe"], h, top_k=cfg.top_k,
-                         capacity_factor=cfg.capacity_factor,
-                         n_groups=cfg.moe_groups, act=cfg.act,
-                         shards=shards)
-    return M.mlp_fwd(lp["mlp"], h, cfg.act), None
+        out, aux = M.moe_fwd(lp["moe"], h, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             n_groups=cfg.moe_groups, act=cfg.act,
+                             shards=shards)
+    else:
+        out, aux = M.mlp_fwd(lp["mlp"], h, cfg.act), None
+    if "shared" in lp:
+        out = out + M.mlp_fwd(lp["shared"], h, cfg.act)
+    return out, aux
 
 
 def _cross_kv(cfg: ModelConfig, wp: Params, cross: torch.Tensor):
@@ -378,7 +444,7 @@ def _unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
     for li, spec in enumerate(cfg.pattern):
         lp = up["layers"][li]
         if spec.kind == "attn":
-            h = M.apply_norm(cfg.norm, lp["norm1"], x)
+            h = norm(cfg, lp["norm1"], x)
             q, k, v = project_qkv(cfg, lp["attn"], h)
             if cfg.pos_emb == "rope":
                 q = M.apply_rope(q, positions, cfg.rope_theta,
@@ -392,8 +458,9 @@ def _unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
             else:
                 att = ops.flash_attention(q.contiguous(), k.contiguous(),
                                           v.contiguous(), causal=True)
-            x = x + att.reshape(B, S, cfg.n_heads * cfg.head_dim) \
-                @ lp["attn"]["wo"]
+            x = residual(cfg, x, att.reshape(B, S, cfg.n_heads
+                                             * cfg.head_dim)
+                         @ lp["attn"]["wo"])
             if kv_int8 and not train:
                 for name, t in (("k", k), ("v", v)):
                     tq, ts = M.quantize_kv(t)
@@ -411,9 +478,9 @@ def _unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
             put("cross_k", xk.to(torch.bfloat16))
             put("cross_v", xv.to(torch.bfloat16))
         elif spec.kind == "mamba":
-            h = M.apply_norm(cfg.norm, lp["norm1"], x)
-            out, (cs, ss) = M.mamba_fwd(lp["mamba"], h, _mdims(cfg))
-            x = x + out
+            h = norm(cfg, lp["norm1"], x)
+            out, (cs, ss) = mamba_mixer(cfg, lp["mamba"], h)
+            x = residual(cfg, x, out)
             put("conv", cs)
             put("ssm", ss)
         elif spec.kind == "rwkv":
@@ -456,11 +523,11 @@ def _mlp_sublayer(cfg: ModelConfig, spec: LayerSpec, lp: Params,
     """The MLP / MoE sublayer behind ``norm2`` (tanh-gated in a cross
     layer).  Returns (x, MoE aux loss (terms, with ``shards``) or
     None)."""
-    h = M.apply_norm(cfg.norm, lp["norm2"], x)
+    h = norm(cfg, lp["norm2"], x)
     out, a = ffn(cfg, spec, lp, h, shards)
     if spec.kind == "cross":
         out = _gate(lp["gate_mlp"], out)
-    return x + out, a
+    return residual(cfg, x, out), a
 
 
 def _stack_cache(per_unit: List[Dict[str, list]]) -> Params:
@@ -570,8 +637,8 @@ def prefill(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for up in (units if units is not None else unit_views(p, cfg)):
         x, _, c = _unit_fwd(cfg, up, x, positions, cross)
         per_unit.append(c)
-    x = M.apply_norm(cfg.norm, p["final_norm"], x[:, -1:])
-    logits = SH.vocab_logits(x[:, 0], _lm_head(p, cfg))
+    x = norm(cfg, p["final_norm"], x[:, -1:])
+    logits = head_logits(cfg, x[:, 0], _lm_head(p, cfg))
     cache = _stack_cache(per_unit)
     cache["index"] = S
     return logits, cache
@@ -599,7 +666,7 @@ def _decode_unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
     for li, spec in enumerate(cfg.pattern):
         lp = up["layers"][li]
         if spec.kind == "attn":
-            h = M.apply_norm(cfg.norm, lp["norm1"], x)
+            h = norm(cfg, lp["norm1"], x)
             q, k, v = project_qkv(cfg, lp["attn"], h)
             if cfg.pos_emb == "rope":
                 q = M.apply_rope(q, positions, cfg.rope_theta,
@@ -623,8 +690,9 @@ def _decode_unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
             else:
                 att = M.dense_attention(q, ck, cv, causal=False,
                                         kv_len=idx + S)
-            x = x + att.reshape(B, S, cfg.n_heads * cfg.head_dim) \
-                @ lp["attn"]["wo"]
+            x = residual(cfg, x, att.reshape(B, S, cfg.n_heads
+                                             * cfg.head_dim)
+                         @ lp["attn"]["wo"])
             i_attn += 1
         elif spec.kind == "cross":
             h = M.apply_norm(cfg.norm, lp["norm1"], x)
@@ -633,13 +701,18 @@ def _decode_unit_fwd(cfg: ModelConfig, up: Params, x: torch.Tensor,
             x = x + _gate(lp["gate_attn"], out)
             i_cross += 1
         elif spec.kind == "mamba":
-            h = M.apply_norm(cfg.norm, lp["norm1"], x)
+            h = norm(cfg, lp["norm1"], x)
             cs, ss = uc["conv"][i_mamba], uc["ssm"][i_mamba]
-            out, (cs2, ss2) = M.mamba_fwd(lp["mamba"], h, _mdims(cfg),
-                                          conv_state=cs, ssm_state=ss)
-            x = x + out
-            cs.copy_(cs2)
-            ss.copy_(ss2)
+            if cfg.mamba_groups and S == 1:
+                # the slot form over the cache's rows, updated in place
+                out = mamba_step(cfg, lp["mamba"], h, cs, ss,
+                                 torch.arange(B, dtype=torch.int32,
+                                              device=x.device))
+            else:
+                out, (cs2, ss2) = mamba_mixer(cfg, lp["mamba"], h, cs, ss)
+                cs.copy_(cs2)
+                ss.copy_(ss2)
+            x = residual(cfg, x, out)
             i_mamba += 1
         elif spec.kind == "rwkv":
             states = tuple(uc[k][i_rwkv]
@@ -692,8 +765,8 @@ def decode_step(p: Params, cfg: ModelConfig, cache: Params,
                            else unit_views(p, cfg)):
         x = _decode_unit_fwd(cfg, up, x, {k: t[u] for k, t in bufs.items()},
                              idx, lens, enc_lens)
-    x = M.apply_norm(cfg.norm, p["final_norm"], x)
-    logits = SH.vocab_logits(x[:, 0], _lm_head(p, cfg))
+    x = norm(cfg, p["final_norm"], x)
+    logits = head_logits(cfg, x[:, 0], _lm_head(p, cfg))
     return logits, dict(bufs, index=idx + S)
 
 
@@ -721,7 +794,7 @@ def make_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
     if n_mamba:
         md = _mdims(cfg)
         shapes["conv"] = ((U, n_mamba, B, cfg.mamba_d_conv - 1,
-                           md.d_inner), bf16)
+                           md.conv_dim), bf16)
         shapes["ssm"] = ((U, n_mamba, B, md.n_heads, md.d_state,
                           md.head_dim), f32)
     if n_rwkv:
@@ -809,7 +882,7 @@ def _shard_loss(p: Params, cfg: ModelConfig, shard: SH.DataShard,
     S = tokens.shape[1]
     x, terms = _stack_fwd(cfg, unit_views(p, cfg), x,
                           torch.arange(S, device=dev), cross, shard=shard)
-    return _ce_sum(cfg, M.apply_norm(cfg.norm, top["final_norm"], x),
+    return _ce_sum(cfg, norm(cfg, top["final_norm"], x),
                    labels, _lm_head(top, cfg)), terms
 
 
@@ -817,7 +890,10 @@ def _ce_sum(cfg: ModelConfig, x: torch.Tensor, labels: torch.Tensor,
             W) -> torch.Tensor:
     """Summed token cross-entropy of the final hidden states, over
     chunks of ``cfg.loss_chunk`` positions so the (B, S, V) logits never
-    exist at once."""
+    exist at once.  Under ``logits_scaling`` the hidden states are
+    divided by it before the head, which divides the logits."""
+    if cfg.logits_scaling != 1.0:
+        x = x / cfg.logits_scaling
     S = x.shape[1]
     C = min(cfg.loss_chunk, S)
     if S % C:
@@ -880,7 +956,7 @@ def loss_terms(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed_tokens(p, cfg, tokens)
     x, aux = _stack_fwd(cfg, unit_views(p, cfg), x,
                         torch.arange(S, device=dev), cross)
-    x = M.apply_norm(cfg.norm, p["final_norm"], x)
+    x = norm(cfg, p["final_norm"], x)
     return _ce_sum(cfg, x, labels, _lm_head(p, cfg)) / (B * S), aux
 
 

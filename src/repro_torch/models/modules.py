@@ -70,8 +70,12 @@ def layer_norm(p: Params, x: torch.Tensor,
     return y.to(x.dtype)
 
 
-def apply_norm(kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
-    return rms_norm(p, x) if kind == "rms" else layer_norm(p, x)
+def apply_norm(kind: str, p: Params, x: torch.Tensor,
+               eps: Optional[float] = None) -> torch.Tensor:
+    """The ``kind`` norm, with its own default epsilon unless ``eps``."""
+    if kind == "rms":
+        return rms_norm(p, x) if eps is None else rms_norm(p, x, eps)
+    return layer_norm(p, x) if eps is None else layer_norm(p, x, eps)
 
 
 # ====================================================================== #
@@ -324,13 +328,31 @@ class MambaDims:
     d_conv: int = 4
     chunk: int = 128
 
+    @property
+    def conv_dim(self) -> int:
+        """Channels of the depthwise conv (x alone)."""
+        return self.d_inner
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Dims(MambaDims):
+    """The published Mamba-2 block's sizes: B and C per group of heads,
+    the conv over [x, B, C] (``mamba2_fwd``)."""
+    groups: int = 1
+
+    @property
+    def conv_dim(self) -> int:
+        return self.d_inner + 2 * self.groups * self.d_state
+
 
 def mamba_dims(d_model: int, expand: int = 2, head_dim: int = 64,
                d_state: int = 16, d_conv: int = 4,
-               chunk: int = 128) -> MambaDims:
+               chunk: int = 128, groups: int = 0) -> MambaDims:
+    """The block's sizes; ``groups`` > 0: the published Mamba-2's."""
     d_inner = expand * d_model
-    return MambaDims(d_model, d_inner, d_inner // head_dim, head_dim,
-                     d_state, d_conv, chunk)
+    dims = (d_model, d_inner, d_inner // head_dim, head_dim, d_state,
+            d_conv, chunk)
+    return Mamba2Dims(*dims, groups) if groups else MambaDims(*dims)
 
 
 def init_mamba(dims: MambaDims, g: torch.Generator, device,
@@ -451,6 +473,166 @@ def mamba_fwd(p: Params, x: torch.Tensor, dims: MambaDims,
     y = y.reshape(B, S, di).to(x.dtype)
     y = rms_norm(p["norm"], y) * F.silu(z)
     return mm(y, p["w_out"]), (new_conv_state.to(torch.bfloat16), state)
+
+
+# ====================================================================== #
+# Mamba-2 as published (grouped B and C, gated norm)                     #
+# ====================================================================== #
+def init_mamba2(dims: MambaDims, g: torch.Generator, device,
+                units: int = 0) -> Params:
+    """The published Mamba-2 block's parameters (``units`` > 0: stacked
+    over that many units), at ``init_mamba``'s scales.  ``w_in`` gives
+    [z (di), x (di), B (G*N), C (G*N), dt (H)], the published in_proj's
+    order; the conv runs over the conv_dim = di + 2*G*N channels of
+    [x, B, C] with a bias."""
+    di, H, C = dims.d_inner, dims.n_heads, dims.conv_dim
+    f32 = torch.float32
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=device))
+    return {
+        "w_in": randn((dims.d_model, di + C + H),
+                      1.0 / math.sqrt(dims.d_model), g, device, units),
+        "conv_w": randn((dims.d_conv, C), 0.1, g, device, units),
+        "conv_b": _full((C,), 0.0, device, units),
+        "A_log": (a_log.expand(units, H).clone() if units else a_log),
+        "D": _full((H,), 1.0, device, units, f32),
+        "dt_bias": _full((H,), 0.0, device, units, f32),
+        "w_out": randn((di, dims.d_model), 1.0 / math.sqrt(di), g, device,
+                       units),
+        "norm": {"scale": _full((di,), 1.0, device, units, f32)},
+    }
+
+
+def _ssd_group_scan(xh, dt, A, Bg, Cg, chunk: int,
+                    init_state: Optional[torch.Tensor] = None):
+    """``_ssd_chunk_scan`` with B and C per group: y_t = C_t^T
+    sum_{s<=t} exp(sum_{r=s+1..t} dt_r A_h) dt_s B_s x_s^T, where the
+    H / G heads of a group read its B and C.
+
+    xh: (B, S, H, P); dt: (B, S, H) (softplus'd); A: (H,) < 0; Bg, Cg:
+    (B, S, G, N).  fp32 throughout; a ragged last chunk is zero-padded
+    (dt = 0: the identity decay, no input).  Returns (y (B, S, H, P),
+    final state (B, H, N, P))."""
+    B, S, H, P = xh.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    R = H // G
+    L = min(chunk, S)
+    nC = -(-S // L)
+    pad = nC * L - S
+    if pad:
+        xh, Bg, Cg = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (xh, Bg, Cg))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    loga = dt.float() * A[None, None, :]                       # (B,S,H) <= 0
+    x_dt = xh.float() * dt[..., None]
+    bf, cf = Bg.float(), Cg.float()
+    state = (torch.zeros((B, H, N, P), device=xh.device)
+             if init_state is None else init_state.float())
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=xh.device))
+    ys = []
+    for c0 in range(0, nC * L, L):
+        xk, bk = x_dt[:, c0:c0 + L], bf[:, c0:c0 + L]
+        ck, lk = cf[:, c0:c0 + L], loga[:, c0:c0 + L]
+        cum = torch.cumsum(lk, dim=1)                          # (B,L,H)
+        total = cum[:, -1]                                     # (B,H)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]          # (B,L,L,H)
+        seg = seg.masked_fill(~tri[None, :, :, None], float("-inf"))
+        cb = torch.einsum("blgn,bsgn->blsg", ck, bk)           # (B,L,L,G)
+        w = (torch.exp(seg).view(B, L, L, G, R)
+             * cb[..., None]).view(B, L, L, H)
+        y_intra = torch.einsum("blsh,bshp->blhp", w, xk)
+        y_inter = torch.einsum("blgn,bgrnp->blgrp", ck,
+                               state.view(B, G, R, N, P)).reshape(
+                                   B, L, H, P) * torch.exp(cum)[..., None]
+        decay_s = torch.exp(total[:, None, :] - cum)           # (B,L,H)
+        upd = torch.einsum("bsgn,bsgrp->bgrnp", bk,
+                           (xk * decay_s[..., None]).view(B, L, G, R, P))
+        state = (torch.exp(total)[..., None, None] * state
+                 + upd.reshape(B, H, N, P))
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1)[:, :S], state
+
+
+def gated_rms_norm(p: Params, y: torch.Tensor, z: torch.Tensor,
+                   groups: int, eps: float) -> torch.Tensor:
+    """The published block's output norm: ``y * silu(z)`` (fp32), then
+    an RMS norm over each of ``groups`` groups of its d_inner channels,
+    scaled; returned in ``z``'s dtype."""
+    g = y.float() * F.silu(z.float())
+    gs = g.reshape(*g.shape[:-1], groups, g.shape[-1] // groups)
+    gs = gs * torch.rsqrt((gs * gs).mean(-1, keepdim=True) + eps)
+    return (gs.reshape(g.shape) * p["scale"]).to(z.dtype)
+
+
+def _conv_silu(p: Params, xpad: torch.Tensor, S: int) -> torch.Tensor:
+    """The causal depthwise conv of the K - 1 carried inputs and S new
+    ones (xpad (B, S + K - 1, C)) with its bias, then silu, in fp32,
+    rounded once to ``xpad``'s dtype."""
+    K = p["conv_w"].shape[0]
+    w = p["conv_w"].float()
+    conv = sum(xpad[:, i:i + S].float() * w[i] for i in range(K))
+    return F.silu(conv + p["conv_b"].float()).to(xpad.dtype)
+
+
+def mamba2_fwd(p: Params, x: torch.Tensor, dims: MambaDims,
+               conv_state: Optional[torch.Tensor] = None,
+               ssm_state: Optional[torch.Tensor] = None,
+               eps: float = 1e-6):
+    """The published Mamba-2 block over a whole sequence, from the
+    carried states where given (the grouped chunked scan).
+
+    x: (B, S, D); conv_state: (B, d_conv - 1, conv_dim); ssm_state:
+    (B, H, N, P) fp32.  A = -exp(A_log), dt = softplus(dt + dt_bias),
+    y = scan + D x, out = w_out(norm(y * silu(z))).  Returns (out
+    (B, S, D), (conv_state bf16, ssm_state fp32))."""
+    B, S, _ = x.shape
+    di, H, P, N, G = (dims.d_inner, dims.n_heads, dims.head_dim,
+                      dims.d_state, dims.groups)
+    z, xbc, dt = torch.split(mm(x, p["w_in"]), [di, dims.conv_dim, H],
+                             dim=-1)
+    K = dims.d_conv
+    pad = (torch.zeros((B, K - 1, dims.conv_dim), dtype=xbc.dtype,
+                       device=x.device)
+           if conv_state is None else conv_state.to(xbc.dtype))
+    xpad = torch.cat([pad, xbc], dim=1)
+    conv = _conv_silu(p, xpad, S)
+    xs, Bg, Cg = torch.split(conv, [di, G * N, G * N], dim=-1)
+    xh = xs.reshape(B, S, H, P)
+    dtf = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    y, state = _ssd_group_scan(xh, dtf, A, Bg.reshape(B, S, G, N),
+                               Cg.reshape(B, S, G, N), dims.chunk,
+                               init_state=ssm_state)
+    y = y + xh.float() * p["D"][None, None, :, None]
+    out = gated_rms_norm(p["norm"], y.reshape(B, S, di), z, G, eps)
+    return mm(out, p["w_out"]), (xpad[:, -(K - 1):].to(torch.bfloat16),
+                                 state)
+
+
+def mamba2_step(p: Params, x: torch.Tensor, dims: MambaDims,
+                conv_store: torch.Tensor, ssm_store: torch.Tensor,
+                slots: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """One decode token of the published Mamba-2 block for each row,
+    its states read from and written back to slot ``slots[row]`` of the
+    stores in place: conv_store (n_slots, d_conv - 1, conv_dim) bf16,
+    ssm_store (n_slots, H, N, P) fp32, slots (B,) int32.  The SSM
+    update and readout run in ``kernels.ops.ssm_state_update`` (the
+    kernel on the card).  x: (B, 1, D); returns (B, 1, D)."""
+    B = x.shape[0]
+    di, H, P, N, G = (dims.d_inner, dims.n_heads, dims.head_dim,
+                      dims.d_state, dims.groups)
+    z, xbc, dt = torch.split(mm(x[:, 0], p["w_in"]),
+                             [di, dims.conv_dim, H], dim=-1)
+    idx = slots.long()
+    xpad = torch.cat([conv_store[idx], xbc[:, None].to(conv_store.dtype)],
+                     dim=1)                                 # (B, K, C)
+    conv_store.index_copy_(0, idx, xpad[:, 1:])
+    conv = _conv_silu(p, xpad, 1)[:, 0]                     # (B, C)
+    dtf = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    y = ops.ssm_state_update(ssm_store, slots, conv[:, :di],
+                             conv[:, di:di + G * N],
+                             conv[:, di + G * N:], dtf, A, p["D"])
+    out = gated_rms_norm(p["norm"], y.reshape(B, 1, di), z[:, None], G, eps)
+    return mm(out, p["w_out"])
 
 
 # ====================================================================== #

@@ -1,6 +1,7 @@
 """ServingEngine: continuous batching over the paged, tiered KV pool
 (counterpart of ``repro.serving.engine``, attention-only models, dense
-or MoE).
+or MoE; and, port only, hybrids of published Mamba-2 and attention
+layers on the fused path).
 
 Each iteration admits requests (prefill through the flash kernel, K/V
 written into the pool), then decodes one token for every running
@@ -24,6 +25,19 @@ Then greedy argmax, ``append_token``, one ``KVBlockTierer`` epoch and
 one telemetry epoch.  Padded batch rows carry ``lens = 0`` and a zero
 block table, exactly as in the reference.
 
+A hybrid model (``ModelConfig.mamba_groups``: granite-4.0-h-small)
+pages its attention layers' K/V as above and keeps each running
+request's Mamba-2 states in a ``StateSlotPool`` slot beside the pool
+(``serving/state_pool.py``), one slot per row of ``max_batch``, whose
+bytes count against the device at construction.  Prefill writes its
+final states into the request's new slot (span
+``engine.prefill.state``); the fused decode steps each Mamba layer in
+place on the rows' slots (``models/modules.py::mamba2_step``, the
+``ssm_state_update`` kernel on the card), one ``engine.decode.mamba``
+span a layer; finish and preemption free the slot, and a preempted
+request recomputes its states by a new prefill.  The staged path does
+not serve such a model.
+
 With ``trace_spans=True`` the engine's tracer also records spans
 (``cat="span"``, on the engine's clock, each with its id and its
 parent's) at the boundaries between the host enqueuing work, the host
@@ -34,7 +48,8 @@ waiting on the device and the host's bookkeeping:
     (the margins and the first token, where the host waits);
   * ``engine.decode`` (``step``, ``rows``) over ``.inputs`` (block
     tables or the staged gather, the batch's host-to-device copies),
-    ``.forward`` (the decode step), ``.read`` (the routing feed, the
+    ``.forward`` (the decode step; a hybrid's ``.mamba`` spans inside
+    it), ``.read`` (the routing feed, the
     tokens and margins, where the host waits) and ``.commit`` (each
     row's ``append_token``, ``touch_seq``, token and finish);
   * ``engine.tier_epoch`` and ``engine.replan_epoch`` (``epoch``).
@@ -122,11 +137,20 @@ from .kv_pool import FAST_KIND, PagedKVPool, spec_from_config
 from .metrics import ServingMetrics
 from .scheduler import (ContinuousBatchingScheduler, plan_admission, Request,
                         RequestState, SchedulerConfig)
+from .state_pool import pool_nbytes, slot_nbytes, StateSlotPool
 from .tiering import KVBlockTierer
 
-def check_paged_support(cfg: ModelConfig) -> None:
-    """Raise if the config can't run on the paged decode path."""
+def check_paged_support(cfg: ModelConfig, fused: bool = False) -> None:
+    """Raise if the config can't run on the paged decode path (``fused``:
+    the fused path, which alone serves the published Mamba-2 layers of
+    a hybrid model, from per-request state slots)."""
     for spec in cfg.pattern:
+        if spec.kind == "mamba" and cfg.mamba_groups and not spec.cross_attn:
+            if not fused:
+                raise ValueError(
+                    f"{cfg.name}: its Mamba-2 layers keep per-request state "
+                    "slots on the fused paged path only; set fused_gather")
+            continue
         if spec.kind != "attn" or spec.cross_attn:
             raise ValueError(
                 f"{cfg.name}: paged serving supports attention-only "
@@ -150,7 +174,7 @@ def check_paged_support(cfg: ModelConfig) -> None:
 def _qkv_tok(cfg: ModelConfig, lp, x: torch.Tensor, lengths: torch.Tensor):
     """Norm, projections and per-sequence rotary embedding for one
     decode token: q (B, 1, H, hd), k/v (B, 1, KV, hd)."""
-    h = M.apply_norm(cfg.norm, lp["norm1"], x)
+    h = lm.norm(cfg, lp["norm1"], x)
     q, k, v = lm.project_qkv(cfg, lp["attn"], h)
     if cfg.pos_emb == "rope":
         pos = lengths[:, None]                     # per-seq positions
@@ -164,8 +188,9 @@ def _attn_out(cfg: ModelConfig, lp, x: torch.Tensor,
     """Output projection and residual; returns (x, the second norm of
     x), the MLP's or MoE's input."""
     B = x.shape[0]
-    x = x + att.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ lp["attn"]["wo"]
-    return x, M.apply_norm(cfg.norm, lp["norm2"], x)
+    x = lm.residual(cfg, x, att.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+                    @ lp["attn"]["wo"])
+    return x, lm.norm(cfg, lp["norm2"], x)
 
 
 def _finish_layer(cfg: ModelConfig, spec, lp, x: torch.Tensor,
@@ -219,6 +244,8 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
            lengths: torch.Tensor) -> torch.Tensor:
     x = SH.embed_rows(params["embed"], tokens[:, 0]).to(
         torch.bfloat16)[:, None]
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     if cfg.pos_emb == "learned":
         x = x + params["pos_emb"][lengths].to(x.dtype)[:, None]
     return x
@@ -227,9 +254,9 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
 def _logits(cfg: ModelConfig, params, x: torch.Tensor):
     """fp32 logits (B, V); a ``ShardedTensor`` of vocab blocks under a
     vocab-split head."""
-    x = M.apply_norm(cfg.norm, params["final_norm"], x)
+    x = lm.norm(cfg, params["final_norm"], x)
     W = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return SH.vocab_logits(x[:, 0], W)
+    return lm.head_logits(cfg, x[:, 0], W)
 
 
 def _paged_unit_fwd(cfg: ModelConfig, up, x, kv_k, kv_v, lengths):
@@ -277,32 +304,51 @@ def _paged_decode(cfg: ModelConfig, units, params, tokens, kv_k, kv_v,
 
 
 def _fused_unit_fwd(cfg: ModelConfig, up, x, k_pool, v_pool, block_tbl,
-                    lengths, block_tokens: int):
+                    lengths, block_tokens: int, states=None, spans=None):
     """One unit on the fused path: k_pool/v_pool (n_attn, num_blocks,
     bt, KV, hd) are the pool's resident stores; block_tbl (B, nb)
     int32.  The kernel reads blocks through the table and folds the
-    step's K/V in, so no gather or scatter happens.  Returns (x, new_k,
-    new_v, routed ids (n_moe, B, K) or None without MoE layers, nears:
-    one (B, 2) ``_routed_experts`` pair per MoE layer)."""
+    step's K/V in, so no gather or scatter happens.  A hybrid model's
+    Mamba-2 layers step their states in place in the unit's state slots,
+    ``states`` = (conv (n_mamba, n_slots + 1, ...), ssm (n_mamba,
+    n_slots + 1, ...), slots (B,) int32), each layer in the span
+    ``engine.decode.mamba`` of ``spans`` (a tracer, or None).  Returns
+    (x, new_k, new_v, routed ids (n_moe, B, K) or None without MoE
+    layers, nears: one (B, 2) ``_routed_experts`` pair per MoE
+    layer)."""
     new_ks, new_vs, routed, nears = [], [], [], []
+    i_attn = i_mamba = 0
     for li, spec in enumerate(cfg.pattern):
         lp = up["layers"][li]
-        q, k, v = _qkv_tok(cfg, lp, x, lengths)
-        k_tok = k[:, 0].to(k_pool.dtype).contiguous()
-        v_tok = v[:, 0].to(v_pool.dtype).contiguous()
-        att = ops.paged_decode_attention(
-            q[:, 0].contiguous(), k_pool[li], v_pool[li], block_tbl,
-            lengths, k_tok, v_tok, block_tokens=block_tokens)
-        x, h = _attn_out(cfg, lp, x, att)
+        if spec.kind == "mamba":
+            conv, ssm, slots = states
+            with hot_span(spans, "engine.decode.mamba"):
+                h = lm.norm(cfg, lp["norm1"], x)
+                out = lm.mamba_step(cfg, lp["mamba"], h, conv[i_mamba],
+                                    ssm[i_mamba], slots)
+                x = lm.residual(cfg, x, out)
+            h = lm.norm(cfg, lp["norm2"], x)
+            i_mamba += 1
+        else:
+            q, k, v = _qkv_tok(cfg, lp, x, lengths)
+            k_tok = k[:, 0].to(k_pool.dtype).contiguous()
+            v_tok = v[:, 0].to(v_pool.dtype).contiguous()
+            att = ops.paged_decode_attention(
+                q[:, 0].contiguous(), k_pool[i_attn], v_pool[i_attn],
+                block_tbl, lengths, k_tok, v_tok, block_tokens=block_tokens)
+            x, h = _attn_out(cfg, lp, x, att)
+            new_ks.append(k_tok)
+            new_vs.append(v_tok)
+            i_attn += 1
         if spec.moe:
             out, ids, near = _routed_experts(cfg, lp["moe"], h)
             routed.append(ids)
             nears.append(near)
         else:
             out = M.mlp_fwd(lp["mlp"], h, cfg.act)
-        x = x + out
-        new_ks.append(k_tok)
-        new_vs.append(v_tok)
+        if "shared" in lp:
+            out = out + M.mlp_fwd(lp["shared"], h, cfg.act)
+        x = lm.residual(cfg, x, out)
     ids = torch.stack(routed) if routed else None
     return x, torch.stack(new_ks), torch.stack(new_vs), ids, nears
 
@@ -310,20 +356,25 @@ def _fused_unit_fwd(cfg: ModelConfig, up, x, k_pool, v_pool, block_tbl,
 @torch.no_grad()
 def _fused_paged_decode(cfg: ModelConfig, block_tokens: int, units, params,
                         tokens, k_store, v_store, block_tbl, lengths,
-                        route_margins: Optional[list] = None):
+                        route_margins: Optional[list] = None,
+                        states: Optional[tuple] = None, spans=None):
     """tokens (B, 1); k_store/v_store (U, n_attn, num_blocks, bt, KV,
     hd) — the pooled layout itself; block_tbl (B, nb) int32; lengths
     (B,) int32.  Returns (logits (B, V), new_k, new_v (U, n_attn, B,
     KV, hd), routed expert ids (U, n_moe, B, K) int32).  Where
     ``route_margins`` is a list, every MoE layer's (B, 2) K-th and
     (K+1)-th router probabilities (``_routed_experts``) are appended to
-    it."""
+    it.  A hybrid model's Mamba-2 layers take ``states`` = (conv, ssm,
+    slots): the ``StateSlotPool``'s (U, n_mamba, n_slots + 1, ...)
+    stores and each row's slot (B,) int32; ``spans`` as for
+    ``_fused_unit_fwd``."""
     x = _embed(cfg, params, tokens, lengths)
     new_k, new_v, routed = [], [], []
     for u, up in enumerate(units):
         x, nk, nv, ids, nears = _fused_unit_fwd(
             cfg, up, x, k_store[u], v_store[u], block_tbl, lengths,
-            block_tokens)
+            block_tokens, None if states is None else
+            (states[0][u], states[1][u], states[2]), spans)
         new_k.append(nk)
         new_v.append(nv)
         routed.append(ids)
@@ -505,9 +556,9 @@ class ServingEngine:
                  serving: Optional[ServingConfig] = None,
                  clock: Callable[[], float] = time.perf_counter,
                  ledger=None, device: DeviceLike = None):
-        check_paged_support(cfg)
-        self.cfg = cfg
         self.sv = sv = serving or ServingConfig()
+        check_paged_support(cfg, fused=sv.fused_gather)
+        self.cfg = cfg
         self.clock = clock
         self.device = resolve_device(device)
         if params is not None:
@@ -518,10 +569,13 @@ class ServingEngine:
         self.params = params
         bt = sv.block_tokens
         self.max_seq_blocks = max(1, math.ceil(sv.max_context / bt))
+        hybrid = bool(cfg.unit_mamba_layers)
+        state_seq = slot_nbytes(cfg) if hybrid else 0
         if sv.device_budget_bytes is not None:
             plan = plan_admission(
                 cfg, bt, sv.max_context, sv.device_budget_bytes,
-                sv.host_budget_bytes or 0, max_batch_cap=sv.max_batch)
+                sv.host_budget_bytes or 0, max_batch_cap=sv.max_batch,
+                state_bytes_per_seq=state_seq)
             num_blocks, fast_budget = plan.total_blocks, plan.fast_blocks
             max_batch = plan.max_batch
         else:
@@ -542,6 +596,8 @@ class ServingEngine:
             default_kind=sv.slow_kind, ledger=ledger, tenant=sv.tenant,
             pooled=sv.fused_gather, device=self.device)
         self.ledger = self.pool.ledger
+        if hybrid:
+            self._check_state_fits(pool_nbytes(cfg, max_batch))
         self.tierer = KVBlockTierer(self.pool, sv.policy)
         topo = None
         tb = None
@@ -611,6 +667,16 @@ class ServingEngine:
                 flow_class=sv.qos_class),
             topology=topo, tracer=self.tracer, predictor=self.predictor)
         self.tierer.spans = self._spans
+        # a hybrid model's per-request recurrent state: one slot per
+        # running row, taken at prefill, freed on finish and preemption
+        self.states: Optional[StateSlotPool] = None
+        if hybrid:
+            self.states = StateSlotPool(cfg, max_batch, self.device,
+                                        tracer=self.tracer,
+                                        registry=self.registry)
+            self.sched.on_release = (
+                lambda req, preempted: self.states.release(req.rid,
+                                                           preempted))
         self.metrics = ServingMetrics(registry=self.registry,
                                       slo=self.slo)
         # telemetry: the pool emits access events through a sampling
@@ -725,6 +791,26 @@ class ServingEngine:
         self._track_routes = self._moe and sv.fused_gather
         self._route_log: List[Tuple[List[int], Optional[torch.Tensor]]] = []
 
+    def _check_state_fits(self, nbytes: int) -> None:
+        """Raise unless ``nbytes`` of state slots (``max_batch`` and the
+        padded rows' slot) fit the device budget beside the weights, or,
+        on the card, its free memory."""
+        sv = self.sv
+        if sv.device_budget_bytes is not None:
+            need = 2 * self.cfg.param_count() + nbytes
+            if need > sv.device_budget_bytes:
+                raise ValueError(
+                    f"{self.cfg.name}: weights and {self.max_batch + 1} "
+                    f"state slots need {need / GiB:.2f} GiB, over the device "
+                    f"budget of {sv.device_budget_bytes / GiB:.2f} GiB")
+        if self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+            if nbytes > free:
+                raise ValueError(
+                    f"{self.cfg.name}: {self.max_batch + 1} state slots "
+                    f"need {nbytes / GiB:.2f} GiB; {free / GiB:.2f} GiB of "
+                    "the card are free (lower max_batch)")
+
     def _record_margins(self, rids: Sequence[int], logits) -> None:
         top2 = torch.topk(SH.gather(logits)[:len(rids)], 2, dim=-1).values
         for rid, m in zip(rids, (top2[:, 0] - top2[:, 1]).tolist()):
@@ -806,6 +892,12 @@ class ServingEngine:
                 self.pool.write_prefill(req.rid, cache["kv_k"][:, :, 0],
                                         cache["kv_v"][:, :, 0], L,
                                         kind=self._alloc_kind)
+            if self.states is not None:
+                with hot_span(sp, "engine.prefill.state"):
+                    self.states.take(req.rid)
+                    self.states.write_prefill(req.rid,
+                                              cache["conv"][:, :, 0],
+                                              cache["ssm"][:, :, 0])
             self.metrics.on_admit(req.rid, now)
             with hot_span(sp, "engine.prefill.read"):
                 self._record_margins([req.rid], logits)
@@ -881,12 +973,17 @@ class ServingEngine:
                     [tbl, np.zeros((n_pad, tbl.shape[1]), np.int32)])
             tokens, lengths = self._batch_inputs(batch)
             tbl = torch.as_tensor(tbl, device=self.device)
+            states = None
+            if self.states is not None:
+                st = self.states
+                states = (st.conv, st.ssm,
+                          st.rows([r.rid for r in batch], self.max_batch))
         with hot_span(self._spans, "engine.decode.forward"):
             nears = [] if self._track_routes else None
             logits, new_k, new_v, routed = _fused_paged_decode(
                 self.cfg, self.sv.block_tokens, self._units, self.params,
                 tokens, self.pool.k_store, self.pool.v_store, tbl, lengths,
-                route_margins=nears)
+                route_margins=nears, states=states, spans=self._spans)
             if nears:
                 self._route_log.append(([r.rid for r in batch],
                                         torch.stack(nears)))

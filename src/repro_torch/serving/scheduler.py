@@ -106,7 +106,8 @@ class AdmissionPlan:
 
 def plan_admission(cfg, block_tokens: int, max_context: int,
                    device_budget_bytes: int, host_budget_bytes: int,
-                   max_batch_cap: int = 64) -> AdmissionPlan:
+                   max_batch_cap: int = 64, state_bytes_per_seq: int = 0
+                   ) -> AdmissionPlan:
     """Size the pool and the admission limit from a capacity budget.
 
     The KV budget is what remains of the device budget after bf16
@@ -118,7 +119,10 @@ def plan_admission(cfg, block_tokens: int, max_context: int,
     from .kv_pool import spec_from_config
     spec = spec_from_config(cfg, block_tokens)
     weight_bytes = 2 * cfg.param_count()
-    device_kv = max(device_budget_bytes - weight_bytes, 0)
+    # port only: a hybrid model's recurrent state slots, one per row and
+    # one for the padded rows, live on the device beside the weights
+    device_kv = max(device_budget_bytes - weight_bytes
+                    - (max_batch_cap + 1) * state_bytes_per_seq, 0)
     total_kv = device_kv + host_budget_bytes
     total_blocks = max(int(total_kv // spec.nbytes), 1)
     fast_blocks = min(int(device_kv // spec.nbytes), total_blocks)
@@ -176,6 +180,10 @@ class ContinuousBatchingScheduler:
         self.budget_preemptions = 0   # evictions forced by ledger budget
         self.qos_deferrals = 0        # blocked by predicted violation
         self.slo_preemptions = 0      # evictions forced by predicted SLO
+        # port only: called as on_release(req, preempted) whenever a
+        # running request leaves the running set (the engine frees what
+        # it holds beside the pool's blocks, such as a state slot)
+        self.on_release = None
 
     # ------------------------------------------------------------------ #
     def submit(self, req: Request) -> None:
@@ -446,6 +454,8 @@ class ContinuousBatchingScheduler:
                               preemptions=req.preemptions)
         # LIFO re-entry: most recently evicted goes first
         self.waiting.appendleft(req)
+        if self.on_release is not None:
+            self.on_release(req, True)
 
     def finish(self, req: Request) -> None:
         self.pool.free_seq(req.rid)
@@ -456,3 +466,5 @@ class ContinuousBatchingScheduler:
             self.tracer.event("sched.finish", cat="sched", rid=req.rid,
                               new_tokens=len(req.out_tokens),
                               preemptions=req.preemptions)
+        if self.on_release is not None:
+            self.on_release(req, False)

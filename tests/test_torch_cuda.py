@@ -18,6 +18,8 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fused_adam import fused_adam  # noqa: E402
 from repro_torch.kernels.moe_bucket import (  # noqa: E402
     moe_bucket_combine, moe_bucket_positions, moe_bucket_scatter)
+from repro_torch.kernels.ssm_state_update import (  # noqa: E402
+    ssm_state_update)
 from repro_torch.kernels.tiered_gather import (  # noqa: E402
     fused_expert_ffn, fused_expert_ffn_partial, paged_decode_attention,
     split_plan)
@@ -560,3 +562,84 @@ def test_moe_bucket_wrappers_refuse_what_the_kernels_do_not_take(gen):
         moe_bucket_combine(eo, topi, topw.cpu(), pos)
     with pytest.raises(RuntimeError, match="CUDA error"):
         moe_bucket_positions(topi, 10000)   # its counters exceed 48 KiB
+
+
+# ---------------------------------------------------------------------- #
+# The Mamba-2 decode state update and the expert FFN at                  #
+# granite-4.0-h-small's decode shapes                                    #
+# ---------------------------------------------------------------------- #
+def _ssm_case(gen, B, H, N, P, G, n_slots):
+    """A step's inputs: x, B and C as column slices of one conv output
+    row per batch row (row stride H*P + 2*G*N), dt of the published
+    range, A in [-16, -1], slots a random choice of distinct slots."""
+    state = torch.randn(n_slots, H, N, P, generator=gen, device="cuda")
+    xbc = _rnd(gen, B, H * P + 2 * G * N)
+    x, Bm = xbc[:, :H * P], xbc[:, H * P:H * P + G * N]
+    Cm = xbc[:, H * P + G * N:]
+    dt = torch.exp(torch.empty(B, H, device="cuda").uniform_(
+        -6.9, -2.3, generator=gen))
+    A = -torch.empty(H, device="cuda").uniform_(1, 16, generator=gen)
+    D = 1 + 0.1 * torch.randn(H, generator=gen, device="cuda")
+    slots = torch.randperm(n_slots, generator=gen, device="cuda")[:B].to(
+        torch.int32)
+    return state, slots, x, Bm, Cm, dt, A, D
+
+
+@pytest.mark.parametrize("B,H,N,P,G", [(64, 128, 128, 64, 1),
+                                       (5, 8, 16, 32, 2),
+                                       (3, 4, 128, 128, 4)])
+def test_ssm_state_update_kernel(gen, B, H, N, P, G):
+    """granite-4.0-h-small's decode step at 64 rows x 128 heads x N 128
+    x P 64 over 65 slots, rows in permuted slots, and two other
+    geometries: y and every slot's state against the plain version (fp32:
+    a state row left out moves y by ~1/N of itself), the slots no row
+    names untouched bit for bit, one launch."""
+    state, slots, *args = _ssm_case(gen, B, H, N, P, G, B + 1)
+    want_state = state.clone()
+    want = ref.ssm_state_update(want_state, slots, *args)
+    n = build.LAUNCHES["ssm_state_update"]
+    got = ssm_state_update(state, slots, *args)
+    assert build.LAUNCHES["ssm_state_update"] == n + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(state, want_state, rtol=1e-5, atol=1e-6)
+    free = sorted(set(range(B + 1)) - set(slots.tolist()))
+    assert torch.equal(state[free], want_state[free])
+
+
+def test_ssm_state_update_kernel_refuses_and_marks(gen):
+    """A slot outside the pool gives a NaN row and touches no state; the
+    wrapper refuses what the kernel does not take."""
+    state, slots, x, Bm, Cm, dt, A, D = _ssm_case(gen, 4, 8, 16, 32, 1, 6)
+    slots[1] = 6
+    before = state.clone()
+    y = ssm_state_update(state, slots, x, Bm, Cm, dt, A, D)
+    assert torch.isnan(y[1]).all() and not torch.isnan(y[[0, 2, 3]]).any()
+    idle = [i for i in range(6) if i not in slots.tolist()]
+    assert torch.equal(state[idle], before[idle])
+    with pytest.raises(ValueError, match="dtype"):
+        ssm_state_update(state.bfloat16(), slots, x, Bm, Cm, dt, A, D)
+    with pytest.raises(ValueError, match="contiguous columns"):
+        ssm_state_update(state, slots, x.t().contiguous().t(), Bm, Cm, dt,
+                         A, D)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_state_update(state, slots, x.cpu(), Bm, Cm, dt, A, D)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssm_state_update(state[..., :30].contiguous(), slots,
+                         x.reshape(4, 8, 32)[..., :30].reshape(4, 240)
+                         .contiguous(), Bm, Cm, dt, A, D)   # P % 4
+
+
+def test_fused_expert_ffn_at_granite_shapes(gen):
+    """``fused_expert_ffn`` at granite-4.0-h-small's decode: 64 rows,
+    D 4096, 72 experts of width 768, top-10 (down pass (K*F + 2048) * 4
+    bytes of shared memory), against the plain version."""
+    B, D, F, E, K = 64, 4096, 768, 72, 10
+    x = _rnd(gen, B, D)
+    wg, wu = (_rnd(gen, E, D, F, std=D ** -0.5) for _ in range(2))
+    wd = _rnd(gen, E, F, D, std=F ** -0.5)
+    router = torch.randn(D, E, generator=gen, device="cuda") * D ** -0.5
+    wts, ids = torch.topk(torch.softmax(x.float() @ router, -1), K)
+    wts = wts / wts.sum(-1, keepdim=True)
+    got = fused_expert_ffn(x, wg, wu, wd, ids.to(torch.int32), wts)
+    torch.testing.assert_close(got, ref.expert_ffn(x, wg, wu, wd, ids, wts),
+                               **TOL)

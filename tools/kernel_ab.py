@@ -24,6 +24,16 @@ designs) are timed apart under ``torch.profiler``, whole and over the
 first quarter of the experts, each against the weight bytes it reads.
 Prints the card, one JSON line per run and a table.
 
+    python3 tools/kernel_ab.py --ssm
+
+times the Mamba-2 decode state update (``kernels/ops.py
+ssm_state_update``) at granite-4.0-h-small's heads (128 of P 64, N
+128, one group) over 65 slots at 1, 8, 32 and 64 rows in permuted
+slots through ``chip_smoke.ssm_kernels``, cold as ``chip_smoke.time_ms``
+times (``ms``, ``device_ms``), beside its plain version's ``ms`` and its
+bound (the state read and written once, ``perfbench/costs/hybrid.py``);
+each call checked against the plain version first.
+
     python3 tools/kernel_ab.py --moe-layer
 
 times one prefill MoE layer (``models/modules.py::moe_fwd``) of this
@@ -211,6 +221,41 @@ def moe_layer() -> dict:
     return rows
 
 
+SSM_ROWS = (1, 8, 32, 64)
+
+
+def ssm_kernel() -> dict:
+    """The ``--ssm`` rows, ``chip_smoke.ssm_kernels`` at ``SSM_ROWS``:
+    {rows: {ms, device_ms, plain_ms, bound_ms, max_abs_err}}."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED)
+    rows = cs.ssm_kernels(gen, SSM_ROWS)
+    return {B: {k: rows[f"ssm_state_update@B{B}"][k]
+                for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                          "max_abs_err")}
+            for B in SSM_ROWS}
+
+
+def ssm_main() -> int:
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    rows = ssm_kernel()
+    print(json.dumps(rows), flush=True)
+    for B, r in rows.items():
+        print(f"rows {B:3d}: ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+              f"({100 * r['bound_ms'] / r['device_ms']:.1f}% of it) "
+              f"max err {r['max_abs_err']:.2e}")
+    return 0
+
+
 def moe_layer_main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -271,6 +316,8 @@ def child(tree: Path) -> dict:
 def main() -> int:
     if sys.argv[1:] == ["--moe-layer"]:
         return moe_layer_main()
+    if sys.argv[1:] == ["--ssm"]:
+        return ssm_main()
     if sys.argv[1:2] == ["--child"]:
         print(json.dumps(child(Path(sys.argv[2]).resolve())), flush=True)
         return 0
